@@ -1,0 +1,31 @@
+"""MemorySim core on PyTorch: the cycle-accurate DRAM subsystem simulator
+and the DRAMSim3-like open-page reference it is evaluated against."""
+
+from repro_torch.core.params import (
+    DEFAULT_CONFIG,
+    MemSimConfig,
+    ParamSchedule,
+    RuntimeParams,
+    Topology,
+    as_schedule,
+)
+from repro_torch.core.simulator import SimResult, Trace, simulate
+from repro_torch.core.engine import simulate_fast
+from repro_torch.core.ideal import ideal_latencies, simulate_ideal
+from repro_torch.core import stats
+
+__all__ = [
+    "DEFAULT_CONFIG",
+    "MemSimConfig",
+    "ParamSchedule",
+    "RuntimeParams",
+    "Topology",
+    "as_schedule",
+    "SimResult",
+    "Trace",
+    "simulate",
+    "simulate_fast",
+    "simulate_ideal",
+    "ideal_latencies",
+    "stats",
+]

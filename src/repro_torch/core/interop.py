@@ -1,0 +1,117 @@
+"""Carry simulator objects between the JAX reference and this package.
+
+Both packages' objects cross as numpy arrays, so this module imports
+neither JAX nor the reference package:
+
+* :func:`trace_from_numpy` — a trace's four arrays (already arrival-sorted)
+  -> :class:`Trace` on a device;
+* :func:`schedule_from_numpy` — a packed schedule ``(bounds [S, 1] or [S],
+  rp [T*S, NP])`` -> :class:`ParamSchedule`;
+* :func:`flatten` — any register file made of NamedTuples, dicts and
+  arrays (this package's or the reference's) -> ``{dotted.name: ndarray}``;
+* :func:`state_from_numpy` / :func:`state_to_numpy` — a flat dict of every
+  :class:`SimState` leaf <-> this package's :class:`SimState`, adding and
+  stripping the write-sink slots (see ``repro_torch.core.simulator``).
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from repro_torch.core.bank_fsm import BankState
+from repro_torch.core.dram_model import TimingState
+from repro_torch.core.params import ParamSchedule
+from repro_torch.core.queues import BankedFifo, Fifo
+from repro_torch.core.simulator import SimState, Trace
+
+#: SimState leaves that carry a trailing write-sink slot in this package
+SINK_FIELDS = ("mem", "t_admit", "t_dispatch", "t_start", "t_complete",
+               "rdata")
+
+
+def _t(x, device) -> torch.Tensor:
+    a = np.asarray(x).astype(np.int32)
+    return torch.from_numpy(np.ascontiguousarray(a).reshape(a.shape)).to(
+        device)
+
+
+def trace_from_numpy(t, addr, is_write, wdata, device=None) -> Trace:
+    """A :class:`Trace` from arrays already sorted by arrival (as a
+    reference trace holds them)."""
+    return Trace(_t(t, device), _t(addr, device), _t(is_write, device),
+                 _t(wdata, device))
+
+
+def schedule_from_numpy(bounds, rp_mat) -> ParamSchedule:
+    """A :class:`ParamSchedule` (CPU tensors) from a packed schedule."""
+    b = _t(bounds, None).reshape(-1)
+    return ParamSchedule.unpack(b, _t(rp_mat, None))
+
+
+def flatten(obj, prefix: str = "") -> Dict[str, np.ndarray]:
+    """``{dotted.name: ndarray}`` of every leaf of a nest of NamedTuples
+    and dicts (tensors of any device, or anything ``np.asarray`` reads)."""
+    out: Dict[str, np.ndarray] = {}
+    if hasattr(obj, "_fields"):
+        for f in obj._fields:
+            out.update(flatten(getattr(obj, f), f"{prefix}{f}."))
+    elif isinstance(obj, dict):
+        for k in sorted(obj):
+            out.update(flatten(obj[k], f"{prefix}{k}."))
+    elif isinstance(obj, (tuple, list)):
+        for i, v in enumerate(obj):
+            out.update(flatten(v, f"{prefix}{i}."))
+    elif isinstance(obj, torch.Tensor):
+        out[prefix[:-1]] = obj.detach().cpu().numpy()
+    else:
+        out[prefix[:-1]] = np.asarray(obj)
+    return out
+
+
+def state_to_numpy(state: SimState) -> Dict[str, np.ndarray]:
+    """Every leaf of a :class:`SimState`, sink slots stripped, so the dict
+    compares key for key with ``flatten`` of a reference state."""
+    flat = flatten(state)
+    for f in SINK_FIELDS:
+        flat[f] = flat[f][:-1]
+    return flat
+
+
+def state_from_numpy(flat: Dict[str, np.ndarray], device=None) -> SimState:
+    """A :class:`SimState` on ``device`` from a flat dict of every leaf
+    (as :func:`flatten` gives it for a reference state)."""
+    def g(name):
+        return _t(flat[name], device)
+
+    def sink(name):
+        a = np.asarray(flat[name])
+        return _t(np.concatenate([a, np.zeros((1,), a.dtype)]), device)
+
+    counters = {k[len("counters."):]: g(k) for k in flat
+                if k.startswith("counters.")}
+    return SimState(
+        next_arrival=g("next_arrival"),
+        req_q=Fifo(*[g(f"req_q.{f}") for f in Fifo._fields]),
+        bank_q=BankedFifo(*[g(f"bank_q.{f}") for f in BankedFifo._fields]),
+        bank=BankState(*[g(f"bank.{f}") for f in BankState._fields]),
+        timing=TimingState(*[g(f"timing.{f}") for f in TimingState._fields]),
+        cmd_rr=g("cmd_rr"),
+        resp_rr=g("resp_rr"),
+        resp_q=Fifo(*[g(f"resp_q.{f}") for f in Fifo._fields]),
+        mem=sink("mem"),
+        t_admit=sink("t_admit"),
+        t_dispatch=sink("t_dispatch"),
+        t_start=sink("t_start"),
+        t_complete=sink("t_complete"),
+        rdata=sink("rdata"),
+        counters=counters,
+        blocked_arrival=g("blocked_arrival"),
+        blocked_dispatch=g("blocked_dispatch"),
+    )
+
+
+__all__ = ["SINK_FIELDS", "trace_from_numpy", "schedule_from_numpy",
+           "flatten", "state_to_numpy", "state_from_numpy"]

@@ -1,0 +1,354 @@
+"""The fused hot-loop kernel K3: ONE launch per executed cycle.
+
+It does phases 3-7 of ``repro_torch.core.simulator.cycle_step`` plus the
+event-horizon bound of ``repro_torch.core.engine._next_event``:
+
+  * command bids + rank timing legality,
+  * the per-(lane, channel) rotating-priority command arbiter,
+  * the rank timing-window update (``record_issue``, rank-uniform),
+  * response arbitration + respQueue push with ready&valid gating,
+  * the FSM clock edge (the same network as K1) and the bank-queue pop
+    bookkeeping (the head peek stays in the glue and arrives as pop rows),
+  * the flow-through respQueue ack,
+  * the event bound at ``cycle + 1`` on the post-edge state, giving the
+    skip ``delta`` per lane.
+
+The kernel takes ``lanes`` independent lanes (lane-major bank axis,
+position = lane * B + bank); the single-lane engines call it with
+``lanes=1``.
+
+ABI (all int32; L lanes, B banks a lane, Qr respQueue capacity, F = 4
+request fields, T tiers, S schedule segments, C channels, NP = 17):
+
+  inputs   bank rows [23, L*B]: state 0-9 | qmeta 10-11 (head, count) |
+           timing 12-18 (last_act, act_win0..3, last_rd, last_wr of the
+           bank's rank) | pop 19-22 (head items; garbage where empty)
+           resp_buf [L*Qr, F] | rp_mat [L*T*S, NP] (each lane's block is
+           its own tier-major ``ParamSchedule.pack``) | bounds [L*S, 1] |
+           scal [L, 8+C] = (cycle, arrival_rel, horizon, req_count,
+           resp_head, resp_count, resp_limit, resp_rr, cmd_rr[C]); cycle
+           and horizon are read from lane 0 (the shared batch clock)
+  outputs  bank rows [22, L*B]: new_state 0-9 | flags 10-12 (want_pop,
+           rw_done, completed) | qmeta2 13-14 | timing2 15-21
+           (rank-uniform) | resp_buf2 [L*Qr, F] | scal2 [L, 9+2C] =
+           (delta, resp_rr2, resp_head2, resp_count2, ack_valid,
+           fitem[F], cmd_rr2[C], issued_cmd[C])
+
+``fused_step`` launches the CUDA kernel (``csrc/fused.cu``) for CUDA
+tensors and runs ``fused_step_plain`` — the same function written with
+PyTorch ops — for CPU tensors.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.core.bank_fsm import (
+    BankState,
+    compute_bids,
+    cycles_until_actionable,
+    fsm_update,
+    wait_mask,
+)
+from repro_torch.core.params import (
+    CMD_ACT,
+    CMD_NOP,
+    CMD_RD,
+    CMD_WR,
+    I32,
+    NUM_RUNTIME_PARAMS,
+    RuntimeParams,
+    S_IDLE,
+    S_RESP_PEND,
+    S_SREF,
+    SCHEDULE_INF,
+    Topology,
+)
+from repro_torch.kernels import build
+
+_NEG = -(1 << 20)  # dram_model's "legal since long ago"
+
+NUM_BANK_ROWS_IN = 23    # state 10 + qmeta 2 + timing 7 + pop 4
+NUM_BANK_ROWS_OUT = 22   # state 10 + flags 3 + qmeta 2 + timing 7
+NUM_SCAL_IN = 8          # + channels
+NUM_SCAL_OUT = 9         # + 2 * channels
+MAX_LANE_BANKS = 1024    # one thread per bank of a lane, one CTA per lane
+
+
+def _check_abi(topo, bank_rows, resp_buf, rp_mat, bounds, scal, lanes):
+    b = topo.num_banks
+    total = lanes * b
+    c = topo.channels
+    if bank_rows.shape != (NUM_BANK_ROWS_IN, total):
+        raise ValueError(
+            f"fused_step: bank rows must be [{NUM_BANK_ROWS_IN}, "
+            f"{lanes}*{b}], got {tuple(bank_rows.shape)}")
+    if resp_buf.dim() != 2 or resp_buf.shape[1] != 4 \
+            or resp_buf.shape[0] % lanes or resp_buf.shape[0] == 0:
+        raise ValueError(f"fused_step: resp_buf must be [L*Qr, 4], got "
+                         f"{tuple(resp_buf.shape)}")
+    s = bounds.shape[0] // lanes
+    if bounds.shape != (lanes * s, 1) or s < 1:
+        raise ValueError(f"fused_step: bounds must be [L*S, 1], got "
+                         f"{tuple(bounds.shape)}")
+    if rp_mat.shape != (lanes * topo.tiers * s, NUM_RUNTIME_PARAMS):
+        raise ValueError(
+            f"fused_step: rp must be [L*T*S, {NUM_RUNTIME_PARAMS}] = "
+            f"[{lanes}*{topo.tiers}*{s}, {NUM_RUNTIME_PARAMS}], got "
+            f"{tuple(rp_mat.shape)}")
+    if scal.shape != (lanes, NUM_SCAL_IN + c):
+        raise ValueError(f"fused_step: scal must be [{lanes}, "
+                         f"{NUM_SCAL_IN + c}], got {tuple(scal.shape)}")
+    return s
+
+
+def fused_step_cuda(topo: Topology, bank_rows: torch.Tensor,
+                    resp_buf: torch.Tensor, rp_mat: torch.Tensor,
+                    bounds: torch.Tensor, scal: torch.Tensor,
+                    lanes: int = 1
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch K3 (CUDA tensors only). Returns (bank_rows2 [22, L*B],
+    resp_buf2 [L*Qr, 4], scal2 [L, 9+2C])."""
+    build.require_cuda("fused_step", bank_rows=bank_rows, resp_buf=resp_buf,
+                       rp=rp_mat, bounds=bounds, scal=scal)
+    s = _check_abi(topo, bank_rows, resp_buf, rp_mat, bounds, scal, lanes)
+    b = topo.num_banks
+    if b > MAX_LANE_BANKS:
+        raise ValueError(f"fused_step: {b} banks a lane exceed the "
+                         f"{MAX_LANE_BANKS} threads of one CTA")
+    lib = build.load()["fused"]
+    dev = bank_rows.device
+    bank2 = torch.empty((NUM_BANK_ROWS_OUT, lanes * b), dtype=I32,
+                        device=dev)
+    resp2 = torch.empty_like(resp_buf)
+    scal2 = torch.empty((lanes, NUM_SCAL_OUT + 2 * topo.channels),
+                        dtype=I32, device=dev)
+    err = lib.fused_step_launch(
+        bank_rows.data_ptr(), resp_buf.data_ptr(), rp_mat.data_ptr(),
+        bounds.data_ptr(), scal.data_ptr(), bank2.data_ptr(),
+        resp2.data_ptr(), scal2.data_ptr(), lanes, b,
+        resp_buf.shape[0] // lanes, s, topo.tiers,
+        topo.tier_split_bank if topo.tiers > 1 else b, topo.channels,
+        topo.banks_per_channel, topo.banks_per_rank, topo.queue_size,
+        topo.row_shift, build.stream_of(bank_rows))
+    build.check(err, "fused_step")
+    build.LAUNCHES["k3"] += 1
+    return bank2, resp2, scal2
+
+
+def _resolve_rp_lanes(rp_mat, bounds, cycle, lanes: int, width: int,
+                      tiers: int, tier_split: int) -> RuntimeParams:
+    """Each lane's parameter row of the segment governing ``cycle``,
+    broadcast per position to int32[L*width] leaves (per tier at the
+    static ``tier_split`` within each lane's bank block)."""
+    s = rp_mat.shape[0] // (lanes * tiers)
+    dev = rp_mat.device
+    if s == 1 and lanes == 1 and tiers == 1:
+        # one row for every position: 0-d leaves broadcast the same way
+        return RuntimeParams(*rp_mat[0].unbind())
+    if s == 1:
+        rows = rp_mat.reshape(lanes, tiers, -1)                  # [L, T, NP]
+    else:
+        bnd = bounds.reshape(lanes, s)
+        segs = (bnd <= cycle).to(I32).sum(dim=1) - 1
+        onehot = (torch.arange(s, device=dev)[None, :]
+                  == segs[:, None]).to(I32)
+        rows = (rp_mat.reshape(lanes, tiers, s, -1)
+                * onehot[:, None, :, None]).sum(dim=2).to(I32)
+    bi = torch.arange(width, device=dev)[None, :]
+    leaves = []
+    for j in range(NUM_RUNTIME_PARAMS):
+        col = rows[:, :, j]                                      # [L, T]
+        val = col[:, 0:1].expand(lanes, width)
+        for t in range(1, tiers):
+            val = torch.where(bi >= tier_split, col[:, t:t + 1], val)
+        leaves.append(val.reshape(lanes * width))
+    return RuntimeParams(*leaves)
+
+
+def _legal_at(rp, cmd, la, aw0, aw1, aw2, aw3, lr, lw):
+    """Lanewise legal_issue_cycle on the per-bank timing rows."""
+    oldest = torch.minimum(torch.minimum(aw0, aw1), torch.minimum(aw2, aw3))
+    act_at = torch.maximum(la + rp.tRRDL, oldest + rp.tFAW)
+    rd_at = torch.maximum(lr + rp.tCCDL, lw + rp.tWTR)
+    wr_at = torch.maximum(lw + rp.tCCDL, lr + rp.tRTW)
+    at = torch.full_like(cmd, _NEG)
+    at = torch.where(cmd == CMD_ACT, act_at, at)
+    at = torch.where(cmd == CMD_RD, rd_at, at)
+    at = torch.where(cmd == CMD_WR, wr_at, at)
+    return at.to(I32)
+
+
+def fused_step_plain(topo: Topology, bank_rows: torch.Tensor,
+                     resp_buf: torch.Tensor, rp_mat: torch.Tensor,
+                     bounds: torch.Tensor, scal: torch.Tensor,
+                     lanes: int = 1
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K3 written with PyTorch ops: same ABI, same integer results."""
+    _check_abi(topo, bank_rows, resp_buf, rp_mat, bounds, scal, lanes)
+    dev = bank_rows.device
+    b = topo.num_banks
+    total = lanes * b
+    nf = resp_buf.shape[1]
+    qr = resp_buf.shape[0] // lanes
+    per = topo.banks_per_channel
+    channels = topo.channels
+    seg_rows = lanes * channels
+    split = topo.tier_split_bank if topo.tiers > 1 else 0
+
+    def r(i):
+        return bank_rows[i]
+
+    cycle = scal[0, 0]
+    horizon = scal[0, 2]
+    arrival_rel = scal[:, 1]
+    req_count = scal[:, 3]
+    resp_head = scal[:, 4]
+    resp_count = scal[:, 5]
+    resp_limit = scal[:, 6]
+    resp_rr = scal[:, 7]
+    cmd_rr = scal[:, NUM_SCAL_IN:NUM_SCAL_IN + channels]          # [L, C]
+    nxt = cycle + 1
+    rp = _resolve_rp_lanes(rp_mat, bounds, cycle, lanes, b, topo.tiers,
+                           split)
+    rp2 = _resolve_rp_lanes(rp_mat, bounds, nxt, lanes, b, topo.tiers, split)
+
+    bank = BankState(*[r(i) for i in range(10)])
+    qhead, qcount = r(10), r(11)
+    la, aw0, aw1, aw2, aw3, lr, lw = (r(i) for i in range(12, 19))
+    pop_item = bank_rows[19:23].T                                 # [L*B, 4]
+    queue_nonempty = qcount > 0
+
+    # ---- phase 3: bids, legality, per-channel RR grant, record_issue -------
+    _, cmds = compute_bids(bank.st, bank.cur_write)
+    bids = cmds != CMD_NOP
+    eligible = bids & (cycle >= _legal_at(rp, cmds, la, aw0, aw1, aw2, aw3,
+                                          lr, lw))
+    elig_m = eligible.reshape(seg_rows, per)
+    wi = torch.arange(per, dtype=I32, device=dev)[None, :]
+    ptr = cmd_rr.reshape(seg_rows, 1)
+    rot = (wi - ptr) % per
+    key = torch.where(elig_m, rot, per)
+    m = key.min(dim=1, keepdim=True).values                       # [L*C, 1]
+    any_g = m < per
+    g_m = elig_m & (rot == m)
+    grant = g_m.reshape(total)
+    cmd_rr2 = torch.where(any_g, (ptr + m + 1) % per, ptr).reshape(
+        lanes, channels)
+    g_i = g_m.to(I32)
+    cmd_w = (g_i * cmds.reshape(seg_rows, per)).sum(
+        dim=1, keepdim=True).to(I32)                  # CMD_NOP when no grant
+    issued = cmd_w.reshape(lanes, channels)
+    rank_in = wi // topo.banks_per_rank
+    rank_w = (g_i * rank_in).sum(dim=1, keepdim=True).to(I32)
+    upd = rank_in == rank_w
+    hit_act = any_g & (cmd_w == CMD_ACT) & upd
+    is_rd = any_g & (cmd_w == CMD_RD) & upd
+    is_wr = any_g & (cmd_w == CMD_WR) & upd
+
+    def m2(x):
+        return x.reshape(seg_rows, per)
+
+    # tFAW window: replace the first-minimum slot (argmin tie order)
+    awm = torch.minimum(torch.minimum(m2(aw0), m2(aw1)),
+                        torch.minimum(m2(aw2), m2(aw3)))
+    s0 = m2(aw0) == awm
+    s1 = (m2(aw1) == awm) & ~s0
+    s2 = (m2(aw2) == awm) & ~s0 & ~s1
+    s3 = ~s0 & ~s1 & ~s2
+    la2 = torch.where(hit_act, cycle, m2(la)).reshape(total)
+    aw0_2 = torch.where(hit_act & s0, cycle, m2(aw0)).reshape(total)
+    aw1_2 = torch.where(hit_act & s1, cycle, m2(aw1)).reshape(total)
+    aw2_2 = torch.where(hit_act & s2, cycle, m2(aw2)).reshape(total)
+    aw3_2 = torch.where(hit_act & s3, cycle, m2(aw3)).reshape(total)
+    lr2 = torch.where(is_rd, cycle, m2(lr)).reshape(total)
+    lw2 = torch.where(is_wr, cycle, m2(lw)).reshape(total)
+
+    # ---- phase 4: response arbitration + respQueue push --------------------
+    resp_full = resp_count >= resp_limit                          # [L]
+    bids_r = (bank.st == S_RESP_PEND).reshape(lanes, b) & ~resp_full[:, None]
+    bi = torch.arange(b, dtype=I32, device=dev)[None, :]
+    rot_r = (bi - resp_rr[:, None]) % b
+    key_r = torch.where(bids_r, rot_r, b)
+    m_r = key_r.min(dim=1).values                                 # [L]
+    any_resp = m_r < b
+    accept_m = bids_r & (rot_r == m_r[:, None])
+    accept = accept_m.reshape(total)
+    resp_rr2 = torch.where(any_resp, (resp_rr + m_r + 1) % b, resp_rr)
+    a_i = accept_m.to(I32)
+    item = torch.stack([
+        (a_i * bank.cur_addr.reshape(lanes, b)).sum(dim=1),
+        (a_i * bank.cur_write.reshape(lanes, b)).sum(dim=1),
+        (a_i * bank.cur_data.reshape(lanes, b)).sum(dim=1),
+        (a_i * bank.cur_id.reshape(lanes, b)).sum(dim=1),
+    ], dim=1).to(I32)                                             # [L, F]
+    old = resp_buf.reshape(lanes, qr, nf)
+    widx = (resp_head + resp_count) % qr                          # [L]
+    qi = torch.arange(qr, dtype=I32, device=dev)[None, :]
+    at_w = (qi == widx[:, None]) & any_resp[:, None]
+    resp_buf2 = torch.where(at_w[:, :, None], item[:, None, :], old).reshape(
+        lanes * qr, nf)
+    resp_count1 = resp_count + any_resp.to(I32)
+
+    # ---- phase 5: FSM clock edge + bank-queue pop bookkeeping --------------
+    new_bank, outs = fsm_update(topo, rp, bank, grant, accept,
+                                queue_nonempty, pop_item, cycle)
+    wp = outs.want_pop.to(I32)
+    qhead2 = (qhead + wp) % topo.queue_size
+    qcount2 = qcount - wp
+
+    # ---- phase 7: flow-through respQueue ack (Fifo.pop post-push) ----------
+    ack = resp_count1 > 0                                         # [L]
+    head_oh = (qi == resp_head[:, None]).to(I32)
+    head_row = (old * head_oh[:, :, None]).sum(dim=1).to(I32)     # [L, F]
+    fitem = torch.where((any_resp & (widx == resp_head))[:, None], item,
+                        head_row)
+    resp_head2 = (resp_head + ack.to(I32)) % qr
+    resp_count2 = resp_count1 - ack.to(I32)
+
+    # ---- event-horizon bound at nxt on the post-edge state -----------------
+    st2 = new_bank.st
+    local = cycles_until_actionable(rp2, new_bank, nxt)
+    _, cmds_n = compute_bids(st2, new_bank.cur_write)
+    bids_n = cmds_n != CMD_NOP
+    legal_n = _legal_at(rp2, cmds_n, la2, aw0_2, aw1_2, aw2_2, aw3_2, lr2,
+                        lw2)
+    blocked_n = bids_n & ~(nxt >= legal_n)
+    inert = (wait_mask(st2) | blocked_n
+             | (((st2 == S_IDLE) | (st2 == S_SREF)) & ~(qcount2 > 0)))
+    gate = inert.to(I32).reshape(lanes, b).min(dim=1).values == 1
+    per_bank = torch.where(blocked_n, legal_n - nxt, local).reshape(
+        lanes, b).min(dim=1).values
+    bnd = bounds.reshape(lanes, -1)
+    nb = torch.where(bnd > nxt, bnd, SCHEDULE_INF).min(dim=1).values
+    b_val = torch.minimum(torch.minimum(per_bank, arrival_rel),
+                          horizon - nxt)
+    b_val = torch.minimum(b_val, nb - nxt)
+    maybe = (req_count == 0) & (resp_count2 == 0)
+    delta = torch.where(maybe & gate, b_val.clamp(min=0), 0)      # [L]
+
+    bank_rows2 = torch.stack(
+        list(new_bank)
+        + [outs.want_pop.to(I32), outs.rw_done.to(I32),
+           outs.completed.to(I32), qhead2, qcount2,
+           la2, aw0_2, aw1_2, aw2_2, aw3_2, lr2, lw2]).to(I32)
+    scal2 = torch.cat([
+        torch.stack([delta, resp_rr2, resp_head2, resp_count2,
+                     ack.to(I32)], dim=1).to(I32),
+        fitem, cmd_rr2, issued,
+    ], dim=1).to(I32)
+    return bank_rows2, resp_buf2, scal2
+
+
+def fused_step(topo: Topology, bank_rows: torch.Tensor,
+               resp_buf: torch.Tensor, rp_mat: torch.Tensor,
+               bounds: torch.Tensor, scal: torch.Tensor, lanes: int = 1
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K3 on CUDA tensors, its plain version on CPU tensors."""
+    if bank_rows.is_cuda:
+        return fused_step_cuda(topo, bank_rows, resp_buf, rp_mat, bounds,
+                               scal, lanes)
+    return fused_step_plain(topo, bank_rows, resp_buf, rp_mat, bounds, scal,
+                            lanes)

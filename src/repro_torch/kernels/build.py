@@ -1,0 +1,158 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/*.cu`` file is compiled by ``nvcc`` into its own shared library
+with a plain C interface (``-gencode arch=compute_90a,code=sm_90a``, Hopper)
+and loaded with ``ctypes``. The build happens once per process, at the
+first launch, into ``build/repro_torch/<hash>/`` at the repository root,
+where ``<hash>`` is a digest of every source and header, so an edited
+source is rebuilt and an unchanged one is reused by later processes. All
+``nvcc`` processes start together. A failed build raises.
+
+``LAUNCHES`` counts the launches of each kernel; a wrapper adds one where it
+launches its kernel and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict
+
+#: launches per kernel since the last :func:`reset_launches`
+LAUNCHES: Dict[str, int] = {"k1": 0, "k2": 0, "k3": 0}
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+#: library -> {C entry point: argtypes}
+_ENTRY_POINTS = {
+    "bank_fsm": {
+        "bank_fsm_step_launch": [_P] * 8 + [_I] * 5 + [_P],
+        "bank_event_bound_launch": [_P] * 5 + [_I] * 4 + [_P],
+    },
+    "fused": {
+        "fused_step_launch": [_P] * 8 + [_I] * 11 + [_P],
+    },
+}
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+_build_seconds = [0.0]
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def source_hash() -> str:
+    h = hashlib.sha256()
+    for p in sorted(CSRC.iterdir()):
+        if p.suffix in (".cu", ".cuh", ".h"):
+            h.update(p.name.encode())
+            h.update(p.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built "
+                       "(CUDA tensors need the CUDA toolkit)")
+
+
+def build_seconds() -> float:
+    """Wall seconds this process spent building (0 when the libraries were
+    already on disk)."""
+    return _build_seconds[0]
+
+
+def load() -> Dict[str, ctypes.CDLL]:
+    """The loaded kernel libraries, building them first if needed."""
+    with _lock:
+        if _libs:
+            return _libs
+        out_dir = BUILD_ROOT / source_hash()
+        out_dir.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        todo = [n for n in _ENTRY_POINTS
+                if not (out_dir / f"lib{n}.so").exists()]
+        nvcc = _nvcc() if todo else None
+        procs = {}
+        for name in todo:
+            tmp = out_dir / f".lib{name}.{os.getpid()}.so"
+            with open(out_dir / f"{name}.log", "w") as log:
+                cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+                       str(CSRC / f"{name}.cu")]
+                procs[name] = (subprocess.Popen(
+                    cmd, stdout=log, stderr=subprocess.STDOUT), tmp)
+        # wait for every compiler before reporting any failure
+        codes = {name: proc.wait() for name, (proc, _) in procs.items()}
+        for name, rc in codes.items():
+            if rc != 0:
+                raise RuntimeError(
+                    f"nvcc failed on csrc/{name}.cu (exit {rc}):\n"
+                    + (out_dir / f"{name}.log").read_text())
+            os.replace(procs[name][1], out_dir / f"lib{name}.so")
+        if procs:
+            _build_seconds[0] += time.perf_counter() - t0
+        libs = {}
+        for name, fns in _ENTRY_POINTS.items():
+            lib = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
+            for fn, argtypes in fns.items():
+                f = getattr(lib, fn)
+                f.argtypes = argtypes
+                f.restype = ctypes.c_int
+            libs[name] = lib
+        _libs.update(libs)
+        return _libs
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
+
+
+def stream_of(t) -> int:
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require_cuda(name: str, **tensors) -> None:
+    """Raise unless every tensor is a contiguous int32 CUDA tensor on the
+    current device."""
+    import torch
+
+    dev = None
+    for k, t in tensors.items():
+        if not (isinstance(t, torch.Tensor) and t.is_cuda):
+            raise ValueError(f"{name}: {k} must be a CUDA tensor")
+        if t.dtype != torch.int32:
+            raise ValueError(f"{name}: {k} must be int32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {k} must be contiguous")
+        if dev is None:
+            dev = t.device
+        elif t.device != dev:
+            raise ValueError(f"{name}: {k} is on {t.device}, not {dev}")
+    if dev is not None and dev.index not in (None,
+                                             torch.cuda.current_device()):
+        raise ValueError(f"{name}: tensors on {dev} but the current device "
+                         f"is cuda:{torch.cuda.current_device()}")

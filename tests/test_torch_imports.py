@@ -1,0 +1,75 @@
+"""Package rules of the PyTorch port: src/repro_torch and chip_smoke.py
+import neither JAX nor the reference package (an AST scan of every
+import), and the entry points never fall back to the CPU on their own."""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "id", None) == "__import__" and node.args and \
+                isinstance(node.args[0], ast.Constant):
+            yield node.args[0].value
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_port_imports_no_jax_and_no_reference(path):
+    for mod in imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), \
+            f"{path.relative_to(ROOT)} imports {mod}"
+
+
+def test_scan_covers_the_package():
+    names = {p.name for p in PORT_FILES}
+    assert {"params.py", "simulator.py", "engine.py", "fused.py",
+            "chip_smoke.py", "interop.py"} <= names
+
+
+@pytest.mark.parametrize("entry", ["simulate", "simulate_fast",
+                                   "simulate_ideal"])
+def test_entry_points_raise_without_a_card(entry):
+    import repro_torch.core as core
+    from repro_torch.traces import trace_example
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None selects it")
+    args = () if entry == "simulate_ideal" else (10,)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        getattr(core, entry)(core.MemSimConfig(), trace_example(n=4), *args)
+
+
+def test_cuda_wrappers_reject_cpu_tensors():
+    """The CUDA kernel wrappers take CUDA tensors only; CPU tensors go to
+    the plain versions through the dispatching entry points."""
+    from repro_torch.core.params import MemSimConfig, ParamSchedule
+    from repro_torch.kernels.bank_fsm.bank_fsm import bank_fsm_step_cuda
+    from repro_torch.kernels.bank_fsm.fused import fused_step_cuda
+
+    topo = MemSimConfig().topology()
+    z = torch.zeros((10, 32), dtype=torch.int32)
+    bounds, rp = ParamSchedule.constant(MemSimConfig().runtime()).pack()
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        bank_fsm_step_cuda(topo, z, z[:3], z[:4], rp, bounds,
+                           torch.zeros((1, 1), dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fused_step_cuda(topo, torch.zeros((23, 32), dtype=torch.int32),
+                        torch.zeros((64, 4), dtype=torch.int32), rp, bounds,
+                        torch.zeros((1, 9), dtype=torch.int32))
