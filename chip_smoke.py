@@ -28,7 +28,27 @@ Phases (any failed check exits non-zero):
    its host launch (median of 200 calls);
 6. where a main-path step's time goes: a torch.profiler device trace of
    conv2d over 5000 cycles (kernels and device time per executed step)
-   and the count of host synchronisations per executed step.
+   and the count of host synchronisations per executed step;
+7. the attention kernels against their plain versions on the card, in
+   float32 (max abs error 1e-5) and bfloat16 (2e-2), with random kv_len
+   including 1 and S: K5 (decode) on the reference test shapes, a GQA
+   group of 5, and qwen3-14b's 40/8 heads at the shapes phase 8 gives it
+   (B = 4, S = 256 served; B = 2, S = 128 in the invariant), at S = 4096
+   and at a ragged S = 600; K6 (prefill) on the reference test shapes,
+   qwen3-14b's B = 2 at S = 1024 (prefill) and S = 128 (the invariant's
+   prefill), and a ragged S = 200, causal and not;
+8. the LLM serve path at full width: qwen3-14b (40 layers, d_model 5120,
+   unreduced), random weights from ``torch.Generator().manual_seed(0)``
+   on the host, each matrix cast to bfloat16 and moved to the card; a prefill
+   of 2 x 1024 tokens (K6 launches = 40), then ``serve_loop`` with 8
+   requests through 4 slots (K5 launches = 40 x steps), then the serving
+   invariant: 128 teacher-forced decode steps with the kernels and with
+   the plain versions, each against the prefill's last-token logits;
+9. attention times: device time per launch of K5 at the served shape and
+   at S = 4096 and of K6 at B = 2, S = 1024 (CUDA-graph replays timed
+   with CUDA events, median), beside the plain version, PyTorch's
+   ``scaled_dot_product_attention`` (timed only, never on the path) and
+   the bound.
 
 The second-to-last lines are the kernel JSON object and the card line of
 ``nvidia-smi``; the last line is ``{"ok": true, "device": {...}}``.
@@ -44,6 +64,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published HBM3 bandwidth
+BF16_FLOPS_PER_S = 989e12  # H100 SXM published dense bf16 tensor-core rate
 
 
 class CheckFailed(Exception):
@@ -546,6 +567,18 @@ def phase_times():
     return out
 
 
+def device_rows(prof):
+    """The rows of a profile's ``key_averages()`` that ran on the device
+    (kernels, copies, fills). The rows of CPU operators carry the device
+    time of the kernels they launched as well, so summing every row with
+    device time would count those kernels twice."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages()
+            if e.device_type != DeviceType.CPU
+            and getattr(e, "self_device_time_total", 0) > 0]
+
+
 def phase_trace():
     """Where a main-path step's time goes: a device trace of conv2d over
     5000 cycles (kernels and device time per executed step, device busy
@@ -567,8 +600,7 @@ def phase_trace():
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         simulate_fast(cfg, trace, 5_000, device=DEVICE)
-    dev = [e for e in prof.key_averages()
-           if getattr(e, "self_device_time_total", 0) > 0]
+    dev = device_rows(prof)
     steps = tm["steps"]
     if dev:
         kernels = sum(e.count for e in dev)
@@ -592,6 +624,305 @@ def phase_trace():
           f"{steps} executed steps")
     log(f"[6] host synchronisations: {syncs} for {steps} executed steps "
         f"(one per step reads the skip; the rest are set-up)")
+
+
+# ------------------------------------------------------- LLM serve slice --
+
+FLASH_SHAPES = [  # b, hq, s, d, hkv
+    (1, 4, 128, 64, 4), (2, 8, 256, 64, 2), (1, 8, 256, 128, 8),
+    (1, 10, 256, 128, 2),
+    (2, 40, 1024, 128, 8), (2, 40, 128, 128, 8),  # phase 8's prefills
+    (1, 10, 200, 128, 2)]  # ragged: no multiple of a block
+DECODE_SHAPES = [  # b, hq, hkv, s, d
+    (2, 8, 2, 512, 64), (1, 4, 4, 1024, 128), (4, 16, 2, 2048, 64),
+    (3, 10, 2, 512, 128),
+    (4, 40, 8, 256, 128), (2, 40, 8, 128, 128),  # phase 8's decode steps
+    (4, 40, 8, 4096, 128),
+    (2, 40, 8, 600, 128)]  # ragged: no multiple of a tile
+ATTN_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+def float_err(a, b):
+    import torch
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return float("inf")
+    d = (a.to(torch.float32) - b.to(torch.float32)).abs()
+    return float(d.max()) if torch.isfinite(d).all() else float("inf")
+
+
+def randn(gen, shape, dtype):
+    import torch
+
+    return torch.randn(shape, generator=gen).to(DEVICE, dtype)
+
+
+def phase_attention_kernels():
+    import torch
+    from repro_torch.kernels.decode_attention.decode_attention import (
+        decode_attention_cuda)
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.ref import gqa_attention_ref
+
+    gen = torch.Generator().manual_seed(12)
+    errs = {"k5": 0.0, "k6": 0.0}
+    n5 = n6 = 0
+    for name, tol in ATTN_TOL.items():
+        dt = getattr(torch, name)
+        for b, hq, s, d, hkv in FLASH_SHAPES:
+            q = randn(gen, (b, hq, s, d), dt)
+            k = randn(gen, (b, hkv, s, d), dt)
+            v = randn(gen, (b, hkv, s, d), dt)
+            for causal in (True, False):
+                e = float_err(flash_attention_cuda(q, k, v, causal),
+                              gqa_attention_ref(q, k, v, causal))
+                check(e <= tol, f"K6 != plain at {(b, hq, s, d, hkv)} "
+                      f"causal={causal} {name}: max abs err {e}")
+                errs["k6"] = max(errs["k6"], e)
+                n6 += 1
+        for b, hq, hkv, s, d in DECODE_SHAPES:
+            q = randn(gen, (b, hq, d), dt)
+            k = randn(gen, (b, hkv, s, d), dt)
+            v = randn(gen, (b, hkv, s, d), dt)
+            for draw in range(2):
+                lens = torch.randint(1, s + 1, (b,), generator=gen,
+                                     dtype=torch.int32)
+                lens[0 if draw == 0 else -1] = 1 if draw == 0 else s
+                lens = lens.to(DEVICE)
+                e = float_err(decode_attention_cuda(q, k, v, lens),
+                              decode_attention_ref(q, k, v, lens))
+                check(e <= tol, f"K5 != plain at {(b, hq, hkv, s, d)} "
+                      f"{name} kv_len={lens.tolist()}: max abs err {e}")
+                errs["k5"] = max(errs["k5"], e)
+                n5 += 1
+    torch.cuda.synchronize()
+    log(f"[7] K5 == plain within tolerance on {n5} cases over "
+        f"{len(DECODE_SHAPES)} shapes (max abs err {errs['k5']:.3g}); K6 on "
+        f"{n6} cases over {len(FLASH_SHAPES)} shapes (max abs err "
+        f"{errs['k6']:.3g}); float32 1e-5, bfloat16 2e-2")
+    return errs
+
+
+def phase_serve():
+    """The serve path of the LLM stack at qwen3-14b's full width."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.launch.serve import make_requests, serve_loop
+    from repro_torch.launch.steps import make_decode_step, make_prefill
+    from repro_torch.models import registry
+
+    bf16 = torch.bfloat16
+    cfg = get_config("qwen3-14b")
+    check(cfg.n_layers == 40 and cfg.d_model == 5120,
+          "qwen3-14b config is not the full-width one")
+    t0 = time.perf_counter()
+    params = registry.init_params(cfg, 0, device=DEVICE, dtype=bf16)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    log(f"[8] qwen3-14b: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}: {n_params / 1e9:.3f} B parameters, "
+        f"{n_bytes / 1e9:.2f} GB on the card, drawn in "
+        f"{time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator().manual_seed(1)
+
+    # prefill: 2 prompts of 1024 tokens
+    prefill = make_prefill(cfg, dtype=bf16)
+    toks = torch.randint(1, cfg.vocab, (2, 1024), generator=gen)
+    prefill(params, {"tokens": toks})  # warm-up: cuBLAS handles, kernels
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    logits, caches = prefill(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    pre_launches = dict(build.LAUNCHES)
+    check(pre_launches["k6"] == cfg.n_layers and pre_launches["k5"] == 0,
+          f"prefill launched {pre_launches}, want K6 = {cfg.n_layers}")
+    check(logits.shape == (2, cfg.vocab) and bool(torch.isfinite(
+        logits).all()), "prefill logits are not finite [2, vocab]")
+    check(len(caches) == cfg.n_layers and caches[0]["k"].shape
+          == (2, cfg.n_kv_heads, 1024, cfg.head_dim), "prefill caches")
+    del caches
+    log(f"[8] prefill B=2 S=1024: {prefill_ms:.1f} ms wall, K6 launches "
+        f"{pre_launches['k6']} (= {cfg.n_layers} layers)")
+
+    # serve: 8 requests through 4 slots
+    decode = make_decode_step(cfg, dtype=bf16)
+    batch, max_seq = 4, 256
+    prompts, news = make_requests(0, cfg.vocab, 8, 64, 64)
+    caches = registry.init_caches(cfg, batch, max_seq, dtype=bf16)
+    decode(params, caches, torch.zeros(batch, dtype=torch.int32),
+           torch.zeros(batch, dtype=torch.int32))  # warm-up
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    outputs, joined, steps = serve_loop(decode, params, caches, prompts,
+                                        news, batch, max_seq=max_seq)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    serve_launches = dict(build.LAUNCHES)
+    check(serve_launches["k5"] == cfg.n_layers * steps
+          and serve_launches["k6"] == 0,
+          f"serve launched {serve_launches}, want K5 = {cfg.n_layers} x "
+          f"{steps} steps")
+    check(all(o is not None and len(o) == n
+              and all(0 <= t < cfg.vocab for t in o)
+              for o, n in zip(outputs, news)), "serve outputs")
+    tokens = sum(len(p) for p in prompts) + sum(news)
+    log(f"[8] serve 8 requests / 4 slots (prompts {min(map(len, prompts))}"
+        f"-{max(map(len, prompts))}, max_new {min(news)}-{max(news)}, "
+        f"max_seq {max_seq}): {steps} steps in {wall:.2f} s, "
+        f"{wall / steps * 1e3:.2f} ms per decode step, {tokens / wall:.0f} "
+        f"tok/s ({sum(news) / wall:.0f} generated tok/s); joins {joined}; "
+        f"K5 launches {serve_launches['k5']} = {cfg.n_layers} x {steps}")
+    del caches
+    decode_profile(decode, params, cfg, batch, max_seq)
+
+    # the serving invariant: decode reproduces teacher forcing
+    toks = torch.randint(1, cfg.vocab, (2, 128), generator=gen)
+    ref_last, _ = prefill(params, {"tokens": toks})
+    errs = {}
+    for backend in ("kernel", "plain"):
+        step = make_decode_step(cfg, dtype=bf16, backend=backend)
+        caches = registry.init_caches(cfg, 2, 128, dtype=bf16)
+        for t in range(128):
+            _, last, caches = step(params, caches, toks[:, t],
+                                   torch.full((2,), t, dtype=torch.int32))
+        errs[backend] = float((last - ref_last).abs().max())
+        del caches
+    scale = float(ref_last.abs().max())
+    bound = 1.5 * errs["plain"] + 1e-3 * scale
+    check(errs["kernel"] <= bound, f"decode with kernels is off teacher "
+          f"forcing by {errs['kernel']}, bound {bound}")
+    log(f"[8] invariant, 2 x 128 tokens: max |decode - prefill| logit "
+        f"kernels {errs['kernel']:.4f}, plain {errs['plain']:.4f} (max "
+        f"|logit| {scale:.3f}; bound 1.5 x plain + 1e-3 x max = "
+        f"{bound:.4f})")
+    log(f"[8] peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+        f" GB")
+    del params
+    torch.cuda.empty_cache()
+    return {"k5": serve_launches["k5"], "k6": pre_launches["k6"]}
+
+
+def decode_profile(decode, params, cfg, batch, max_seq, steps=8):
+    """Where a served decode step's time goes: ``steps`` steps at the
+    serve shape (positions 64..), each ending in the host read of the next
+    tokens as in ``serve_loop``; untraced wall, then a torch.profiler trace
+    (device time, kernels and the largest kernels per step)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import registry
+
+    caches = registry.init_caches(cfg, batch, max_seq, dtype=torch.bfloat16)
+    tok = torch.ones(batch, dtype=torch.int32)
+
+    def run():
+        for i in range(steps):
+            pos = torch.full((batch,), 64 + i, dtype=torch.int32)
+            nxt, _, _ = decode(params, caches, tok, pos)
+            nxt.cpu()
+
+    run()
+    t0 = time.perf_counter()
+    run()
+    wall = (time.perf_counter() - t0) / steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+    dev = device_rows(prof)
+    if not dev:
+        log("[8] decode-step device trace: no device events recorded (not "
+            "measured)")
+        return
+    dev_us = sum(e.self_device_time_total for e in dev) / steps
+    kernels = sum(e.count for e in dev) / steps
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:5]
+    log(f"[8] decode step at the serve shape (B={batch}, positions 64-"
+        f"{64 + steps - 1}): {wall * 1e3:.2f} ms wall untraced, "
+        f"{kernels:.0f} device kernels and {dev_us / 1e3:.2f} ms device "
+        f"time per step, device busy {dev_us * 1e-6 / wall:.1%} of the wall; "
+        f"weight-streaming floor 29.54 GB / 3.35 TB/s = 8.82 ms")
+    log("[8] largest per step: " + "; ".join(
+        f"{e.key[:60]} {e.self_device_time_total / steps:.0f} us "
+        f"x{e.count // steps}" for e in top))
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def phase_attention_times():
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention.decode_attention import (
+        decode_attention_cuda)
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.ref import gqa_attention_ref
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator().manual_seed(99)
+    out = {}
+    b, hq, hkv, d = 4, 40, 8, 128
+    for label, s, lens in (("served", 256, [120, 128, 128, 136]),
+                           ("S4096", 4096, [4096] * 4)):
+        q = randn(gen, (b, hq, d), bf16)
+        k = randn(gen, (b, hkv, s, d), bf16)
+        v = randn(gen, (b, hkv, s, d), bf16)
+        kv_len = torch.tensor(lens, dtype=torch.int32, device=DEVICE)
+        mask = (torch.arange(s, device=DEVICE)[None, None, None, :]
+                < kv_len[:, None, None, None])
+        q4 = q[:, :, None]
+        ms = device_ms(lambda: decode_attention_cuda(q, k, v, kv_len))
+        plain_ms = device_ms(lambda: decode_attention_ref(q, k, v, kv_len))
+        lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
+            q4, k, v, attn_mask=mask, enable_gqa=True))
+        call_ms = median_ms(lambda: decode_attention_cuda(q, k, v, kv_len))
+        nbytes = (2 * sum(lens) * hkv * d + 2 * b * hq * d) * 2 + 4 * b
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        out["k5_" + label] = (ms, plain_ms, bound, "bytes", lib_ms)
+        log(f"[9] K5 B={b} Hq={hq} Hkv={hkv} D={d} S={s} kv_len={lens} "
+            f"bf16: device {ms * 1e3:.2f} us/launch (plain "
+            f"{plain_ms * 1e3:.2f} us, sdpa {lib_ms * 1e3:.2f} us); eager "
+            f"call {call_ms * 1e3:.2f} us; bound {bound * 1e3:.2f} us "
+            f"({nbytes} B at 3.35 TB/s, {bound / ms:.0%} of it)")
+    b, s = 2, 1024
+    q = randn(gen, (b, hq, s, d), bf16)
+    k = randn(gen, (b, hkv, s, d), bf16)
+    v = randn(gen, (b, hkv, s, d), bf16)
+    ms = device_ms(lambda: flash_attention_cuda(q, k, v, True))
+    plain_ms = device_ms(lambda: gqa_attention_ref(q, k, v, True),
+                         per_graph=5, replays=20)
+    lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True))
+    flops = 4 * b * hq * d * s * (s + 1) // 2
+    nbytes = (2 * b * hq * s * d + 2 * b * hkv * s * d) * 2
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound = max(t_ops, t_bytes)
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    out["k6"] = (ms, plain_ms, bound, by, lib_ms)
+    log(f"[9] K6 B={b} Hq={hq} Hkv={hkv} S={s} D={d} causal bf16: device "
+        f"{ms * 1e3:.1f} us/launch (plain {plain_ms * 1e3:.1f} us, sdpa "
+        f"{lib_ms * 1e3:.1f} us); bound {bound * 1e3:.2f} us "
+        f"({flops / 1e9:.2f} GFLOP at 989 TFLOP/s = {t_ops * 1e3:.2f} us, "
+        f"{nbytes} B at 3.35 TB/s = {t_bytes * 1e3:.2f} us; {by}; "
+        f"{bound / ms:.1%} of it)")
+    return out
 
 
 def main():
@@ -620,6 +951,9 @@ def main():
         split_launches = phase_per_cycle()
         times = phase_times()
         phase_trace()
+        attn_errs = phase_attention_kernels()
+        llm_launches = phase_serve()
+        attn_times = phase_attention_times()
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -641,6 +975,18 @@ def main():
             "replaces": replaces, "launches": launches,
             "max_abs_err": errs[k], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None})
+    ref = "src/repro/kernels/"
+    for k, name, timed, replaces in (
+            ("k5", "decode_attention", "k5_served",
+             ref + "decode_attention/decode_attention.py:70"),
+            ("k6", "flash_attention", "k6",
+             ref + "flash_attention/flash_attention.py:76")):
+        ms, plain_ms, bound_ms, bound_by, lib_ms = attn_times[timed]
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"{src}{name}.cu",
+            "replaces": replaces, "launches": llm_launches[k],
+            "max_abs_err": attn_errs[k], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -11,12 +11,22 @@ neither JAX nor the reference package:
   arrays (this package's or the reference's) -> ``{dotted.name: ndarray}``;
 * :func:`state_from_numpy` / :func:`state_to_numpy` — a flat dict of every
   :class:`SimState` leaf <-> this package's :class:`SimState`, adding and
-  stripping the write-sink slots (see ``repro_torch.core.simulator``).
+  stripping the write-sink slots (see ``repro_torch.core.simulator``);
+* :func:`lm_params_from_numpy` — the reference's LM parameter tree (body
+  leaves stacked ``[G, ...]``) -> this package's parameters
+  (``repro_torch.models.lm``: one block per layer, in layer order);
+* :func:`lm_caches_from_numpy` / :func:`lm_caches_to_numpy` — the
+  reference's LM caches ``{"prefix": [...], "body": {slot: [G, ...]}}``
+  <-> this package's per-layer cache list.
+
+The LM blocks keep the reference's names and its ``[d_in, d_out]`` weight
+layout, so every parameter maps to the same path and no matrix is
+transposed; only the group stacking is undone.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Callable, Dict, List
 
 import numpy as np
 import torch
@@ -113,5 +123,84 @@ def state_from_numpy(flat: Dict[str, np.ndarray], device=None) -> SimState:
     )
 
 
+def _torch_of(a) -> torch.Tensor:
+    """A CPU tensor holding a copy of a numpy array (the caller's array may
+    be read-only, and caches are written in place); bfloat16 arrays
+    (numpy's extension type, which ``torch.from_numpy`` does not read) go
+    through float32."""
+    a = np.array(a, order="C")
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def _tree_map(fn: Callable, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def _layer_trees(cfg, tree) -> List[Any]:
+    """One subtree per layer, in layer order: the prefix layers, then for
+    each group g the period's slots with every leaf taken at [g]."""
+    out = list(tree.get("prefix", []))
+    for g in range(cfg.groups):
+        for slot in range(len(cfg.period)):
+            out.append(_tree_map(lambda a, g=g: np.asarray(a)[g],
+                                 tree["body"][str(slot)]))
+    return out
+
+
+def lm_params_from_numpy(cfg, tree, device=None,
+                         dtype=torch.float32) -> Dict[str, Any]:
+    """This package's LM parameters from the reference's tree as numpy
+    arrays. Matrices (ndim >= 2) are cast to ``dtype`` once, here, on the
+    host (the reference casts them at every use); norm scales and biases
+    stay float32."""
+    def leaf(a):
+        t = _torch_of(a)
+        if t.is_floating_point() and t.dim() >= 2:
+            t = t.to(dtype)
+        return t.to(device)
+
+    params = {"embed": {"table": leaf(tree["embed"]["table"])},
+              "final_norm": {"scale": leaf(tree["final_norm"]["scale"])}}
+    if "lm_head" in tree:
+        params["lm_head"] = leaf(tree["lm_head"])
+    params["layers"] = [_tree_map(leaf, t) for t in _layer_trees(cfg, tree)]
+    return params
+
+
+def lm_caches_from_numpy(cfg, tree, device=None) -> List[Dict[str, Any]]:
+    """This package's per-layer caches from the reference's cache tree,
+    every leaf keeping its dtype."""
+    return [_tree_map(lambda a: _torch_of(a).to(device), t)
+            for t in _layer_trees(cfg, tree)]
+
+
+def lm_caches_to_numpy(cfg, caches) -> Dict[str, Any]:
+    """The reference's cache tree (``{"prefix": [...], "body": {slot:
+    leaves stacked [G, ...]}}``) from this package's per-layer caches."""
+    def np_of(t):
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:  # numpy has no bfloat16 of its own
+            t = t.float()
+        return t.numpy()
+
+    n_pre = len(cfg.prefix)
+    period = len(cfg.period)
+    body = {}
+    for slot in range(period):
+        per_group = caches[n_pre + slot::period]
+        body[str(slot)] = {k: np.stack([np_of(c[k]) for c in per_group])
+                           for k in per_group[0]}
+    return {"prefix": [_tree_map(np_of, c) for c in caches[:n_pre]],
+            "body": body}
+
+
 __all__ = ["SINK_FIELDS", "trace_from_numpy", "schedule_from_numpy",
-           "flatten", "state_to_numpy", "state_from_numpy"]
+           "flatten", "state_to_numpy", "state_from_numpy",
+           "lm_params_from_numpy", "lm_caches_from_numpy",
+           "lm_caches_to_numpy"]

@@ -3,4 +3,6 @@
   * ``bank_fsm`` — the bank-FSM clock edge (K1), its event bound (K2) and
     the fused hot loop (K3). Sources in ``repro_torch/csrc``; ``build``
     compiles and loads them.
+  * ``decode_attention`` — one-token GQA decode attention (K5).
+  * ``flash_attention`` — blocked causal GQA attention for prefill (K6).
 """

@@ -25,7 +25,7 @@ from pathlib import Path
 from typing import Dict
 
 #: launches per kernel since the last :func:`reset_launches`
-LAUNCHES: Dict[str, int] = {"k1": 0, "k2": 0, "k3": 0}
+LAUNCHES: Dict[str, int] = {"k1": 0, "k2": 0, "k3": 0, "k5": 0, "k6": 0}
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -42,6 +42,12 @@ _ENTRY_POINTS = {
     },
     "fused": {
         "fused_step_launch": [_P] * 8 + [_I] * 11 + [_P],
+    },
+    "decode_attention": {
+        "decode_attention_launch": [_P] * 7 + [_I] * 7 + [_P],
+    },
+    "flash_attention": {
+        "flash_attention_launch": [_P] * 4 + [_I] * 7 + [_P],
     },
 }
 
@@ -135,17 +141,18 @@ def stream_of(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def require_cuda(name: str, **tensors) -> None:
-    """Raise unless every tensor is a contiguous int32 CUDA tensor on the
-    current device."""
+def require_cuda(name: str, dtype=None, **tensors) -> None:
+    """Raise unless every tensor is a contiguous CUDA tensor of ``dtype``
+    (int32 when not given) on the current device."""
     import torch
 
+    dtype = torch.int32 if dtype is None else dtype
     dev = None
     for k, t in tensors.items():
         if not (isinstance(t, torch.Tensor) and t.is_cuda):
             raise ValueError(f"{name}: {k} must be a CUDA tensor")
-        if t.dtype != torch.int32:
-            raise ValueError(f"{name}: {k} must be int32, got {t.dtype}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name}: {k} must be {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {k} must be contiguous")
         if dev is None:

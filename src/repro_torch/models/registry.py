@@ -1,0 +1,41 @@
+"""Arch-id -> model entry points (init / decode / caches).
+
+Decoder-only configs only; encoder-decoder configs raise
+``NotImplementedError`` (queued in ROADMAP item 9). The entry points run on
+the CUDA card unless given ``device="cpu"``, and raise when there is no
+card.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.simulator import resolve_device
+from repro_torch.models import lm
+
+
+def init_params(cfg: ArchConfig, seed: int = 0, device=None,
+                dtype=torch.float32):
+    """Random parameters from ``torch.Generator().manual_seed(seed)`` (a
+    host generator, so one seed gives the same weights on the CPU and on
+    the card), placed on ``device``: matrices in ``dtype``, norm scales and
+    biases in float32. Each matrix is drawn in float32 on the host and
+    cast to ``dtype`` before it is moved.
+    """
+    dev = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+    return lm.init_params(cfg, gen, device=dev, dtype=dtype)
+
+
+def decode_entry(cfg: ArchConfig) -> Callable[..., Any]:
+    lm.check_supported(cfg)
+    return lm.decode_step
+
+
+def init_caches(cfg: ArchConfig, batch: int, max_seq: int,
+                dtype=torch.float32, device=None):
+    return lm.init_caches(cfg, batch, max_seq, dtype,
+                          device=resolve_device(device))

@@ -40,7 +40,9 @@ def test_port_imports_no_jax_and_no_reference(path):
 def test_scan_covers_the_package():
     names = {p.name for p in PORT_FILES}
     assert {"params.py", "simulator.py", "engine.py", "fused.py",
-            "chip_smoke.py", "interop.py"} <= names
+            "chip_smoke.py", "interop.py", "lm.py", "attention.py",
+            "decode_attention.py", "flash_attention.py", "serve.py",
+            "steps.py", "qwen3_14b.py"} <= names
 
 
 @pytest.mark.parametrize("entry", ["simulate", "simulate_fast",
