@@ -48,7 +48,30 @@ Phases (any failed check exits non-zero):
    at S = 4096 and of K6 at B = 2, S = 1024 (CUDA-graph replays timed
    with CUDA events, median), beside the plain version, PyTorch's
    ``scaled_dot_product_attention`` (timed only, never on the path) and
-   the bound.
+   the bound;
+10. K7 (selective scan) against its plain version on the card, y and
+   h_final, in float32 (1e-5 x max |y|, resp. |h|) and bfloat16 (2e-2 +
+   2e-2 |value|), at the reference test shapes, the jamba prefill shape
+   (2, 1024, 8192, 16), the invariant's (2, 128, 8192, 16) and a ragged
+   (2, 200, 600, 16);
+11. the hybrid serve path: qwen3-14b's weights freed, jamba-v0.1 at full
+   width with its depth cut to one period of 8 layers (7 Mamba, 1
+   attention; 4 dense and 4 MoE FFNs); a prefill of 2 x 1024 tokens (K7
+   launches = 7, K6 = 1), ``serve_loop`` with 8 requests through 4 slots
+   (K5 launches = steps), the decode-vs-prefill invariant over 2 x 128
+   teacher-forced steps with the kernels and with the plain versions
+   (with the prefill's MoE drop fractions), each Mamba layer's decode
+   state against K7's h_final from the 128-token prefill (bfloat16: the
+   layers before the first MoE FFN, 5e-2 x max |h|), and the same in
+   float32 with room for every MoE assignment (logits 1e-3 x max |logit|,
+   every Mamba layer 1e-3 x max |h|); peak device memory;
+12. K4 (address decode): its entry point on the four traces' address
+   columns at the Table-1 topology (the launches counted), then against
+   its plain version bit for bit on those and random address sets of
+   N in {1, 1000, 4096, 2^20 + 3} at the Table-1 topology, two channels
+   and two tiered placements; device times of K4 at N = 2^24 and of K7 at
+   the jamba prefill shape beside their plain versions and bounds (no
+   single PyTorch call computes either, so neither has a library time).
 
 The second-to-last lines are the kernel JSON object and the card line of
 ``nvidia-smi``; the last line is ``{"ok": true, "device": {...}}``.
@@ -810,11 +833,13 @@ def phase_serve():
     return {"k5": serve_launches["k5"], "k6": pre_launches["k6"]}
 
 
-def decode_profile(decode, params, cfg, batch, max_seq, steps=8):
+def decode_profile(decode, params, cfg, batch, max_seq, phase="8",
+                   steps=8):
     """Where a served decode step's time goes: ``steps`` steps at the
     serve shape (positions 64..), each ending in the host read of the next
     tokens as in ``serve_loop``; untraced wall, then a torch.profiler trace
-    (device time, kernels and the largest kernels per step)."""
+    (device time, kernels and the largest kernels per step), beside the
+    weight-streaming floor (every parameter byte read once a step)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import registry
@@ -837,18 +862,20 @@ def decode_profile(decode, params, cfg, batch, max_seq, steps=8):
         run()
     dev = device_rows(prof)
     if not dev:
-        log("[8] decode-step device trace: no device events recorded (not "
-            "measured)")
+        log(f"[{phase}] decode-step device trace: no device events recorded "
+            f"(not measured)")
         return
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
     dev_us = sum(e.self_device_time_total for e in dev) / steps
     kernels = sum(e.count for e in dev) / steps
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:5]
-    log(f"[8] decode step at the serve shape (B={batch}, positions 64-"
-        f"{64 + steps - 1}): {wall * 1e3:.2f} ms wall untraced, "
+    log(f"[{phase}] decode step at the serve shape (B={batch}, positions "
+        f"64-{64 + steps - 1}): {wall * 1e3:.2f} ms wall untraced, "
         f"{kernels:.0f} device kernels and {dev_us / 1e3:.2f} ms device "
         f"time per step, device busy {dev_us * 1e-6 / wall:.1%} of the wall; "
-        f"weight-streaming floor 29.54 GB / 3.35 TB/s = 8.82 ms")
-    log("[8] largest per step: " + "; ".join(
+        f"weight-streaming floor {n_bytes / 1e9:.2f} GB / 3.35 TB/s = "
+        f"{n_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms")
+    log(f"[{phase}] largest per step: " + "; ".join(
         f"{e.key[:60]} {e.self_device_time_total / steps:.0f} us "
         f"x{e.count // steps}" for e in top))
 
@@ -925,6 +952,427 @@ def phase_attention_times():
     return out
 
 
+# ------------------------------------------- hybrid serve slice (jamba) --
+
+SCAN_SHAPES = [  # b, t, d, s
+    (2, 64, 32, 8), (1, 512, 512, 16), (3, 128, 64, 16),  # the JAX tests
+    (2, 1024, 8192, 16),  # phase 11's prefill (jamba's d_inner, d_state)
+    (2, 128, 8192, 16),   # phase 11's invariant prefill
+    (2, 200, 600, 16)]    # ragged: no multiple of a chunk or channel block
+#: K7 against its plain version: float32 max abs error relative to max |y|
+#: (resp. max |h|), which leaves room for 1024 steps of accumulated
+#: rounding in another order (fused multiply-adds, the shuffle sum);
+#: bfloat16 inputs |kernel - plain| <= 2e-2 + 2e-2 |plain| per element of
+#: y and of h: one rounding of y at its size, and the kernel's float32
+#: dt * x (the plain version, as the jnp oracle, multiplies in bfloat16)
+SCAN_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+#: H100 SXM: 16 exp per clock per SM on the special-function units, 132
+#: SMs, 1.98 GHz boost clock
+SFU_EXP_PER_S = 132 * 16 * 1.98e9
+F32_FLOPS_PER_S = 67e12  # H100 SXM published float32 rate (no tensor cores)
+#: the decode chain's Mamba state h after 128 steps against K7's h_final
+#: from the 128-token prefill: max abs error relative to max |h| per
+#: layer. The two differ by rounding upstream of the scan (a 1-token
+#: against a 128-token product at every layer): in bfloat16 ~1% of max |h|
+#: (held on the layers before the first MoE FFN), in float32 far less; a
+#: wrong h_final (transposed, zero, another row's) misses by ~100%
+MAMBA_STATE_TOL = {"bfloat16": 5e-2, "float32": 1e-3}
+
+
+def scan_inputs(gen, b, t, d, s, dtype):
+    """The JAX test's draw: x ~ N(0, 0.25), dt = 0.1 |N|, B, C ~ N(0, 1),
+    a = -|N| - 0.1 (float32)."""
+    import torch
+
+    x = (torch.randn((b, t, d), generator=gen) * 0.5).to(DEVICE, dtype)
+    dt = (torch.randn((b, t, d), generator=gen).abs() * 0.1).to(DEVICE,
+                                                                dtype)
+    bc = torch.randn((b, t, s), generator=gen).to(DEVICE, dtype)
+    cc = torch.randn((b, t, s), generator=gen).to(DEVICE, dtype)
+    a = (-torch.randn((d, s), generator=gen).abs() - 0.1).to(DEVICE)
+    return x, dt, bc, cc, a
+
+
+def scan_check(got, want, dtype_name):
+    """(max abs error, whether it is within SCAN_TOL) of one K7 output."""
+    import torch
+
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return float("inf"), False
+    w = want.to(torch.float32)
+    d = (got.to(torch.float32) - w).abs()
+    if not bool(torch.isfinite(d).all()):
+        return float("inf"), False
+    tol = SCAN_TOL[dtype_name]
+    if dtype_name == "float32":
+        return float(d.max()), float(d.max()) <= tol * float(w.abs().max())
+    return float(d.max()), bool((d <= tol + tol * w.abs()).all())
+
+
+def phase_scan_kernel():
+    """K7 against its plain version on the card, y and h_final."""
+    import torch
+    from repro_torch.kernels.selective_scan.ref import selective_scan_ref
+    from repro_torch.kernels.selective_scan.selective_scan import (
+        selective_scan_cuda)
+
+    gen = torch.Generator().manual_seed(13)
+    worst = 0.0
+    n = 0
+    for name in SCAN_TOL:
+        dt_ = getattr(torch, name)
+        for b, t, d, s in SCAN_SHAPES:
+            ins = scan_inputs(gen, b, t, d, s, dt_)
+            got = selective_scan_cuda(*ins)
+            want = selective_scan_ref(*ins)
+            torch.cuda.synchronize()
+            errs = {}
+            for what, g, w in (("y", got[0], want[0]),
+                               ("h", got[1], want[1])):
+                # h_final is float32 in both dtypes, but from bfloat16
+                # inputs it carries the kernel's other rounding of dt * x
+                e, ok = scan_check(g, w, name)
+                check(ok, f"K7 {what} != plain at {(b, t, d, s)} {name}: "
+                      f"max abs err {e} (max |{what}| "
+                      f"{float(w.float().abs().max())})")
+                errs[what] = e
+                worst = max(worst, e)
+            log(f"[10] K7 {(b, t, d, s)} {name}: max abs err y "
+                f"{errs['y']:.3g} (max |y| "
+                f"{float(want[0].float().abs().max()):.3g}), h "
+                f"{errs['h']:.3g} (max |h| "
+                f"{float(want[1].abs().max()):.3g})")
+            n += 1
+    log(f"[10] K7 == plain within tolerance on {n} cases over "
+        f"{len(SCAN_SHAPES)} shapes (max abs err {worst:.3g}); float32 "
+        f"{SCAN_TOL['float32']} x max |y| (resp. |h|), bfloat16 2e-2 + "
+        f"2e-2 |y| (resp. |h|)")
+    return worst
+
+
+JAMBA_LAYERS = 8  # one period of jamba's 32: every layer kind, one card
+
+
+def phase_jamba():
+    """The hybrid serve path at jamba-v0.1's full width, depth cut to one
+    period (8 layers: 7 Mamba, 1 attention; 4 dense, 4 MoE FFNs)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.launch.serve import make_requests, serve_loop
+    from repro_torch.launch.steps import make_decode_step, make_prefill
+    from repro_torch.models import lm, registry
+
+    bf16 = torch.bfloat16
+    full = get_config("jamba-v0.1-52b")
+    cfg = dataclasses.replace(full, n_layers=JAMBA_LAYERS)
+    check(cfg.d_model == 4096 and cfg.ssm_expand * cfg.d_model == 8192
+          and cfg.ssm_d_state == 16 and cfg.n_experts == 16
+          and cfg.top_k == 2 and cfg.d_ff == 14336 and cfg.vocab == 65536,
+          "jamba-v0.1-52b config is not the full-width one")
+    kinds = lm.layer_kinds(cfg)
+    n_mamba = sum(m == "mamba" for m, _ in kinds)
+    n_attn = len(kinds) - n_mamba
+    torch.cuda.synchronize()
+    log(f"[11] device memory before jamba: "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated (qwen3-14b "
+        f"freed)")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = registry.init_params(cfg, 0, device=DEVICE, dtype=bf16)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    log(f"[11] jamba-v0.1-52b depth {cfg.n_layers} of {full.n_layers} "
+        f"({n_mamba} Mamba + {n_attn} attention; FFNs "
+        f"{''.join(f[0] for _, f in kinds)}), d_model {cfg.d_model}, "
+        f"d_inner {cfg.ssm_expand * cfg.d_model}, d_state "
+        f"{cfg.ssm_d_state}, {cfg.n_experts} experts top-{cfg.top_k}, vocab "
+        f"{cfg.vocab}: {n_params / 1e9:.3f} B parameters, "
+        f"{n_bytes / 1e9:.2f} GB on the card, drawn in "
+        f"{time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator().manual_seed(3)
+
+    # prefill: 2 prompts of 1024 tokens
+    prefill = make_prefill(cfg, dtype=bf16)
+    toks = torch.randint(1, cfg.vocab, (2, 1024), generator=gen)
+    prefill(params, {"tokens": toks})  # warm-up
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    logits, caches = prefill(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    pre = dict(build.LAUNCHES)
+    check(pre["k7"] == n_mamba and pre["k6"] == n_attn and pre["k5"] == 0,
+          f"prefill launched {pre}, want K7 = {n_mamba}, K6 = {n_attn}")
+    check(logits.shape == (2, cfg.vocab) and bool(torch.isfinite(
+        logits).all()), "prefill logits are not finite [2, vocab]")
+    di = cfg.ssm_expand * cfg.d_model
+    for (m, _), c in zip(kinds, caches):
+        want = ({"h": (2, di, cfg.ssm_d_state), "conv": (2, 3, di)}
+                if m == "mamba" else
+                {"k": (2, cfg.n_kv_heads, 1024, cfg.head_dim),
+                 "v": (2, cfg.n_kv_heads, 1024, cfg.head_dim)})
+        check({k: tuple(v.shape) for k, v in c.items()} == want
+              and all(bool(torch.isfinite(v.float()).all())
+                      for v in c.values()), f"prefill {m} cache")
+    del caches
+    log(f"[11] prefill B=2 S=1024: {prefill_ms:.1f} ms wall, K7 launches "
+        f"{pre['k7']} (= {n_mamba} Mamba layers), K6 launches {pre['k6']}")
+
+    # serve: 8 requests through 4 slots
+    decode = make_decode_step(cfg, dtype=bf16)
+    batch, max_seq = 4, 256
+    prompts, news = make_requests(0, cfg.vocab, 8, 64, 64)
+    caches = registry.init_caches(cfg, batch, max_seq, dtype=bf16)
+    decode(params, caches, torch.zeros(batch, dtype=torch.int32),
+           torch.zeros(batch, dtype=torch.int32))  # warm-up
+    caches = registry.init_caches(cfg, batch, max_seq, dtype=bf16)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    outputs, joined, steps = serve_loop(decode, params, caches, prompts,
+                                        news, batch, max_seq=max_seq)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    served = dict(build.LAUNCHES)
+    check(served["k5"] == n_attn * steps and served["k6"] == 0
+          and served["k7"] == 0,
+          f"serve launched {served}, want K5 = {n_attn} x {steps} steps")
+    check(all(o is not None and len(o) == n
+              and all(0 <= t < cfg.vocab for t in o)
+              for o, n in zip(outputs, news)), "serve outputs")
+    tokens = sum(len(p) for p in prompts) + sum(news)
+    log(f"[11] serve 8 requests / 4 slots (prompts "
+        f"{min(map(len, prompts))}-{max(map(len, prompts))}, max_new "
+        f"{min(news)}-{max(news)}, max_seq {max_seq}): {steps} steps in "
+        f"{wall:.2f} s, {wall / steps * 1e3:.2f} ms per decode step, "
+        f"{tokens / wall:.0f} tok/s ({sum(news) / wall:.0f} generated "
+        f"tok/s); joins {joined}; K5 launches {served['k5']} = {n_attn} x "
+        f"{steps}")
+    del caches
+    decode_profile(decode, params, cfg, batch, max_seq, phase="11")
+
+    # the serving invariant, and the Mamba state against K7's h_final
+    toks = torch.randint(1, cfg.vocab, (2, 128), generator=gen)
+    errs, scale, state, drops = decode_vs_prefill(cfg, params, toks,
+                                                  ("kernel", "plain"), bf16)
+    bound = 1.5 * errs["plain"] + 1e-3 * scale
+    log(f"[11] invariant, 2 x 128 tokens: max |decode - prefill| logit "
+        f"kernels {errs['kernel']:.4f}, plain {errs['plain']:.4f} (max "
+        f"|logit| {scale:.3f}; bound 1.5 x plain + 1e-3 x max = "
+        f"{bound:.4f}); the prefill's MoE layers drop "
+        + ", ".join(f"{d:.1%}" for d in drops) + " of their assignments "
+        f"(capacity factor {cfg.capacity_factor}), decode's none")
+    log(f"[11] Mamba state after 128 decode steps vs K7's h_final of the "
+        f"128-token prefill, per Mamba layer max abs err / max |h|: "
+        + ", ".join(f"{e:.3g}/{m:.3g}" for e, m in state.values()))
+    check(errs["kernel"] <= bound, f"jamba decode with kernels is off "
+          f"teacher forcing by {errs['kernel']}, bound {bound}")
+    # past an MoE FFN a layer's input differs between prefill and decode
+    # by more than rounding: the prefill drops assignments past capacity,
+    # and bfloat16 rounding flips near-tied top-2 choices
+    clean = [i for i in state if all(f != "moe" for _, f in kinds[:i])]
+    worst = max(state[i][0] / state[i][1] for i in clean)
+    check(worst <= MAMBA_STATE_TOL["bfloat16"], f"Mamba state of layers "
+          f"{clean} after 128 decode steps is off K7's h_final by "
+          f"{worst:.3g} x max |h| (bound {MAMBA_STATE_TOL['bfloat16']})")
+    # float32, with room for every assignment: prefill and decode compute
+    # one function, so every layer's state and the logits are held tight
+    roomy = dataclasses.replace(cfg, capacity_factor=cfg.n_experts
+                                / cfg.top_k)
+    errs32, scale32, state32, drops32 = decode_vs_prefill(
+        roomy, params, toks, ("kernel",), torch.float32)
+    worst32 = max(e / m for e, m in state32.values())
+    log(f"[11] float32, capacity factor {roomy.capacity_factor} (prefill "
+        f"drops " + ", ".join(f"{d:.1%}" for d in drops32) + "): max "
+        f"|decode - prefill| logit {errs32['kernel']:.3g} (max |logit| "
+        f"{scale32:.3f}); Mamba state per layer max abs err / max |h|: "
+        + ", ".join(f"{e:.3g}/{m:.3g}" for e, m in state32.values()))
+    check(max(drops32) == 0, f"capacity factor {roomy.capacity_factor} "
+          f"still drops {drops32}")
+    check(errs32["kernel"] <= 1e-3 * scale32, f"float32 decode is off "
+          f"teacher forcing by {errs32['kernel']} (bound 1e-3 x max |logit|"
+          f" = {1e-3 * scale32})")
+    check(worst32 <= MAMBA_STATE_TOL["float32"], f"float32 Mamba state "
+          f"after 128 decode steps is off K7's h_final by {worst32:.3g} x "
+          f"max |h| (bound {MAMBA_STATE_TOL['float32']})")
+    log(f"[11] Mamba state vs K7's h_final: bfloat16 worst {worst:.3g} x "
+        f"max |h| over layers {clean} (before the first MoE FFN; bound "
+        f"{MAMBA_STATE_TOL['bfloat16']}), float32 without drops "
+        f"{worst32:.3g} over all {len(state32)} (bound "
+        f"{MAMBA_STATE_TOL['float32']})")
+    log(f"[11] peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+        f" GB")
+    del params
+    torch.cuda.empty_cache()
+    return {"k5": served["k5"], "k6": pre["k6"], "k7": pre["k7"]}
+
+
+def decode_vs_prefill(cfg, params, toks, backends, dtype):
+    """Teacher-force ``toks`` [B, T] through T decode steps with each
+    backend and through one prefill, in ``dtype``. Returns (max |decode - prefill| of
+    the last logits per backend, max |prefill logit|, {Mamba layer: (max
+    |h_decode - h_prefill| after the last step of the first backend, max
+    |h_prefill|)}, the prefill's MoE drop fraction per MoE layer)."""
+    import torch
+    from repro_torch.launch.steps import make_decode_step, make_prefill
+    from repro_torch.models import lm, moe, registry
+
+    drops = []
+    routed = moe.moe_forward
+
+    def recorded(p, x, c):
+        out, metrics = routed(p, x, c)
+        drops.append(float(metrics["drop_frac"]))
+        return out, metrics
+
+    moe.moe_forward = recorded
+    try:
+        ref_last, ref_caches = make_prefill(cfg, dtype=dtype)(
+            params, {"tokens": toks})
+    finally:
+        moe.moe_forward = routed
+    b, t = toks.shape
+    errs, state = {}, {}
+    for backend in backends:
+        step = make_decode_step(cfg, dtype=dtype, backend=backend)
+        caches = registry.init_caches(cfg, b, t, dtype=dtype)
+        for i in range(t):
+            _, last, caches = step(params, caches, toks[:, i],
+                                   torch.full((b,), i, dtype=torch.int32))
+        errs[backend] = float((last - ref_last).abs().max())
+        if not state:
+            state = {i: (float((c["h"] - r["h"]).abs().max()),
+                         float(r["h"].abs().max()))
+                     for i, ((m, _), c, r) in enumerate(zip(
+                         lm.layer_kinds(cfg), caches, ref_caches))
+                     if m == "mamba"}
+    return errs, float(ref_last.abs().max()), state, drops
+
+
+def addr_configs():
+    """K4's topologies: the paper's Table-1 device, two channels, and two
+    tiered placements (interleave_log2, cxl_frac_log2) of a DRAM + CXL
+    box."""
+    from repro_torch.core.params import MemSimConfig
+
+    tiered = dict(channels=2, tiers=2, cxl_channels=1)
+    return {"table1": MemSimConfig(), "channels=2": MemSimConfig(channels=2),
+            "tiered(6,1)": MemSimConfig(tier_interleave_log2=6,
+                                        tier_cxl_frac_log2=1, **tiered),
+            "tiered(8,2)": MemSimConfig(tier_interleave_log2=8,
+                                        tier_cxl_frac_log2=2, **tiered)}
+
+
+def phase_addr_map():
+    """K4's path (its entry point on the four benchmark traces' address
+    columns at the Table-1 topology), then K4 against its plain version,
+    bit for bit, on every topology of ``addr_configs`` and address set."""
+    import torch
+    from repro_torch.core.params import MemSimConfig
+    from repro_torch.kernels import build
+    from repro_torch.kernels.addr_map.ops import addr_map
+    from repro_torch.kernels.addr_map.ref import addr_map_ref
+    from repro_torch.traces import BENCHMARKS
+
+    sets = {name: BENCHMARKS[name]().addr.to(DEVICE)
+            for name in sorted(BENCHMARKS)}
+    cfg = MemSimConfig()
+    build.reset_launches()
+    hists = {name: addr_map(cfg, a)[3] for name, a in sets.items()}
+    torch.cuda.synchronize()
+    launches = build.LAUNCHES["k4"]
+    check(launches == len(sets), f"K4 launches {launches} on "
+          f"{len(sets)} traces")
+    for name, h in hists.items():
+        check(int(h.sum()) == sets[name].numel(), f"{name}: histogram "
+              f"total {int(h.sum())} != {sets[name].numel()} addresses")
+    log(f"[12] K4 path: the four traces' addresses at the Table-1 topology "
+        f"({', '.join(f'{k} {v.numel()}' for k, v in sets.items())}), K4 "
+        f"launches {launches}")
+
+    gen = torch.Generator().manual_seed(4)
+    for n in (1, 1000, 4096, (1 << 20) + 3):
+        # the whole int32 range: negative addresses test the arithmetic >>
+        sets[f"random{n}"] = torch.randint(
+            -(1 << 31), (1 << 31) - 1, (n,), generator=gen,
+            dtype=torch.int32).to(DEVICE)
+    counted = dict(build.LAUNCHES)
+    cases, worst = 0, 0
+    for cname, c in addr_configs().items():
+        flags = None if c.tiers == 1 else torch.tensor(
+            [c.tier_interleave_log2, c.tier_cxl_frac_log2],
+            dtype=torch.int32, device=DEVICE)
+        for aname, a in sets.items():
+            got = addr_map(c, a)
+            want = addr_map_ref(c, a, flags)
+            for what, g, w in zip(("bank", "rank", "row", "hist"), got,
+                                  want):
+                e = max_err(g, w) if g.dtype == w.dtype else float("inf")
+                check(e == 0, f"K4 {what} != plain on {aname} at {cname} "
+                      f"(max abs err {e})")
+                worst = max(worst, e)
+            cases += 1
+    build.LAUNCHES.update(counted)
+    log(f"[12] K4 == plain bit for bit on {cases} cases ({len(sets)} "
+        f"address sets x {len(addr_configs())} topologies: "
+        f"{', '.join(addr_configs())})")
+    return launches, worst
+
+
+def phase_hybrid_times():
+    """Device time per launch of K4 at N = 2^24 and K7 at the jamba
+    prefill shape, beside their plain versions and bounds."""
+    import torch
+    from repro_torch.core.params import MemSimConfig
+    from repro_torch.kernels.addr_map.addr_map import addr_map_cuda
+    from repro_torch.kernels.addr_map.ref import addr_map_ref
+    from repro_torch.kernels.selective_scan.ref import selective_scan_ref
+    from repro_torch.kernels.selective_scan.selective_scan import (
+        selective_scan_cuda)
+
+    gen = torch.Generator().manual_seed(5)
+    out = {}
+    cfg = MemSimConfig()
+    n = 1 << 24
+    addr = torch.randint(0, 1 << 30, (n,), generator=gen,
+                         dtype=torch.int32).to(DEVICE)
+    ms = device_ms(lambda: addr_map_cuda(cfg, addr))
+    plain_ms = device_ms(lambda: addr_map_ref(cfg, addr), per_graph=5,
+                         replays=20)
+    nbytes = 16 * n + 4 * cfg.num_banks
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    out["k4"] = (ms, plain_ms, bound, "bytes")
+    log(f"[12] K4 N=2^24 Table-1 topology: device {ms * 1e3:.1f} us/launch "
+        f"(plain {plain_ms * 1e3:.1f} us); bound {bound * 1e3:.2f} us "
+        f"({nbytes} B at 3.35 TB/s; {bound / ms:.1%} of it)")
+
+    b, t, d, s = 2, 1024, 8192, 16
+    ins = scan_inputs(gen, b, t, d, s, torch.bfloat16)
+    ms = device_ms(lambda: selective_scan_cuda(*ins))
+    plain_ms = device_ms(lambda: selective_scan_ref(*ins), per_graph=1,
+                         replays=5)
+    nbytes = 3 * b * t * d * 2 + 2 * b * t * s * 2 + d * s * 4 + b * d * s * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_exp = b * t * d * s / SFU_EXP_PER_S * 1e3
+    flops = 6 * b * t * d * s + b * t * d
+    t_fma = flops / F32_FLOPS_PER_S * 1e3
+    bound = max(t_bytes, t_exp, t_fma)
+    by = "bytes" if bound == t_bytes else "operations"
+    out["k7"] = (ms, plain_ms, bound, by)
+    log(f"[12] K7 B={b} T={t} D={d} S={s} bf16: device {ms * 1e3:.1f} "
+        f"us/launch (plain {plain_ms * 1e3:.1f} us); bound "
+        f"{bound * 1e3:.2f} us ({b * t * d * s} exp at 16/clock/SM x 132 "
+        f"SMs x 1.98 GHz = {t_exp * 1e3:.2f} us; {nbytes} B at 3.35 TB/s = "
+        f"{t_bytes * 1e3:.2f} us; {flops} float32 flops at 67 TFLOP/s = "
+        f"{t_fma * 1e3:.2f} us; {by}; {bound / ms:.1%} of it)")
+    return out
+
+
 def main():
     try:
         import torch
@@ -954,6 +1402,10 @@ def main():
         attn_errs = phase_attention_kernels()
         llm_launches = phase_serve()
         attn_times = phase_attention_times()
+        scan_err = phase_scan_kernel()
+        hybrid_launches = phase_jamba()
+        k4_launches, k4_err = phase_addr_map()
+        hybrid_times = phase_hybrid_times()
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -976,6 +1428,13 @@ def main():
             "max_abs_err": errs[k], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None})
     ref = "src/repro/kernels/"
+    ms, plain_ms, bound_ms, bound_by = hybrid_times["k4"]
+    kernels.append({
+        "name": "addr_map", "route": "cuda", "source": src + "addr_map.cu",
+        "replaces": ref + "addr_map/addr_map.py:67",
+        "launches": k4_launches, "max_abs_err": k4_err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None})
     for k, name, timed, replaces in (
             ("k5", "decode_attention", "k5_served",
              ref + "decode_attention/decode_attention.py:70"),
@@ -987,6 +1446,14 @@ def main():
             "replaces": replaces, "launches": llm_launches[k],
             "max_abs_err": attn_errs[k], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms})
+    ms, plain_ms, bound_ms, bound_by = hybrid_times["k7"]
+    kernels.append({
+        "name": "selective_scan", "route": "cuda",
+        "source": src + "selective_scan.cu",
+        "replaces": ref + "selective_scan/selective_scan.py:54",
+        "launches": hybrid_launches["k7"], "max_abs_err": scan_err,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": None})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

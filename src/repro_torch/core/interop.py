@@ -36,6 +36,7 @@ from repro_torch.core.dram_model import TimingState
 from repro_torch.core.params import ParamSchedule
 from repro_torch.core.queues import BankedFifo, Fifo
 from repro_torch.core.simulator import SimState, Trace
+from repro_torch.models.layers import REFERENCE_F32
 
 #: SimState leaves that carry a trailing write-sink slot in this package
 SINK_FIELDS = ("mem", "t_admit", "t_dispatch", "t_start", "t_complete",
@@ -157,19 +158,25 @@ def lm_params_from_numpy(cfg, tree, device=None,
                          dtype=torch.float32) -> Dict[str, Any]:
     """This package's LM parameters from the reference's tree as numpy
     arrays. Matrices (ndim >= 2) are cast to ``dtype`` once, here, on the
-    host (the reference casts them at every use); norm scales and biases
-    stay float32."""
-    def leaf(a):
+    host (the reference casts them at every use), except the ones the
+    reference uses in float32 (``REFERENCE_F32``: the MoE router and the
+    Mamba ``A_log``); norm scales, biases and other vectors stay
+    float32."""
+    def leaf(a, name):
         t = _torch_of(a)
-        if t.is_floating_point() and t.dim() >= 2:
+        if t.is_floating_point() and t.dim() >= 2 \
+                and name not in REFERENCE_F32:
             t = t.to(dtype)
         return t.to(device)
 
-    params = {"embed": {"table": leaf(tree["embed"]["table"])},
-              "final_norm": {"scale": leaf(tree["final_norm"]["scale"])}}
-    if "lm_head" in tree:
-        params["lm_head"] = leaf(tree["lm_head"])
-    params["layers"] = [_tree_map(leaf, t) for t in _layer_trees(cfg, tree)]
+    def tree_of(node, name=""):
+        if isinstance(node, dict):
+            return {k: tree_of(v, k) for k, v in node.items()}
+        return leaf(node, name)
+
+    params = tree_of({k: tree[k] for k in ("embed", "final_norm", "lm_head")
+                      if k in tree})
+    params["layers"] = [tree_of(t) for t in _layer_trees(cfg, tree)]
     return params
 
 

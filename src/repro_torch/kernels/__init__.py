@@ -5,4 +5,6 @@
     compiles and loads them.
   * ``decode_attention`` — one-token GQA decode attention (K5).
   * ``flash_attention`` — blocked causal GQA attention for prefill (K6).
+  * ``addr_map`` — trace address decode with a per-bank histogram (K4).
+  * ``selective_scan`` — the Mamba selective scan for prefill (K7).
 """

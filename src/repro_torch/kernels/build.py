@@ -25,7 +25,8 @@ from pathlib import Path
 from typing import Dict
 
 #: launches per kernel since the last :func:`reset_launches`
-LAUNCHES: Dict[str, int] = {"k1": 0, "k2": 0, "k3": 0, "k5": 0, "k6": 0}
+LAUNCHES: Dict[str, int] = {"k1": 0, "k2": 0, "k3": 0, "k4": 0, "k5": 0,
+                             "k6": 0, "k7": 0}
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -48,6 +49,12 @@ _ENTRY_POINTS = {
     },
     "flash_attention": {
         "flash_attention_launch": [_P] * 4 + [_I] * 7 + [_P],
+    },
+    "addr_map": {
+        "addr_map_launch": [_P] * 6 + [_I] * 12 + [_P],
+    },
+    "selective_scan": {
+        "selective_scan_launch": [_P] * 7 + [_I] * 5 + [_P],
     },
 }
 

@@ -1,0 +1,31 @@
+"""Selective-scan entry point: dispatch on the tensors' device.
+
+A CUDA tensor launches K7 (``selective_scan.py``) or raises; a CPU tensor
+runs the plain version (``ref.py``). Both take any T and D: the kernel
+masks a ragged last chunk and channel block, so the Pallas wrapper's
+``chunk_t``/``block_d`` divisibility does not apply. Forward only, as the
+reference's kernel path.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels.selective_scan.ref import selective_scan_ref
+from repro_torch.kernels.selective_scan.selective_scan import (
+    selective_scan_cuda,
+)
+
+
+def selective_scan(x: torch.Tensor, dt: torch.Tensor, bc: torch.Tensor,
+                   cc: torch.Tensor, a: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x, dt: [B, T, D]; bc, cc: [B, T, S]; a: [D, S] float32 ->
+    (y [B, T, D] in x's dtype, h_final [B, D, S] float32)."""
+    if not x.is_cuda:
+        return selective_scan_ref(x, dt, bc, cc, a)
+    return selective_scan_cuda(x.contiguous(), dt.contiguous(),
+                               bc.contiguous(), cc.contiguous(),
+                               a.to(torch.float32).contiguous())

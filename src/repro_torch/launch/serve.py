@@ -5,13 +5,18 @@ sequence boundaries (a finishing sequence releases its slot; nothing is
 preempted mid-stream), and every decode step runs the one-token step over
 the whole batch with a per-slot position vector. A joining request resets
 its slot's position to 0: cache entries beyond a slot's position are never
-attended under causal masking, so slot reuse needs no cache clearing.
+attended under causal masking, so slot reuse needs no cache clearing. A
+Mamba layer's state is not reset: a reused slot carries the previous
+request's ``h`` and ``conv`` into the next one, as in the reference
+server (ROADMAP §3).
 Prompt tokens are teacher-forced one per step. The loop reads the step's
 next tokens on the host once per step.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b --tiny \
       --device cpu --batch 4 --requests 10 --prompt-len 16 --max-new 32
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch jamba-v0.1-52b --tiny --device cpu
 """
 
 from __future__ import annotations

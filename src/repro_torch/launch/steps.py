@@ -24,8 +24,10 @@ def _as_int32(x, device) -> torch.Tensor:
 def make_prefill(cfg: ArchConfig, dtype=torch.bfloat16,
                  device=None) -> Callable:
     """Full-sequence forward producing last-token logits (float32 [B,
-    vocab]) and the per-layer {"k", "v"} caches. ``batch`` holds
-    ``tokens`` int [B, S] or ``embeds`` [B, S, d_model]."""
+    vocab]) and the per-layer caches: {"k", "v"} [B, Hkv, S, D] of an
+    attention layer, {"h", "conv"} (the state after the last token) of a
+    Mamba layer. ``batch`` holds ``tokens`` int [B, S] or ``embeds``
+    [B, S, d_model]."""
     dev = resolve_device(device)
 
     def prefill(params, batch):

@@ -17,6 +17,12 @@ import torch.nn.functional as F
 Params = Dict[str, torch.Tensor]
 F32 = torch.float32
 
+#: matrices that the reference keeps and uses in float32 (the MoE router,
+#: whose routing is computed in float32, and the Mamba ``A_log``, whose
+#: ``-exp`` sets the decay rates): they are never cast to the compute
+#: dtype, at the host draw or in the parameter bridge
+REFERENCE_F32 = frozenset({"router", "A_log"})
+
 
 def truncated_normal(gen: torch.Generator, shape, std: float = 0.02,
                      device=None, dtype=F32) -> torch.Tensor:

@@ -1,22 +1,26 @@
-"""Decoder-only LM: embeds -> blocks -> norm -> logits (dense-GQA subset).
+"""Decoder-only LM: embeds -> blocks -> norm -> logits.
 
 The reference stacks its body over groups and applies it with
 ``lax.scan``; this package holds the blocks as a plain list in layer order
 (the prefix layers, then group by group the slots of the period) and loops
-over it. Supported here: every block whose mixer is GQA attention
-(``attn_type="gqa"``) and whose FFN is dense, which covers qwen3-14b,
-qwen2-72b, minicpm-2b, starcoder2-7b and llava-next-34b (through
-``embeds``). MLA, MoE, the mamba/mLSTM/sLSTM mixers and the training loss
+over it. Each layer has a mixer and an FFN kind, ``layer_kinds(cfg)``.
+Supported here: GQA attention (``attn_type="gqa"``) and Mamba mixers,
+dense SwiGLU, MoE or no FFN. That covers qwen3-14b, qwen2-72b, minicpm-2b,
+starcoder2-7b, llava-next-34b (through ``embeds``), phi3.5-moe and jamba.
+MLA, the mLSTM/sLSTM mixers, encoder-decoder models and the training loss
 raise ``NotImplementedError``; they are queued in ROADMAP item 9.
 
 Parameters: ``{"embed": {"table"}, "final_norm": {"scale"},
 "lm_head" (untied only), "layers": [block, ...]}`` with each block
-``{"norm1", "mixer": attention params, "norm2", "ffn": SwiGLU params}``.
+``{"norm1", "mixer": attention or Mamba params, "norm2", "ffn": SwiGLU or
+MoE params}`` (no ``norm2``/``ffn`` where the FFN kind is ``"none"``).
 
-Caches: a list with one dict per layer in the same order, ``{"k", "v":
-[B, Hkv, max_seq, D]}`` in the compute dtype, or the int8 form ``{"k",
-"v": int8, "k_scale", "v_scale": float16 [B, Hkv, max_seq, 1]}`` when
-``cfg.kv_quant``. ``decode_step`` updates them in place.
+Caches: a list with one dict per layer in the same order. Attention:
+``{"k", "v": [B, Hkv, max_seq, D]}`` in the compute dtype, or the int8
+form ``{"k", "v": int8, "k_scale", "v_scale": float16 [B, Hkv, max_seq,
+1]}`` when ``cfg.kv_quant``. Mamba: ``{"h": float32 [B, d_inner,
+d_state], "conv": [B, d_conv - 1, d_inner]}`` in the compute dtype.
+``decode_step`` updates them in place.
 """
 
 from __future__ import annotations
@@ -27,6 +31,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (
     F32,
     embed,
@@ -42,6 +48,7 @@ Params = Dict[str, Any]
 Caches = List[Dict[str, torch.Tensor]]
 
 _ROADMAP = "queued in ROADMAP item 9 (LLM model stack)"
+MIXERS = ("attn", "mamba")
 
 
 def layer_kinds(cfg: ArchConfig) -> List[Tuple[str, str]]:
@@ -53,70 +60,106 @@ def layer_kinds(cfg: ArchConfig) -> List[Tuple[str, str]]:
 
 def check_supported(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` for a family this package does not
-    port yet."""
+    port yet: encoder-decoder models, MLA attention and the mLSTM/sLSTM
+    mixers."""
     if cfg.is_encdec:
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder models are not ported yet; "
             + _ROADMAP)
     for mixer, ffn in layer_kinds(cfg):
-        if mixer != "attn":
+        if mixer not in MIXERS:
             raise NotImplementedError(
-                f"{cfg.name}: the {mixer} mixer is not ported yet; "
-                + _ROADMAP)
-        if cfg.attn_type != "gqa":
+                f"{cfg.name}: the {mixer} mixer is not ported yet (ported: "
+                f"{', '.join(MIXERS)}); " + _ROADMAP)
+        if mixer == "attn" and cfg.attn_type != "gqa":
             raise NotImplementedError(
-                f"{cfg.name}: {cfg.attn_type} attention is not ported yet; "
-                + _ROADMAP)
-        if ffn != "dense":
-            raise NotImplementedError(
-                f"{cfg.name}: the {ffn} FFN is not ported yet; " + _ROADMAP)
+                f"{cfg.name}: {cfg.attn_type} attention is not ported yet "
+                f"(ported: gqa); " + _ROADMAP)
 
 
 # ---------------------------------------------------------------- blocks ----
 
-def init_block(gen: torch.Generator, cfg: ArchConfig, device=None,
-               dtype=F32) -> Params:
-    """One ("attn", "dense") block: GQA attention and a SwiGLU FFN."""
-    return {
-        "norm1": init_rmsnorm(cfg.d_model, device),
-        "mixer": attn_lib.init_attention(
+def init_block(gen: torch.Generator, cfg: ArchConfig, mixer: str, ffn: str,
+               device=None, dtype=F32) -> Params:
+    """One block: a GQA attention or Mamba mixer and a SwiGLU, MoE or no
+    FFN."""
+    p: Params = {"norm1": init_rmsnorm(cfg.d_model, device)}
+    if mixer == "attn":
+        p["mixer"] = attn_lib.init_attention(
             gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
-            cfg.qk_norm, cfg.qkv_bias, device=device, dtype=dtype),
-        "norm2": init_rmsnorm(cfg.d_model, device),
-        "ffn": init_swiglu(gen, cfg.d_model, cfg.d_ff, device=device,
-                           dtype=dtype),
-    }
+            cfg.qk_norm, cfg.qkv_bias, device=device, dtype=dtype)
+    else:
+        p["mixer"] = ssm_lib.init_mamba(gen, cfg, device=device, dtype=dtype)
+    if ffn == "none":
+        return p
+    p["norm2"] = init_rmsnorm(cfg.d_model, device)
+    if ffn == "moe":
+        p["ffn"] = moe_lib.init_moe(gen, cfg, device=device, dtype=dtype)
+    else:
+        p["ffn"] = init_swiglu(gen, cfg.d_model, cfg.d_ff, device=device,
+                               dtype=dtype)
+    return p
 
 
-def apply_block_full(p: Params, x: torch.Tensor, cfg: ArchConfig,
-                     positions: Optional[torch.Tensor],
-                     collect_cache: bool = False
-                     ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
-    """Pre-norm residual block. Returns (x, {"k", "v"} or None)."""
-    h = rmsnorm(p["norm1"], x, cfg.norm_eps)
-    mix, (k, v) = attn_lib.attn_full(
-        p["mixer"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+def _mixer_full(p: Params, x: torch.Tensor, cfg: ArchConfig, mixer: str,
+                positions: Optional[torch.Tensor]
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    if mixer == "mamba":
+        return ssm_lib.mamba_full(p, x, cfg)
+    out, (k, v) = attn_lib.attn_full(
+        p, x, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
         d_head=cfg.head_dim, rope_theta=cfg.rope_theta, causal=cfg.causal,
         qk_norm=cfg.qk_norm, eps=cfg.norm_eps, positions=positions,
         use_rope=cfg.use_rope)
-    x = x + mix
+    return out, {"k": k, "v": v}
+
+
+def _mixer_decode(p: Params, x: torch.Tensor, cache: Dict[str, Any],
+                  cfg: ArchConfig, mixer: str, pos: torch.Tensor,
+                  backend: str) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    if mixer == "mamba":
+        return ssm_lib.mamba_decode(p, x, cache, cfg)
+    return attn_lib.attn_decode(
+        p, x, cache, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        d_head=cfg.head_dim, rope_theta=cfg.rope_theta, qk_norm=cfg.qk_norm,
+        eps=cfg.norm_eps, pos=pos, use_rope=cfg.use_rope, backend=backend)
+
+
+def _ffn(p: Params, x: torch.Tensor, cfg: ArchConfig, ffn: str
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The pre-norm FFN residual: (x + ffn(norm2(x)), MoE aux loss, 0
+    unless the FFN is MoE)."""
+    aux = torch.zeros((), dtype=F32, device=x.device)
+    if ffn == "none":
+        return x, aux
     h = rmsnorm(p["norm2"], x, cfg.norm_eps)
-    x = x + swiglu(p["ffn"], h)
-    return x, ({"k": k, "v": v} if collect_cache else None)
+    if ffn == "moe":
+        out, metrics = moe_lib.moe_forward(p["ffn"], h, cfg)
+        return x + out, metrics["aux_loss"]
+    return x + swiglu(p["ffn"], h), aux
+
+
+def apply_block_full(p: Params, x: torch.Tensor, cfg: ArchConfig, mixer: str,
+                     ffn: str, positions: Optional[torch.Tensor],
+                     collect_cache: bool = False
+                     ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]],
+                                torch.Tensor]:
+    """Pre-norm residual block. Returns (x, cache or None, MoE aux)."""
+    h = rmsnorm(p["norm1"], x, cfg.norm_eps)
+    mix, cache = _mixer_full(p["mixer"], h, cfg, mixer, positions)
+    x, aux = _ffn(p, x + mix, cfg, ffn)
+    return x, (cache if collect_cache else None), aux
 
 
 def apply_block_decode(p: Params, x: torch.Tensor, cache: Dict[str, Any],
-                       cfg: ArchConfig, pos: torch.Tensor,
-                       backend: str = "kernel"
+                       cfg: ArchConfig, mixer: str, ffn: str,
+                       pos: torch.Tensor, backend: str = "kernel"
                        ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
-    mix, cache = attn_lib.attn_decode(
-        p["mixer"], h, cache, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-        d_head=cfg.head_dim, rope_theta=cfg.rope_theta, qk_norm=cfg.qk_norm,
-        eps=cfg.norm_eps, pos=pos, use_rope=cfg.use_rope, backend=backend)
-    x = x + mix
-    h = rmsnorm(p["norm2"], x, cfg.norm_eps)
-    return x + swiglu(p["ffn"], h), cache
+    mix, cache = _mixer_decode(p["mixer"], h, cache, cfg, mixer, pos,
+                               backend)
+    x, _ = _ffn(p, x + mix, cfg, ffn)
+    return x, cache
 
 
 # ---------------------------------------------------------------- model ----
@@ -125,8 +168,9 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, device=None,
                 dtype=F32) -> Params:
     """Random parameters drawn from ``gen`` and placed on ``device``:
     matrices in ``dtype`` (each drawn in float32 and cast before the next
-    is drawn, so the largest transient is one float32 matrix), norm scales
-    and biases in float32."""
+    is drawn, so the largest transient is one float32 matrix) except the
+    reference's float32 ones (``layers.REFERENCE_F32``), norm scales,
+    biases and other vectors in float32."""
     cfg.validate()
     check_supported(cfg)
     params: Params = {
@@ -137,8 +181,8 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, device=None,
     if not cfg.tie_embeddings:
         params["lm_head"] = truncated_normal(gen, (cfg.d_model, cfg.vocab),
                                              device=device, dtype=dtype)
-    params["layers"] = [init_block(gen, cfg, device=device, dtype=dtype)
-                        for _ in layer_kinds(cfg)]
+    params["layers"] = [init_block(gen, cfg, m, f, device=device, dtype=dtype)
+                        for m, f in layer_kinds(cfg)]
     return params
 
 
@@ -161,8 +205,10 @@ def forward(cfg: ArchConfig, params: Params,
             positions: Optional[torch.Tensor] = None,
             collect_caches: bool = False, dtype=F32
             ) -> Tuple[torch.Tensor, Caches, torch.Tensor]:
-    """Full-sequence forward. Returns (hidden [B, S, d], caches (one
-    {"k", "v"} per layer when ``collect_caches``, else empty), aux loss 0).
+    """Full-sequence forward. Returns (hidden [B, S, d], caches (one per
+    layer when ``collect_caches``: attention {"k", "v"} [B, Hkv, S, D],
+    Mamba {"h", "conv"}; else empty), the MoE aux loss summed over the
+    layers).
 
     ``embeds`` (precomputed modality embeddings, [B, S, d_model]) may
     replace ``tokens``.
@@ -177,11 +223,14 @@ def forward(cfg: ArchConfig, params: Params,
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device)[None].expand(b, s)
     caches: Caches = []
-    for p in params["layers"]:
-        x, cache = apply_block_full(p, x, cfg, positions, collect_caches)
+    aux = torch.zeros((), dtype=F32, device=x.device)
+    for p, (mixer, ffn) in zip(params["layers"], layer_kinds(cfg)):
+        x, cache, a = apply_block_full(p, x, cfg, mixer, ffn, positions,
+                                       collect_caches)
+        aux = aux + a
         if collect_caches:
             caches.append(cache)
-    return x, caches, torch.zeros((), dtype=F32, device=x.device)
+    return x, caches, aux
 
 
 def lm_loss(*args, **kwargs):
@@ -191,9 +240,15 @@ def lm_loss(*args, **kwargs):
 
 # ---------------------------------------------------------------- decode ----
 
-def _zero_cache(cfg: ArchConfig, batch: int, max_seq: int, dtype,
-                device=None) -> Dict[str, torch.Tensor]:
-    """One GQA attention layer's cache."""
+def _zero_cache(cfg: ArchConfig, mixer: str, batch: int, max_seq: int,
+                dtype, device=None) -> Dict[str, torch.Tensor]:
+    """One layer's cache: GQA attention's KV cache or Mamba's state."""
+    if mixer == "mamba":
+        di = cfg.ssm_expand * cfg.d_model
+        return {"h": torch.zeros((batch, di, cfg.ssm_d_state), dtype=F32,
+                                 device=device),
+                "conv": torch.zeros((batch, cfg.ssm_d_conv - 1, di),
+                                    dtype=dtype, device=device)}
     shape = (batch, cfg.n_kv_heads, max_seq, cfg.head_dim)
     if cfg.kv_quant:
         scale_shape = shape[:3] + (1,)
@@ -212,8 +267,8 @@ def _zero_cache(cfg: ArchConfig, batch: int, max_seq: int, dtype,
 def init_caches(cfg: ArchConfig, batch: int, max_seq: int, dtype=F32,
                 device=None) -> Caches:
     check_supported(cfg)
-    return [_zero_cache(cfg, batch, max_seq, dtype, device)
-            for _ in layer_kinds(cfg)]
+    return [_zero_cache(cfg, m, batch, max_seq, dtype, device)
+            for m, _ in layer_kinds(cfg)]
 
 
 def decode_step(cfg: ArchConfig, params: Params, caches: Caches,
@@ -225,6 +280,7 @@ def decode_step(cfg: ArchConfig, params: Params, caches: Caches,
     Returns (logits float32 [B, vocab], the caches, updated in place).
     """
     x = embed(params["embed"], token[:, None], dtype)         # [B, 1, d]
-    for p, cache in zip(params["layers"], caches):
-        x, _ = apply_block_decode(p, x, cache, cfg, pos, backend)
+    for p, cache, (mixer, ffn) in zip(params["layers"], caches,
+                                      layer_kinds(cfg)):
+        x, _ = apply_block_decode(p, x, cache, cfg, mixer, ffn, pos, backend)
     return logits_of(cfg, params, x[:, 0]), caches

@@ -1,6 +1,8 @@
 """Arch-id -> model entry points (init / decode / caches).
 
-Decoder-only configs only; encoder-decoder configs raise
+Decoder-only configs whose layers ``models.lm`` ports (GQA attention and
+Mamba mixers, dense and MoE FFNs: the dense-GQA models, phi3.5-moe and
+jamba); the others (MLA, xLSTM, encoder-decoder) raise
 ``NotImplementedError`` (queued in ROADMAP item 9). The entry points run on
 the CUDA card unless given ``device="cpu"``, and raise when there is no
 card.

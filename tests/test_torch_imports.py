@@ -42,7 +42,9 @@ def test_scan_covers_the_package():
     assert {"params.py", "simulator.py", "engine.py", "fused.py",
             "chip_smoke.py", "interop.py", "lm.py", "attention.py",
             "decode_attention.py", "flash_attention.py", "serve.py",
-            "steps.py", "qwen3_14b.py"} <= names
+            "steps.py", "qwen3_14b.py", "ssm.py", "moe.py",
+            "selective_scan.py", "addr_map.py",
+            "jamba_v01_52b.py"} <= names
 
 
 @pytest.mark.parametrize("entry", ["simulate", "simulate_fast",
@@ -63,7 +65,10 @@ def test_cuda_wrappers_reject_cpu_tensors():
     the plain versions through the dispatching entry points."""
     from repro_torch.core.params import MemSimConfig, ParamSchedule
     from repro_torch.kernels.bank_fsm.bank_fsm import bank_fsm_step_cuda
+    from repro_torch.kernels.addr_map.addr_map import addr_map_cuda
     from repro_torch.kernels.bank_fsm.fused import fused_step_cuda
+    from repro_torch.kernels.selective_scan.selective_scan import (
+        selective_scan_cuda)
 
     topo = MemSimConfig().topology()
     z = torch.zeros((10, 32), dtype=torch.int32)
@@ -75,3 +80,8 @@ def test_cuda_wrappers_reject_cpu_tensors():
         fused_step_cuda(topo, torch.zeros((23, 32), dtype=torch.int32),
                         torch.zeros((64, 4), dtype=torch.int32), rp, bounds,
                         torch.zeros((1, 9), dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        addr_map_cuda(topo, torch.zeros((8,), dtype=torch.int32))
+    x = torch.zeros((1, 4, 8))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        selective_scan_cuda(x, x, x[..., :4], x[..., :4], torch.zeros((8, 4)))

@@ -1,7 +1,8 @@
 """The PyTorch port's serve path against the reference package's: the
-continuous-batching loop on tiny qwen3-14b with the reference's weights
-carried across (same tokens, join steps and step count), the request
-generator, and the round trips of the parameter and cache bridges."""
+continuous-batching loop on tiny qwen3-14b and tiny jamba with the
+reference's weights carried across (same tokens, join steps and step
+count), the request generator, and the round trips of the parameter and
+cache bridges."""
 
 import dataclasses
 
@@ -78,6 +79,47 @@ def test_serve_loop_matches_reference(qwen3_tiny):
     assert joined == want[1]
     assert outputs == want[0]
     assert len(set(joined)) > 2  # requests joined mid-run
+
+
+@pytest.fixture(scope="module")
+def jamba_tiny():
+    jcfg = JAX_ARCHS["jamba-v0.1-52b"].tiny()
+    tcfg = get_config("jamba-v0.1-52b").tiny()
+    tree = jax.tree.map(np.asarray,
+                        jregistry.init_params(jcfg, jax.random.PRNGKey(0)))
+    return jcfg, tcfg, tree
+
+
+def test_serve_loop_matches_reference_on_jamba(jamba_tiny):
+    """Tiny jamba (Mamba + attention, dense + MoE): 7 requests through 3
+    slots, so slots are reused; a reused slot carries the previous
+    request's Mamba state in both servers (the reference resets only the
+    position), and the tokens, join steps and step count agree."""
+    jcfg, tcfg, tree = jamba_tiny
+    batch, max_seq = 3, 64
+    prompts, news = serve.make_requests(1, tcfg.vocab, 7, 12, 16)
+    want = jserve.serve_loop(
+        jax.jit(jax_decode(jcfg, dtype=jnp.float32)),
+        jax.tree.map(jnp.asarray, tree), jlm.init_caches(jcfg, batch, max_seq),
+        prompts, news, batch, max_seq=max_seq)
+    got = serve.serve_loop(
+        make_decode_step(tcfg, dtype=torch.float32, device="cpu"),
+        lm_params_from_numpy(tcfg, tree),
+        registry.init_caches(tcfg, batch, max_seq, device="cpu"),
+        prompts, news, batch, max_seq=max_seq)
+    outputs, joined, steps = got
+    assert steps == want[2]
+    assert joined == want[1]
+    assert outputs == want[0]
+    assert sum(j > 0 for j in joined) == len(prompts) - batch  # reuses
+
+
+def test_serve_main_runs_jamba_on_the_cpu(capsys):
+    serve.main(["--arch", "jamba-v0.1-52b", "--tiny", "--device", "cpu",
+                "--requests", "3", "--batch", "2", "--prompt-len", "4",
+                "--max-new", "4"])
+    out = capsys.readouterr().out
+    assert "3 reqs through 2 slots" in out and "on cpu" in out
 
 
 def test_serve_loop_guards_max_seq(qwen3_tiny):
