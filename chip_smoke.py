@@ -8,7 +8,11 @@ Run from the repository root on a machine with one NVIDIA Hopper card::
 Phases (any failed check exits non-zero):
 
 1. device: the card's name and power limit, then the build of the CUDA
-   kernels from ``src/repro_torch/csrc`` (seconds printed);
+   kernels from ``src/repro_torch/csrc`` (seconds printed), the registers,
+   static shared memory and spills of K6's kernels and of K5's D = 128
+   kernels from the ``-Xptxas -v`` logs, and the count of ``HGMMA``
+   instructions in ``cuobjdump -sass`` of ``libflash_attention.so``
+   (non-zero: K6's bf16 path runs on the tensor cores);
 2. every kernel against its plain PyTorch version on the card, bit for bit:
    K1/K2 at B in {32, 128}, S in {1, 3}, T in {1, 2}; K3 at lanes in
    {1, 4}, channels in {1, 2}, S in {1, 3}, T in {1, 2}, and channels of
@@ -36,7 +40,10 @@ Phases (any failed check exits non-zero):
    (B = 4, S = 256 served; B = 2, S = 128 in the invariant), at S = 4096
    and at a ragged S = 600; K6 (prefill) on the reference test shapes,
    qwen3-14b's B = 2 at S = 1024 (prefill) and S = 128 (the invariant's
-   prefill), and a ragged S = 200, causal and not;
+   prefill), and a ragged S = 200, causal and not; then peaked logits in
+   bfloat16 (q scaled by 8, logits up to about +-30) for K6 at (1, 10,
+   256, 128, 2) and the prefill shape and for K5 at the served shape and
+   S = 4096; and K5 gives 0 at kv_len = 0;
 8. the LLM serve path at full width: qwen3-14b (40 layers, d_model 5120,
    unreduced), random weights from ``torch.Generator().manual_seed(0)``
    on the host, each matrix cast to bfloat16 and moved to the card; a prefill
@@ -45,10 +52,11 @@ Phases (any failed check exits non-zero):
    invariant: 128 teacher-forced decode steps with the kernels and with
    the plain versions, each against the prefill's last-token logits;
 9. attention times: device time per launch of K5 at the served shape and
-   at S = 4096 and of K6 at B = 2, S = 1024 (CUDA-graph replays timed
-   with CUDA events, median), beside the plain version, PyTorch's
-   ``scaled_dot_product_attention`` (timed only, never on the path) and
-   the bound;
+   at S = 4096, of K6 in bfloat16 at B = 2, S = 1024 (the prefill's shape)
+   and B = 1, S = 4096, and of K6 in float32 at B = 2, S = 1024
+   (CUDA-graph replays timed with CUDA events, median), each beside the
+   plain version, PyTorch's ``scaled_dot_product_attention`` (timed only,
+   never on the path) and the bound;
 10. K7 (selective scan) against its plain version on the card, y and
    h_final, in float32 (1e-5 x max |y|, resp. |h|) and bfloat16 (2e-2 +
    2e-2 |value|), at the reference test shapes, the jamba prefill shape
@@ -236,7 +244,68 @@ def phase_device():
     build.load()
     log(f"[1] kernels built and loaded in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {build.build_seconds():.1f} s) from {build.CSRC}")
+    out_dir = build.BUILD_ROOT / build.source_hash()
+    for name, keep in (("flash_attention", None),
+                       ("decode_attention", "Li128E")):
+        for fn, regs, smem, spills in ptxas_report(
+                (out_dir / f"{name}.log").read_text(), keep):
+            log(f"[1] {name}: {fn}: {regs} registers, {smem} B static "
+                f"shared memory, spill stores/loads {spills}")
+    hgmma = count_sass(out_dir / "libflash_attention.so", "HGMMA")
+    check(hgmma > 0, "libflash_attention.so holds no HGMMA instruction: "
+          "K6's bf16 path is not on the tensor cores")
+    log(f"[1] libflash_attention.so: {hgmma} HGMMA instructions in "
+        f"cuobjdump -sass")
     return card
+
+
+def ptxas_report(text, keep=None):
+    """(kernel, registers, static shared bytes, spill stores/loads) of each
+    entry function in an ``nvcc -Xptxas -v`` log whose mangled name holds
+    ``keep`` (all when None), names demangled by c++filt where present."""
+    import re
+
+    rows, name, spills = [], None, "?"
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spills = m.group(1), "?"
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = f"{m.group(1)}/{m.group(2)}"
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            smem = re.search(r"(\d+) bytes smem", line)
+            if keep is None or keep in name:
+                rows.append([name, int(m.group(1)),
+                             int(smem.group(1)) if smem else 0, spills])
+            name = None
+    try:
+        names = subprocess.run(["c++filt"],
+                               input="\n".join(r[0] for r in rows),
+                               capture_output=True, text=True, timeout=60)
+        plain = names.stdout.splitlines()
+        if names.returncode == 0 and len(plain) == len(rows):
+            for r, n in zip(rows, plain):
+                r[0] = n.replace("(anonymous namespace)::", "").split(
+                    "(")[0].replace("void ", "")
+    except OSError:
+        pass
+    return rows
+
+
+def count_sass(lib, opcode):
+    """Instructions of ``opcode`` in ``cuobjdump -sass`` of a library."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300)
+    check(sass.returncode == 0, f"cuobjdump failed on {lib}: {sass.stderr}")
+    return sum(opcode in line for line in sass.stdout.splitlines())
 
 
 def topo_for(channels, tiers, ranks=2, **kw):
@@ -662,6 +731,8 @@ DECODE_SHAPES = [  # b, hq, hkv, s, d
     (4, 40, 8, 256, 128), (2, 40, 8, 128, 128),  # phase 8's decode steps
     (4, 40, 8, 4096, 128),
     (2, 40, 8, 600, 128)]  # ragged: no multiple of a tile
+PEAKED_FLASH_SHAPES = [(1, 10, 256, 128, 2), (2, 40, 1024, 128, 8)]
+PEAKED_DECODE_SHAPES = [(4, 40, 8, 256, 128), (4, 40, 8, 4096, 128)]
 ATTN_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 
 
@@ -720,11 +791,50 @@ def phase_attention_kernels():
                       f"{name} kv_len={lens.tolist()}: max abs err {e}")
                 errs["k5"] = max(errs["k5"], e)
                 n5 += 1
+    # peaked logits in bfloat16: q scaled by 8, so the logits span about
+    # +-30 and P is near one-hot, where K6 rounds P to bf16 before P V
+    bf16, tol = torch.bfloat16, ATTN_TOL["bfloat16"]
+    span = 0.0
+    for b, hq, s, d, hkv in PEAKED_FLASH_SHAPES:
+        q = 8 * randn(gen, (b, hq, s, d), bf16)
+        k = randn(gen, (b, hkv, s, d), bf16)
+        v = randn(gen, (b, hkv, s, d), bf16)
+        span = max(span, float((q[:, ::hq // hkv].float() @ k.float(
+        ).transpose(-1, -2)).abs().max()) / d ** 0.5)
+        for causal in (True, False):
+            e = float_err(flash_attention_cuda(q, k, v, causal),
+                          gqa_attention_ref(q, k, v, causal))
+            check(e <= tol, f"K6 != plain at {(b, hq, s, d, hkv)} "
+                  f"causal={causal} peaked bf16: max abs err {e}")
+            errs["k6"] = max(errs["k6"], e)
+            n6 += 1
+    for b, hq, hkv, s, d in PEAKED_DECODE_SHAPES:
+        q = 8 * randn(gen, (b, hq, d), bf16)
+        k = randn(gen, (b, hkv, s, d), bf16)
+        v = randn(gen, (b, hkv, s, d), bf16)
+        lens = torch.randint(1, s + 1, (b,), generator=gen, dtype=torch.int32)
+        lens[0], lens[-1] = 1, s
+        lens = lens.to(DEVICE)
+        e = float_err(decode_attention_cuda(q, k, v, lens),
+                      decode_attention_ref(q, k, v, lens))
+        check(e <= tol, f"K5 != plain at {(b, hq, hkv, s, d)} peaked bf16 "
+              f"kv_len={lens.tolist()}: max abs err {e}")
+        errs["k5"] = max(errs["k5"], e)
+        n5 += 1
+    # kv_len = 0 gives 0 (as the Pallas kernel), never NaN
+    q = randn(gen, (2, 40, 128), bf16)
+    k = randn(gen, (2, 8, 256, 128), bf16)
+    got = decode_attention_cuda(q, k, k, torch.tensor(
+        [0, 77], dtype=torch.int32, device=DEVICE))
+    check(bool((got[0] == 0).all()) and bool(torch.isfinite(got).all()),
+          "K5 with kv_len = 0 is not 0")
     torch.cuda.synchronize()
     log(f"[7] K5 == plain within tolerance on {n5} cases over "
-        f"{len(DECODE_SHAPES)} shapes (max abs err {errs['k5']:.3g}); K6 on "
-        f"{n6} cases over {len(FLASH_SHAPES)} shapes (max abs err "
-        f"{errs['k6']:.3g}); float32 1e-5, bfloat16 2e-2")
+        f"{len(DECODE_SHAPES)} shapes and {len(PEAKED_DECODE_SHAPES)} peaked "
+        f"(max abs err {errs['k5']:.3g}), 0 at kv_len = 0; K6 on {n6} cases "
+        f"over {len(FLASH_SHAPES)} shapes and {len(PEAKED_FLASH_SHAPES)} "
+        f"peaked (max abs err {errs['k6']:.3g}; peaked logits up to "
+        f"+-{span:.1f}); float32 1e-5, bfloat16 2e-2")
     return errs
 
 
@@ -924,31 +1034,39 @@ def phase_attention_times():
         out["k5_" + label] = (ms, plain_ms, bound, "bytes", lib_ms)
         log(f"[9] K5 B={b} Hq={hq} Hkv={hkv} D={d} S={s} kv_len={lens} "
             f"bf16: device {ms * 1e3:.2f} us/launch (plain "
-            f"{plain_ms * 1e3:.2f} us, sdpa {lib_ms * 1e3:.2f} us); eager "
+            f"{plain_ms * 1e3:.2f} us, sdpa {lib_ms * 1e3:.2f} us, "
+            f"{ms / lib_ms:.2f}x sdpa); eager "
             f"call {call_ms * 1e3:.2f} us; bound {bound * 1e3:.2f} us "
             f"({nbytes} B at 3.35 TB/s, {bound / ms:.0%} of it)")
-    b, s = 2, 1024
-    q = randn(gen, (b, hq, s, d), bf16)
-    k = randn(gen, (b, hkv, s, d), bf16)
-    v = randn(gen, (b, hkv, s, d), bf16)
-    ms = device_ms(lambda: flash_attention_cuda(q, k, v, True))
-    plain_ms = device_ms(lambda: gqa_attention_ref(q, k, v, True),
-                         per_graph=5, replays=20)
-    lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True))
-    flops = 4 * b * hq * d * s * (s + 1) // 2
-    nbytes = (2 * b * hq * s * d + 2 * b * hkv * s * d) * 2
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    bound = max(t_ops, t_bytes)
-    by = "operations" if t_ops >= t_bytes else "bytes"
-    out["k6"] = (ms, plain_ms, bound, by, lib_ms)
-    log(f"[9] K6 B={b} Hq={hq} Hkv={hkv} S={s} D={d} causal bf16: device "
-        f"{ms * 1e3:.1f} us/launch (plain {plain_ms * 1e3:.1f} us, sdpa "
-        f"{lib_ms * 1e3:.1f} us); bound {bound * 1e3:.2f} us "
-        f"({flops / 1e9:.2f} GFLOP at 989 TFLOP/s = {t_ops * 1e3:.2f} us, "
-        f"{nbytes} B at 3.35 TB/s = {t_bytes * 1e3:.2f} us; {by}; "
-        f"{bound / ms:.1%} of it)")
+    # K6: the qwen3 prefill's shape (main path), a long prompt, float32
+    for label, b, s, dt in (("k6", 2, 1024, bf16), ("k6_S4096", 1, 4096, bf16),
+                            ("k6_f32", 2, 1024, torch.float32)):
+        q = randn(gen, (b, hq, s, d), dt)
+        k = randn(gen, (b, hkv, s, d), dt)
+        v = randn(gen, (b, hkv, s, d), dt)
+        ms = device_ms(lambda: flash_attention_cuda(q, k, v, True),
+                       per_graph=20 if dt == bf16 else 2)
+        plain_ms = device_ms(lambda: gqa_attention_ref(q, k, v, True),
+                             per_graph=2, replays=10)
+        lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True),
+            per_graph=20 if dt == bf16 else 2)
+        flops = 4 * b * hq * d * s * (s + 1) // 2
+        nbytes = (2 * b * hq * s * d + 2 * b * hkv * s * d) * q.element_size()
+        rate, rate_name = ((BF16_FLOPS_PER_S, "989 TFLOP/s bf16") if dt == bf16
+                           else (F32_FLOPS_PER_S, "67 TFLOP/s float32"))
+        t_ops = flops / rate * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        bound = max(t_ops, t_bytes)
+        by = "operations" if t_ops >= t_bytes else "bytes"
+        out[label] = (ms, plain_ms, bound, by, lib_ms)
+        log(f"[9] K6 B={b} Hq={hq} Hkv={hkv} S={s} D={d} causal "
+            f"{str(dt)[6:]}: device {ms * 1e3:.1f} us/launch (plain "
+            f"{plain_ms * 1e3:.1f} us, sdpa {lib_ms * 1e3:.1f} us, "
+            f"{ms / lib_ms:.2f}x sdpa); bound {bound * 1e3:.2f} us "
+            f"({flops / 1e9:.2f} GFLOP at {rate_name} = {t_ops * 1e3:.2f} "
+            f"us, {nbytes} B at 3.35 TB/s = {t_bytes * 1e3:.2f} us; {by}; "
+            f"{bound / ms:.1%} of it)")
     return out
 
 

@@ -9,31 +9,61 @@
 // 4 * B * Hq * D * S(S+1)/2 flops over ~(2 Hq + 2 Hkv) * B * S * D elements,
 // hundreds of flops per byte at S = 1024, D = 128, above the card's ~295
 // bf16 flops per byte, so the floor is the flops over the tensor cores'
-// 989 TFLOP/s. This first version does its products on the float32 FMA
-// units (67 TFLOP/s peak), so it cannot come near that floor: wgmma tiles
-// fed by TMA are the later step.
+// 989 TFLOP/s (21.7 us at B 2, Hq 40, S 1024, D 128, causal).
 //
-// Design: grid (B*Hq, ceil(S/64)); one CTA of 256 threads per (batch,
-// q head, 64-row q block). q head h reads kv head h / g, as the TPU grid
-// does. The CTA stages its q block (scaled by 1/sqrt(D), as the Pallas
-// body) in shared memory as float32, then walks the KV tiles of 32 rows up
-// to the diagonal (causal) or to S, staging K and V in shared memory. A
-// thread owns 4 rows (ty + 16 i) and, for the scores, 2 columns (tx + 16 j);
-// the row max and row sum are reduced over the 16 lanes that share a row
-// with warp shuffles. Each thread keeps its rows' float32 (m, l) and its
-// 4 x D/16 slice of acc in registers and writes the output once. Masked
-// logits are -1e30, as in the Pallas body; rows and columns past S (a
-// ragged last block) are masked or not written. Shared memory rows are
-// padded by one float so the column walks hit distinct banks.
+// Two CUDA kernels, chosen by dtype and head size (both are K6):
+//
+// * bfloat16 with D in {64, 128}: the tensor-core path (namespace tc).
+//   Both products run on wgmma: S = Q K^T as m64n128k16 with Q and K read
+//   from shared memory (K-major), O += P V as m64n{D}k16 with P taken from
+//   registers (the RS form) and V read row-major [kv, D] from shared memory
+//   with the B-transpose bit. A CTA of two warpgroups owns 128 q rows, 64
+//   each; grid (B*Hq, ceil(S/128)), the q blocks issued in reverse so the
+//   longest causal row bands start first; q head h reads kv head h / g.
+//   One elected thread issues TMA loads (cp.async.bulk.tensor, 3-D maps
+//   [B*H, S, D] so a ragged last tile is zero-filled inside its own head)
+//   of the Q block and of 128-row K and V tiles into a 2-stage ring with
+//   128-byte swizzle, tracked by mbarriers ("full" per stage for K and for
+//   V, "empty" per stage released by all 256 threads); the next tile's
+//   loads are in flight while the current tile's products and softmax run.
+//   The online softmax (m, l, alpha) is float32 in registers, in the wgmma
+//   accumulator layout: a row's max is reduced over the 4 threads of a quad
+//   with shuffles, its sum is kept per thread and reduced once at the end.
+//   The scale 1/sqrt(D) (times log2 e, for ex2) is applied to the float32
+//   scores; P is rounded to bf16 in registers for the second product, and
+//   l sums the unrounded P. Only tiles on the causal diagonal or past S are
+//   masked (-1e30, as the Pallas body); tiles above the diagonal are never
+//   loaded; rows >= S are not stored. The tensor maps are encoded on the
+//   host for each call (cuTensorMapEncodeTiled through
+//   cudaGetDriverEntryPoint, so nothing links libcuda) and passed as
+//   __grid_constant__ parameters.
+//
+// * float32 (any D), and bfloat16 with D in {16, 32}: the FMA path
+//   (namespace simt), FA-2 on the float32 FMA units (67 TFLOP/s peak): a
+//   tensor core in TF32 cannot hold the 1e-5 float32 tolerance. Grid
+//   (B*Hq, ceil(S/64)); one CTA of 256 threads per 64-row q block stages
+//   its q block (scaled by 1/sqrt(D), as the Pallas body) and 32-row K/V
+//   tiles in shared memory as float32; a thread owns 4 rows and 2 score
+//   columns, row max and sum reduced over 16 lanes with shuffles; float32
+//   (m, l, acc) in registers, one write of the output.
 //
 // ABI: q [B, Hq, S, D], k/v [B, Hkv, S, D] (one dtype: float32 or bf16,
 // contiguous), out [B, Hq, S, D] in q's dtype; D in {16, 32, 64, 128};
 // dtype 0 = float32, 1 = bf16.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
+
+// --------------------------------------------- FMA path (float32, small D)
+namespace simt {
 
 constexpr int kThreads = 256;
 constexpr int kBQ = 64;  // q rows per CTA
@@ -62,9 +92,9 @@ constexpr size_t smem_bytes(int D) {
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 2)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ out, int Hq,
-                     int Hkv, int S, int causal, float scale) {
+    fma_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, T* __restrict__ out, int Hq,
+                   int Hkv, int S, int causal, float scale) {
   constexpr int DP = D + 1;
   constexpr int ND = D / 16;  // acc columns per thread
   extern __shared__ float smem[];
@@ -190,11 +220,11 @@ __global__ void __launch_bounds__(kThreads, 2)
 }
 
 template <typename T, int D>
-cudaError_t launch_typed(const void* q, const void* k, const void* v,
-                         void* out, int B, int Hq, int Hkv, int S, int causal,
-                         float scale, cudaStream_t stream) {
+cudaError_t launch_fma(const void* q, const void* k, const void* v, void* out,
+                       int B, int Hq, int Hkv, int S, int causal, float scale,
+                       cudaStream_t stream) {
   constexpr size_t smem = smem_bytes(D);
-  auto kern = flash_fwd_kernel<T, D>;
+  auto kern = fma_fwd_kernel<T, D>;
   // raise the dynamic shared-memory cap once per instantiation, outside
   // any CUDA-graph capture of later calls
   static bool configured = false;
@@ -212,22 +242,304 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+}  // namespace simt
+
+// --------------------------------------- tensor-core path (bf16, D 64/128)
+namespace tc {
+
+constexpr int kThreads = 256;   // two warpgroups
+constexpr int kBQ = 128;        // q rows per CTA, 64 per warpgroup
+constexpr int kBN = 128;        // KV rows per tile
+constexpr int kStages = 2;      // depth of the K/V ring
+constexpr int kRowBytes = 128;  // one swizzled row of 64 bf16
+constexpr float kNegInf = -1e30f;
+
+// Shared memory, from a 1024-byte-aligned base: Q [half][kBQ][64], then
+// K and V [stage][half][kBN][64], then the mbarriers.
+template <int D>
+struct Layout {
+  static constexpr int kHalves = D / 64;
+  static constexpr int kTile = kBN * D * 2;  // one K or V tile, bytes
+  static constexpr int kK = kBQ * D * 2;
+  static constexpr int kV = kK + kStages * kTile;
+  static constexpr int kBars = kV + kStages * kTile;
+  static constexpr int kBytes = kBars + 8 * (1 + 3 * kStages) + 1024;
+};
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    tc_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
+                  const __grid_constant__ CUtensorMap map_k,
+                  const __grid_constant__ CUtensorMap map_v,
+                  __nv_bfloat16* __restrict__ out, int Hq, int Hkv, int S,
+                  int causal, float scale_log2) {
+  using L = Layout<D>;
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t q_s = base, k_s = base + L::kK, v_s = base + L::kV;
+  const uint32_t q_full = base + L::kBars;
+  // k_full[s], v_full[s], empty[s] follow q_full
+  const uint32_t k_full = q_full + 8, v_full = k_full + 8 * kStages,
+                 empty = v_full + 8 * kStages;
+
+  const int bh = blockIdx.x;  // b * Hq + q head
+  const int b = bh / Hq, h = bh % Hq;
+  const int kvh = b * Hkv + h / (Hq / Hkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;
+  const int kv_end = causal ? min(S, q0 + kBQ) : S;
+  const int n_tiles = (kv_end + kBN - 1) / kBN;
+  const int tid = threadIdx.x;
+
+  auto load_kv = [&](int t) {  // one thread: tile t into stage t % kStages
+    const int s = t % kStages;
+    mbar_expect_tx(k_full + 8 * s, L::kTile);
+#pragma unroll
+    for (int hf = 0; hf < L::kHalves; ++hf)
+      tma_load_3d(k_s + s * L::kTile + hf * kBN * kRowBytes, &map_k,
+                  k_full + 8 * s, hf * 64, t * kBN, kvh);
+    mbar_expect_tx(v_full + 8 * s, L::kTile);
+#pragma unroll
+    for (int hf = 0; hf < L::kHalves; ++hf)
+      tma_load_3d(v_s + s * L::kTile + hf * kBN * kRowBytes, &map_v,
+                  v_full + 8 * s, hf * 64, t * kBN, kvh);
+  };
+
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kThreads);
+    }
+    mbar_fence_init();
+    mbar_expect_tx(q_full, kBQ * D * 2);
+#pragma unroll
+    for (int hf = 0; hf < L::kHalves; ++hf)
+      tma_load_3d(q_s + hf * kBQ * kRowBytes, &map_q, q_full, hf * 64, q0,
+                  bh);
+    for (int t = 0; t < kStages && t < n_tiles; ++t) load_kv(t);
+  }
+  __syncthreads();
+
+  const int wg = tid / 128, w = (tid / 32) % 4, lane = tid % 32;
+  const int row_lo = q0 + 64 * wg;             // this warpgroup's first row
+  const int r0 = row_lo + 16 * w + lane / 4;   // this thread's rows r0, r0+8
+  const uint32_t q_wg = q_s + 64 * wg * kRowBytes;
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  mbar_wait(q_full, 0);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % kStages;
+    const uint32_t phase = (t / kStages) & 1;
+    const int k0 = t * kBN;
+    const uint32_t k_t = k_s + s * L::kTile, v_t = v_s + s * L::kTile;
+
+    // S = Q K^T over D in steps of 16: inside a 64-column half the step
+    // moves the start address by 32 bytes (the swizzle is applied to the
+    // absolute address), the next half is the next tile
+    float sc[kBN / 2];
+    mbar_wait(k_full + 8 * s, phase);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int hf = kk / 4, c = kk % 4;
+      wgmma_ss_n128(sc, desc_sw128(q_wg + hf * kBQ * kRowBytes + 32 * c, 0),
+                    desc_sw128(k_t + hf * kBN * kRowBytes + 32 * c, 0),
+                    kk > 0);
+    }
+    wg_commit();
+    // while the product runs: refill the stage tile t - 1 has released
+    if (tid == 0 && t >= 1 && t + kStages - 1 < n_tiles) {
+      mbar_wait(empty + 8 * ((t - 1) % kStages), ((t - 1) / kStages) & 1);
+      load_kv(t + kStages - 1);
+    }
+    __syncwarp();
+    wg_wait_all();
+    reg_fence(sc);
+
+    // online softmax in the accumulator layout, log2 domain
+    const bool mask = k0 + kBN > S || (causal && k0 + kBN - 1 > row_lo);
+#pragma unroll
+    for (int i = 0; i < kBN / 2; ++i) {
+      float x = sc[i] * scale_log2;
+      if (mask) {
+        const int col = k0 + 8 * (i / 4) + 2 * (lane % 4) + i % 2;
+        const int row = r0 + 8 * ((i / 2) % 2);
+        if (col >= S || (causal && col > row)) x = kNegInf;
+      }
+      sc[i] = x;
+    }
+    float alpha[2];
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      float mx = m[hr];
+#pragma unroll
+      for (int i = 0; i < kBN / 2; ++i)
+        if ((i / 2) % 2 == hr) mx = fmaxf(mx, sc[i]);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      alpha[hr] = ex2(m[hr] - mx);
+      m[hr] = mx;
+    }
+    uint32_t p[kBN / 16][4];  // P as the A operand, one k16 step per row
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int i = 8 * kk + 2 * j, hr = j % 2;
+        const float p0 = ex2(sc[i] - m[hr]), p1 = ex2(sc[i + 1] - m[hr]);
+        rs[hr] += p0 + p1;
+        p[kk][j] = pack_bf16(p0, p1);
+      }
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) l[hr] = l[hr] * alpha[hr] + rs[hr];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i / 2) % 2];
+
+    // O += P V over the tile's rows in steps of 16 (16 rows = 2048 bytes);
+    // V is MN-major: its two 64-column halves are kBN rows apart (LBO)
+    mbar_wait(v_full + 8 * s, phase);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk) {
+      const uint64_t dv = desc_sw128(v_t + kk * 16 * kRowBytes,
+                                     kBN * kRowBytes);
+      if constexpr (D == 128)
+        wgmma_rs_n128(o, p[kk], dv);
+      else
+        wgmma_rs_n64(o, p[kk], dv);
+    }
+    wg_commit();
+    wg_wait_all();
+    reg_fence(o);
+    mbar_arrive(empty + 8 * s);
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    float sum = l[hr];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    inv[hr] = 1.f / fmaxf(sum, 1e-30f);
+  }
+  __nv_bfloat16* ob = out + (size_t)bh * S * D;
+#pragma unroll
+  for (int i = 0; i < D / 2; i += 2) {
+    const int hr = (i / 2) % 2, row = r0 + 8 * hr;
+    const int col = 8 * (i / 4) + 2 * (lane % 4);
+    if (row < S)
+      *reinterpret_cast<uint32_t*>(ob + (size_t)row * D + col) =
+          pack_bf16(o[i] * inv[hr], o[i + 1] * inv[hr]);
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a [heads, S, D] bf16 tensor as 3-D boxes of [rows, 64] with 128-byte
+// swizzle; rows past S read as zeros
+bool encode(CUtensorMap* map, const void* ptr, int heads, int S, int D,
+            int rows) {
+  const EncodeTiled fn = encoder();
+  if (!fn) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S,
+                              (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+            const_cast<void*>(ptr), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out,
+                   int B, int Hq, int Hkv, int S, int causal, float scale,
+                   cudaStream_t stream) {
+  CUtensorMap mq, mk, mv;
+  if (!encode(&mq, q, B * Hq, S, D, kBQ) ||
+      !encode(&mk, k, B * Hkv, S, D, kBN) ||
+      !encode(&mv, v, B * Hkv, S, D, kBN))
+    return cudaErrorInvalidValue;
+  constexpr int smem = Layout<D>::kBytes;
+  auto kern = tc_fwd_kernel<D>;
+  // raise the dynamic shared-memory cap once per instantiation, outside
+  // any CUDA-graph capture of later calls
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const dim3 grid(B * Hq, (S + kBQ - 1) / kBQ);
+  kern<<<grid, kThreads, smem, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(out), Hq, Hkv, S, causal,
+      scale * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
 template <typename T>
-cudaError_t launch_dtype(const void* q, const void* k, const void* v,
-                         void* out, int B, int Hq, int Hkv, int S, int D,
-                         int causal, float scale, cudaStream_t stream) {
-#define K6_CASE(DD) \
-  case DD:          \
-    return launch_typed<T, DD>(q, k, v, out, B, Hq, Hkv, S, causal, scale, \
-                               stream);
+cudaError_t launch_fma_dtype(const void* q, const void* k, const void* v,
+                             void* out, int B, int Hq, int Hkv, int S, int D,
+                             int causal, float scale, cudaStream_t stream) {
+#define K6_CASE(DD)                                                        \
+  case DD:                                                                 \
+    return simt::launch_fma<T, DD>(q, k, v, out, B, Hq, Hkv, S, causal,    \
+                                  scale, stream);
   switch (D) {
     K6_CASE(16)
     K6_CASE(32)
-    K6_CASE(64)
-    K6_CASE(128)
     default:
-      return cudaErrorInvalidValue;
+      break;
   }
+  if constexpr (std::is_same<T, float>::value) {  // bf16 64/128: tc path
+    switch (D) {
+      K6_CASE(64)
+      K6_CASE(128)
+      default:
+        break;
+    }
+  }
+  return cudaErrorInvalidValue;
 #undef K6_CASE
 }
 
@@ -242,12 +554,16 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   const float scale = (float)(1.0 / sqrt((double)D));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (dtype == 0)
-    err = launch_dtype<float>(q, k, v, out, B, Hq, Hkv, S, D, causal, scale,
-                              st);
+  if (dtype == 1 && D == 128)
+    err = tc::launch<128>(q, k, v, out, B, Hq, Hkv, S, causal, scale, st);
+  else if (dtype == 1 && D == 64)
+    err = tc::launch<64>(q, k, v, out, B, Hq, Hkv, S, causal, scale, st);
   else if (dtype == 1)
-    err = launch_dtype<__nv_bfloat16>(q, k, v, out, B, Hq, Hkv, S, D, causal,
-                                      scale, st);
+    err = launch_fma_dtype<__nv_bfloat16>(q, k, v, out, B, Hq, Hkv, S, D,
+                                          causal, scale, st);
+  else if (dtype == 0)
+    err = launch_fma_dtype<float>(q, k, v, out, B, Hq, Hkv, S, D, causal,
+                                  scale, st);
   else
     err = cudaErrorInvalidValue;
   return (int)err;

@@ -45,7 +45,7 @@ _ENTRY_POINTS = {
         "fused_step_launch": [_P] * 8 + [_I] * 11 + [_P],
     },
     "decode_attention": {
-        "decode_attention_launch": [_P] * 7 + [_I] * 7 + [_P],
+        "decode_attention_launch": [_P] * 8 + [_I] * 8 + [_P],
     },
     "flash_attention": {
         "flash_attention_launch": [_P] * 4 + [_I] * 7 + [_P],

@@ -2,12 +2,19 @@
 
 ``decode_attention_cuda`` takes CUDA tensors only (``ops.py`` sends CPU
 tensors to the plain version in ``ref.py``), allocates the output and the
-float32 split workspace, launches the split and combine kernels on
-PyTorch's current stream, never synchronises, and raises on a launch
+float32 split workspace, launches the one kernel (splits and their merge)
+on PyTorch's current stream, never synchronises, and raises on a launch
 error. One call is one K5 launch in ``build.LAUNCHES["k5"]``.
+
+The kernel's last split to finish a row merges the row, found by an int32
+counter per row that the kernel leaves at 0; the counters are kept per
+device (``_COUNTERS``), zeroed once, so a call costs no memset. Calls on
+one device run on one stream at a time, as the serve loop runs them.
 """
 
 from __future__ import annotations
+
+from typing import Dict, Tuple
 
 import torch
 
@@ -15,19 +22,62 @@ from repro_torch.kernels import build
 
 #: cache positions per split are a multiple of the kernel's 32-row tile
 TILE = 32
-#: largest split; shorter when the (batch, kv-head) pairs are too few to
-#: give the card's 132 SMs two CTAs each
-MAX_CHUNK = 256
-_TARGET_CTAS = 2 * 132
+#: shortest split: a shorter one costs more in the merge than it saves
+MIN_CHUNK = 256
+#: one CTA per SM: each keeps ~48 KB of K/V in flight, enough for the card
+_TARGET_CTAS = 132
+#: below this many CTAs a short cache splits a GQA group over more CTAs
+_MIN_CTAS = 96
 HEAD_DIMS = (16, 32, 64, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def split_chunk(batch_heads: int, s: int) -> int:
-    """Cache positions per CTA: enough splits for ~2 CTAs per SM over the
-    whole cache, in tiles of 32, at most 256."""
+    """Cache positions per CTA: about one CTA per SM over the whole cache
+    (``batch_heads`` rows of the cache), in tiles of 32, at least 256 and at
+    most the cache rounded up to a tile."""
     want = -(-s * batch_heads // _TARGET_CTAS)
-    return max(TILE, min(MAX_CHUNK, -(-want // TILE) * TILE))
+    chunk = max(MIN_CHUNK, -(-want // TILE) * TILE)
+    return min(chunk, -(-s // TILE) * TILE)
+
+
+#: the kernel's head-slot counts (GC); 5 is qwen3-14b's group of 40 / 8
+HEAD_SLOTS = (1, 2, 4, 5, 8)
+
+
+def heads_per_cta(g: int) -> int:
+    """Query heads a CTA holds in registers (the kernel's GC): the least
+    slot count that holds the group's g; a group of more than 8 takes
+    ceil(g / 8) CTAs per split."""
+    return next((c for c in HEAD_SLOTS if c >= g), HEAD_SLOTS[-1])
+
+
+def split_plan(b: int, hkv: int, g: int, s: int) -> Tuple[int, int]:
+    """(heads per CTA, cache positions per CTA) for a launch: the split of
+    :func:`split_chunk`, and the head slots of :func:`heads_per_cta`, cut to
+    fewer heads per CTA (down to 2) while the grid has under 96 CTAs, as a
+    short cache has (at S = 256 one split and 3 CTAs per group of 5 beat
+    4 splits of the whole group; ``PERF.md``)."""
+    chunk = split_chunk(b * hkv, s)
+    splits = -(-s // chunk)
+    gc = heads_per_cta(g)
+    for smaller in (4, 2):
+        if b * hkv * -(-g // gc) * splits >= _MIN_CTAS:
+            break
+        gc = min(gc, smaller)
+    return gc, chunk
+
+
+#: zeroed merge counters per CUDA device index, grown on demand
+_COUNTERS: Dict[int, torch.Tensor] = {}
+
+
+def _counters(device: torch.device, n: int) -> torch.Tensor:
+    have = _COUNTERS.get(device.index)
+    if have is None or have.numel() < n:
+        have = torch.zeros(n, dtype=torch.int32, device=device)
+        _COUNTERS[device.index] = have
+    return have
 
 
 def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -51,18 +101,21 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"Hkv={hkv}, D={d} one of {HEAD_DIMS}, kv_len "
                          f"[{b}] (got {tuple(kv_len.shape)})")
     g = hq // hkv
-    chunk = split_chunk(b * hkv, s)
+    gc, chunk = split_plan(b, hkv, g, s)
+    rows = b * hkv * -(-g // gc)
     n_splits = -(-s // chunk)
     out = torch.empty_like(q)
-    part_acc = torch.empty((b * hkv, n_splits, g, d), dtype=torch.float32,
+    part_acc = torch.empty((rows, n_splits, gc, d), dtype=torch.float32,
                            device=q.device)
-    part_ml = torch.empty((b * hkv, n_splits, g, 2), dtype=torch.float32,
+    part_ml = torch.empty((rows, n_splits, gc, 2), dtype=torch.float32,
                           device=q.device)
+    counter = _counters(q.device, rows)
     lib = build.load()["decode_attention"]
     err = lib.decode_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
-        out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), b, hq, hkv,
-        s, d, chunk, DTYPES[q.dtype], build.stream_of(q))
+        out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
+        counter.data_ptr(), b, hq, hkv, s, d, chunk, gc, DTYPES[q.dtype],
+        build.stream_of(q))
     build.check(err, "decode_attention")
     build.LAUNCHES["k5"] += 1
     return out

@@ -214,11 +214,235 @@ def test_cuda_request_raises_without_a_card():
 
 
 @pytest.mark.parametrize("pairs,s,chunk", [
-    (32, 256, 32),      # the serving shape: B = 4 slots x 8 kv heads
-    (32, 4096, 256),    # a long cache: 16 splits
-    (1, 64, 32),
-    (2, 100_000, 256),
+    (32, 256, 256),      # the serving shape: B = 4 slots x 8 kv heads
+    (32, 4096, 1024),    # a long cache: 4 splits, 128 CTAs
+    (1, 64, 64),         # never longer than the cache
+    (2, 100_000, 1536),  # 66 splits, 132 CTAs
 ])
 def test_split_chunk_fills_the_card(pairs, s, chunk):
     got = k5_mod.split_chunk(pairs, s)
     assert got == chunk and got % k5_mod.TILE == 0
+
+
+@pytest.mark.parametrize("b,hkv,g,s,plan", [
+    (4, 8, 5, 256, (2, 256)),    # qwen3 served: 1 split, 3 CTAs per group
+    (4, 8, 5, 4096, (5, 1024)),  # qwen3 at a long cache: the whole group
+    (4, 8, 4, 256, (2, 256)),    # jamba served: 2 CTAs per group
+    (4, 8, 5, 512, (4, 256)),    # 2 splits: 2 CTAs per group reach 128
+])
+def test_split_plan_fills_the_card(b, hkv, g, s, plan):
+    gc, chunk = k5_mod.split_plan(b, hkv, g, s)
+    assert (gc, chunk) == plan and gc in k5_mod.HEAD_SLOTS
+    # at least 96 CTAs, unless a CTA is down to 2 heads already
+    assert b * hkv * -(-g // gc) * -(-s // chunk) >= 96 or gc == 2
+
+
+# ------------------------------------------------------------------------
+# The redesigned kernels' rounding points, mirrored in plain PyTorch and
+# held to the Pallas kernels in interpret mode (the kernels themselves run
+# only on the card; chip_smoke.py holds them to their plain versions).
+
+LOG2E = 1.4426950408889634
+
+
+def _tc_flash_mirror(q, k, v, causal, block_q=128, block_n=128):
+    """K6's tensor-core path (bfloat16, D in {64, 128}): bf16 Q and K
+    multiplied with float32 accumulation, the scale (times log2 e) applied
+    to the float32 scores, an online softmax in float32 over 128-row KV
+    tiles (tiles above the causal diagonal skipped, -1e30 masks), P rounded
+    to bf16 before P V, l summing the unrounded P, float32 accumulation and
+    one final rounding to bf16."""
+    b, hq, s, d = q.shape
+    g = hq // k.shape[1]
+    scale = np.float32(1.0 / np.sqrt(d) * LOG2E)
+    kx = k.repeat_interleave(g, dim=1).float()
+    vx = v.repeat_interleave(g, dim=1).float()
+    out = torch.empty((b, hq, s, d), dtype=torch.float32)
+    for q0 in range(0, s, block_q):
+        qt = q[:, :, q0:q0 + block_q].float()
+        rows = torch.arange(q0, q0 + qt.shape[2])[:, None]
+        m = torch.full(qt.shape[:3], -1e30)
+        l = torch.zeros(qt.shape[:3])
+        o = torch.zeros(qt.shape)
+        kv_end = min(s, q0 + block_q) if causal else s
+        for k0 in range(0, kv_end, block_n):
+            kt, vt = kx[:, :, k0:k0 + block_n], vx[:, :, k0:k0 + block_n]
+            x = torch.einsum("bhqd,bhkd->bhqk", qt, kt) * scale
+            cols = torch.arange(k0, k0 + kt.shape[2])[None, :]
+            if causal:
+                x = x.masked_fill(cols > rows, -1e30)
+            mx = torch.maximum(m, x.amax(-1))
+            alpha = torch.exp2(m - mx)
+            p = torch.exp2(x - mx[..., None])
+            l = l * alpha + p.sum(-1)
+            o = o * alpha[..., None] + torch.einsum(
+                "bhqk,bhkd->bhqd", p.to(torch.bfloat16).float(), vt)
+            m = mx
+        out[:, :, q0:q0 + block_q] = o / l.clamp_min(1e-30)[..., None]
+    return out.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("shape", FLASH_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("causal", [True, False])
+def test_tensor_core_flash_rounding_matches_pallas(shape, causal):
+    b, hq, s, d, hkv = shape
+    rng = np.random.default_rng(42)
+    q, jq = _both(rng.standard_normal((b, hq, s, d)).astype(np.float32),
+                  "bfloat16")
+    k, jk = _both(rng.standard_normal((b, hkv, s, d)).astype(np.float32),
+                  "bfloat16")
+    v, jv = _both(rng.standard_normal((b, hkv, s, d)).astype(np.float32),
+                  "bfloat16")
+    got = _tc_flash_mirror(q, k, v, causal)
+    pal = jax_attention(jq, jk, jv, causal, True, True)
+    np.testing.assert_allclose(_np(got), _np(pal), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_tensor_core_flash_rounding_peaked_logits(causal):
+    """q scaled so the logits span about +-30: P is near one-hot, where a
+    bf16 P rounds its largest entries."""
+    b, hq, s, d, hkv = 1, 10, 256, 128, 2
+    rng = np.random.default_rng(8)
+    qn = 8 * rng.standard_normal((b, hq, s, d)).astype(np.float32)
+    q, jq = _both(qn, "bfloat16")
+    k, jk = _both(rng.standard_normal((b, hkv, s, d)).astype(np.float32),
+                  "bfloat16")
+    v, jv = _both(rng.standard_normal((b, hkv, s, d)).astype(np.float32),
+                  "bfloat16")
+    logits = torch.einsum("bhsd,bhtd->bhst", q[:, ::hq // hkv].float(),
+                          k.float()) / np.sqrt(d)
+    assert 20 < float(logits.abs().max()) < 60
+    got = _tc_flash_mirror(q, k, v, causal)
+    pal = jax_attention(jq, jk, jv, causal, True, True)
+    np.testing.assert_allclose(_np(got), _np(pal), atol=2e-2, rtol=2e-2)
+
+
+def test_tensor_core_flash_rounding_ragged():
+    """S = 200: a ragged last q block and KV tile (the Pallas wrapper
+    refuses it; its jnp oracle takes it)."""
+    b, hq, s, d, hkv = 1, 10, 200, 128, 2
+    rng = np.random.default_rng(11)
+    q, jq = _both(rng.standard_normal((b, hq, s, d)).astype(np.float32),
+                  "bfloat16")
+    k, jk = _both(rng.standard_normal((b, hkv, s, d)).astype(np.float32),
+                  "bfloat16")
+    got = _tc_flash_mirror(q, k, k, True)
+    want = jax_attention(jq, jk, jk, True, False)
+    np.testing.assert_allclose(_np(got), _np(want), atol=2e-2, rtol=2e-2)
+
+
+def _k5_mirror(q, k, v, kv_len, chunk, tile=32, threads=128):
+    """K5's arithmetic: the cache cut into splits of ``chunk`` positions;
+    inside a split, teams of D * size / 16 lanes (at most 32) each take
+    every n_teams-th position of a 32-position tile and run their own
+    float32 online softmax in the log2 domain (q scaled by log2 e / sqrt(D),
+    p = 2^(s - m), p = 0 on masked positions); the teams' partials merge,
+    then the splits' (2^(m_i - M) weights), then one rounding to q's dtype.
+    kv_len = 0 gives 0."""
+    b, hq, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    g = hq // hkv
+    chunks = d * q.element_size() // 16
+    n_teams = threads // min(chunks, 32)
+    scale = np.float32(1.0 / np.sqrt(d) * LOG2E)  # the softmax runs on 2^x
+    qf = q.float().reshape(b, hkv, g, d) * scale
+    out = torch.zeros((b, hkv, g, d))
+    for bi in range(b):
+        n = max(0, min(int(kv_len[bi]), s))
+        parts = []
+        for start in range(0, n, chunk):
+            end = min(start + chunk, n)
+            m = torch.full((hkv, g, n_teams), -1e30)
+            l = torch.zeros((hkv, g, n_teams))
+            acc = torch.zeros((hkv, g, n_teams, d))
+            for t0 in range(start, end, tile):
+                pos = t0 + torch.arange(tile)
+                ok = pos < end
+                rows = torch.where(ok, pos, 0)
+                kt = k[bi, :, rows].float()  # [hkv, tile, d]
+                vt = v[bi, :, rows].float() * ok[None, :, None]
+                x = torch.einsum("hgd,htd->hgt", qf[bi], kt)
+                x = torch.where(ok, x, torch.tensor(-1e30))
+                team = torch.arange(tile) % n_teams
+                for tm in range(min(n_teams, tile)):
+                    sel = team == tm
+                    mx = torch.maximum(m[..., tm], x[..., sel].amax(-1))
+                    alpha = torch.exp2(m[..., tm] - mx)
+                    p = torch.where(ok[sel], torch.exp2(x[..., sel]
+                                                        - mx[..., None]), 0.)
+                    l[..., tm] = l[..., tm] * alpha + p.sum(-1)
+                    acc[..., tm, :] = acc[..., tm, :] * alpha[..., None] \
+                        + torch.einsum("hgt,htd->hgd", p, vt[:, sel])
+                    m[..., tm] = mx
+            mt = m.amax(-1)
+            w = torch.exp2(m - mt[..., None])
+            parts.append((mt, (l * w).sum(-1),
+                          (acc * w[..., None]).sum(-2)))
+        if parts:
+            mm = torch.stack([p[0] for p in parts])
+            w = torch.exp2(mm - mm.amax(0))
+            lsum = (torch.stack([p[1] for p in parts]) * w).sum(0)
+            asum = (torch.stack([p[2] for p in parts]) * w[..., None]).sum(0)
+            out[bi] = asum / lsum.clamp_min(1e-30)[..., None]
+    return out.reshape(b, hq, d).to(q.dtype)
+
+
+@pytest.mark.parametrize("shape", DECODE_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_decode_split_merge_matches_pallas(shape, dtype):
+    """Several splits of 32 or 64 positions, kv_len 1 and S among the
+    lengths."""
+    b, hq, hkv, s, d = shape
+    rng = np.random.default_rng(7)
+    q, jq = _both(rng.standard_normal((b, hq, d)).astype(np.float32), dtype)
+    k, jk = _both(rng.standard_normal((b, hkv, s, d)).astype(np.float32),
+                  dtype)
+    v, jv = _both(rng.standard_normal((b, hkv, s, d)).astype(np.float32),
+                  dtype)
+    tol = DTYPES[dtype][2]
+    for lens, chunk in zip(_kv_lens(rng, b, s), (32, 64)):
+        got = _k5_mirror(q, k, v, lens, chunk)
+        pal = jax_decode_attention(jq, jk, jv, jnp.asarray(lens), True, True)
+        np.testing.assert_allclose(_np(got), _np(pal), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_decode_split_merge_ragged_and_peaked(dtype):
+    """A ragged S = 600 (no multiple of a tile or a split), lengths 1, S
+    and a split boundary plus one, and q scaled so the logits span about
+    +-30."""
+    b, hq, hkv, s, d = 3, 10, 2, 600, 128
+    rng = np.random.default_rng(13)
+    tol = DTYPES[dtype][2]
+    for qscale in (1.0, 8.0):
+        qn = qscale * rng.standard_normal((b, hq, d)).astype(np.float32)
+        q, jq = _both(qn, dtype)
+        k, jk = _both(rng.standard_normal((b, hkv, s, d)).astype(
+            np.float32), dtype)
+        v, jv = _both(rng.standard_normal((b, hkv, s, d)).astype(
+            np.float32), dtype)
+        lens = np.array([1, s, 97], np.int32)
+        got = _k5_mirror(q, k, v, lens, 96)
+        want = jax_decode_attention(jq, jk, jv, jnp.asarray(lens), False)
+        np.testing.assert_allclose(_np(got), _np(want), atol=tol, rtol=tol)
+
+
+def test_decode_mirror_gives_zero_without_a_cache():
+    q = torch.ones((2, 4, 16))
+    k = torch.ones((2, 2, 64, 16))
+    got = _k5_mirror(q, k, k, np.array([0, 3], np.int32), 32)
+    assert torch.equal(got[0], torch.zeros((4, 16)))
+    assert torch.equal(got[1], torch.ones((4, 16)))
+
+
+@pytest.mark.parametrize("g,gc,ctas", [
+    (1, 1, 1), (4, 4, 1),  # MHA; jamba's 32/8
+    (5, 5, 1),             # qwen3-14b's 40/8
+    (9, 8, 2),             # starcoder2's 36/4: two CTAs per split
+])
+def test_heads_per_cta(g, gc, ctas):
+    assert k5_mod.heads_per_cta(g) == gc
+    assert -(-g // gc) == ctas
