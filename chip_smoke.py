@@ -12,27 +12,42 @@ Phases (any failed check exits non-zero):
    static shared memory and spills of K6's kernels and of K5's D = 128
    kernels from the ``-Xptxas -v`` logs, and the count of ``HGMMA``
    instructions in ``cuobjdump -sass`` of ``libflash_attention.so``
-   (non-zero: K6's bf16 path runs on the tensor cores);
+   (non-zero: K6's bf16 path runs on the tensor cores), and the same
+   report for K3's kernels (``fused.log``);
 2. every kernel against its plain PyTorch version on the card, bit for bit:
    K1/K2 at B in {32, 128}, S in {1, 3}, T in {1, 2}; K3 at lanes in
    {1, 4}, channels in {1, 2}, S in {1, 3}, T in {1, 2}, and channels of
    4, 16, 32 and 64 banks (both arbiter reduction paths); two 500-cycle K3
-   rollouts that feed the kernel's outputs back in;
+   rollouts that feed the kernel's outputs back in; then K3's persistent
+   form ``fused_run`` against ``fused_run_plain``, the whole ``SimState``
+   bit for bit (sink slots stripped), on the four traces at 3000 cycles
+   (conv2d also cut into launches of 7 steps), on a DVFS schedule with an
+   open-page FR-FCFS segment, on a two-tier topology (64 banks, block
+   barriers) and on 512 banks at 1500 cycles (bank-queue rings in device
+   memory); a mismatch names the leaf and the first clock at which the two
+   differ;
 3. the main path at the paper's Table-1 size: ``simulate_fast`` (fused
-   backend, K3) on the four benchmark traces at queue 128 over 100k
-   cycles, each held against the JAX reference's golden digest, with the
-   Table-2 rows, executed steps, wall seconds and K3 launches;
-4. the per-cycle reference on the card: ``simulate`` with the split
-   backend (K1) and ``simulate_fast`` split (K1 + K2) on conv2d at 20k
+   backend: persistent K3 launches, ``(t, steps)`` read once per launch)
+   on the four benchmark traces at queue 128 over 100k cycles, each held
+   against the JAX reference's golden digest (executed steps included),
+   with the Table-2 rows, executed steps, steps/s, wall seconds and the
+   launches: persistent K3 launches = the host loop's launches, and no
+   per-step K3, K1 or K2 launch;
+4. the per-cycle reference on the card: ``simulate`` with the fused
+   backend (per-step K3, one CUDA graph per cycle) and with the split
+   backend (K1), and ``simulate_fast`` split (K1 + K2), on conv2d at 20k
    cycles against the golden digest, and ``simulate`` with the plain
    backend, which must agree bit for bit;
 5. kernel times at the main path's shapes: device time per launch (200
    launches replayed from CUDA graphs, timed with CUDA events) beside the
    plain version's and the bandwidth bound, and the eager call time with
-   its host launch (median of 200 calls);
+   its host launch (median of 200 calls); the persistent K3's device time
+   per executed step on each trace at 100k cycles (one launch, CUDA
+   events) beside the plain loop's time per step and the byte bound;
 6. where a main-path step's time goes: a torch.profiler device trace of
-   conv2d over 5000 cycles (kernels and device time per executed step)
-   and the count of host synchronisations per executed step;
+   conv2d over 5000 cycles (device kernels and device time per executed
+   step, device busy share) and the count of host synchronisations, at
+   most the persistent launches plus set-up;
 7. the attention kernels against their plain versions on the card, in
    float32 (max abs error 1e-5) and bfloat16 (2e-2), with random kv_len
    including 1 and S: K5 (decode) on the reference test shapes, a GQA
@@ -245,7 +260,7 @@ def phase_device():
     log(f"[1] kernels built and loaded in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {build.build_seconds():.1f} s) from {build.CSRC}")
     out_dir = build.BUILD_ROOT / build.source_hash()
-    for name, keep in (("flash_attention", None),
+    for name, keep in (("fused", None), ("flash_attention", None),
                        ("decode_attention", "Li128E")):
         for fn, regs, smem, spills in ptxas_report(
                 (out_dir / f"{name}.log").read_text(), keep):
@@ -454,6 +469,124 @@ def k3_rollout(gen, topo, lanes, segments, cycles):
     return 0, delta_pos
 
 
+def dvfs_schedule(cfg):
+    """Three segments: Table-1 timings, slower timings with open pages
+    from cycle 500, and open-page FR-FCFS with a short tREFI from 1300."""
+    import torch
+    from repro_torch.core.params import ParamSchedule, RuntimeParams
+
+    base = cfg.runtime()
+    pts = [base,
+           base._replace(tCL=base.tCL + 4, tRCDRD=base.tRCDRD + 2,
+                         page_policy=1),
+           base._replace(tRP=base.tRP + 3, tCL=base.tCL + 2, tREFI=900,
+                         page_policy=1, sched_policy=1)]
+    return ParamSchedule(boundaries=torch.tensor([0, 500, 1300],
+                                                 dtype=torch.int32),
+                         values=RuntimeParams.stack(pts)).validate()
+
+
+def run_fused(cfg, trace, cycles, params=None, budget=None, kernel=True):
+    """The fused event-horizon loop on a fresh state on the card:
+    ``fused_run_cuda`` launches (``kernel``) or ``fused_run_plain``, until
+    ``cycles``. Returns (topo, view, trace, state, steps, launches)."""
+    from repro_torch.core.engine import _sched_i32, fused_run_plain
+    from repro_torch.core.simulator import ScheduleView, init_state
+    from repro_torch.kernels.bank_fsm.fused import fused_run_cuda
+
+    topo = cfg.topology()
+    view = ScheduleView(topo, _sched_i32(cfg.runtime() if params is None
+                                         else params), DEVICE)
+    tr = trace.to(DEVICE)
+    state = init_state(topo, view, tr.num_requests, device=DEVICE)
+    fn = fused_run_cuda if kernel else fused_run_plain
+    t = steps = launches = 0
+    while t < cycles:
+        t, n = fn(topo, view, tr, state, t, cycles, budget)
+        steps += n
+        launches += 1
+    return topo, view, tr, state, steps, launches
+
+
+def state_diff(a, b):
+    """The leaves (sink slots stripped) where two states differ."""
+    from repro_torch.core import interop
+
+    x, y = interop.state_to_numpy(a), interop.state_to_numpy(b)
+    return [k for k in x if x[k].shape != y[k].shape
+            or (x[k] != y[k]).any()]
+
+
+def first_divergence(cfg, trace, cycles, params):
+    """The first clock after which one kernel step and one plain step,
+    taken in lockstep from reset, leave different states."""
+    from repro_torch.core.engine import fused_run_plain
+    from repro_torch.kernels.bank_fsm.fused import fused_run_cuda
+
+    topo, view, tr, a, _, _ = run_fused(cfg, trace, 0, params)
+    b = run_fused(cfg, trace, 0, params)[3]
+    t = 0
+    while t < cycles:
+        ta, _ = fused_run_cuda(topo, view, tr, a, t, cycles, 1)
+        tb, _ = fused_run_plain(topo, view, tr, b, t, cycles, 1)
+        bad = state_diff(a, b)
+        if bad or ta != tb:
+            return t, bad, (ta, tb)
+        t = ta
+    return None
+
+
+def phase_fused_run():
+    """K3's persistent form against its plain loop, the whole SimState."""
+    from repro_torch.core import MemSimConfig
+    from repro_torch.core.params import RuntimeParams, tiered_params
+    from repro_torch.traces import BENCHMARKS, conv2d
+
+    q = 128
+    cfg = MemSimConfig(queue_size=q)
+    # (label, config, trace, params, cycles, kernel budgets); the plain
+    # loop runs once a case (its result does not depend on the budget)
+    cases = [(name, cfg, BENCHMARKS[name](), None, 3_000,
+              (None, 7) if name == "conv2d" else (None,))
+             for name in sorted(BENCHMARKS)]
+    cases += [
+        ("conv2d dvfs+frfcfs", cfg, conv2d(), dvfs_schedule(cfg), 3_000,
+         (None,)),
+        ("conv2d two-tier (64 banks)",
+         MemSimConfig(queue_size=q, channels=2, tiers=2, cxl_channels=1),
+         conv2d(), tiered_params(RuntimeParams(), RuntimeParams(
+             tRCDRD=30, tCL=24, tRFC=300, tREFI=5000)), 3_000, (None,)),
+        ("conv2d 512 banks (rings of 1 MiB in device memory)",
+         MemSimConfig(queue_size=q, channels=16), conv2d(), None, 1_500,
+         (None,)),
+    ]
+    for label, cfg, trace, params, cycles, budgets in cases:
+        t0 = time.perf_counter()
+        *_, p_state, p_steps, _ = run_fused(cfg, trace, cycles, params,
+                                            kernel=False)
+        t_p = time.perf_counter() - t0
+        for budget in budgets:
+            t0 = time.perf_counter()
+            *_, k_state, k_steps, k_launches = run_fused(cfg, trace, cycles,
+                                                         params, budget)
+            t_k = time.perf_counter() - t0
+            bad = state_diff(k_state, p_state)
+            if bad or k_steps != p_steps:
+                where = first_divergence(cfg, trace, cycles, params)
+                check(False, f"fused_run (budget {budget}) != "
+                      f"fused_run_plain on {label}@{cycles}: leaves {bad}, "
+                      f"steps {k_steps} vs {p_steps}; first divergence "
+                      f"(clock, leaves, next clocks) {where}")
+            if budget is not None:
+                check(k_launches == -(-k_steps // budget),
+                      f"{label}: {k_launches} launches for {k_steps} steps")
+            log(f"[2] fused_run (budget {budget or 'default'}) == "
+                f"fused_run_plain on {label}@{cycles}: whole SimState bit "
+                f"for bit, {k_steps} steps in {k_launches} launch(es) "
+                f"({t_k:.2f} s; plain {t_p:.1f} s)")
+    return 0
+
+
 def phase_main_path():
     import numpy as np
     from repro_torch import golden
@@ -464,7 +597,8 @@ def phase_main_path():
 
     expected = golden.load()
     cfg = MemSimConfig(queue_size=golden.QUEUE_SIZE)
-    rows, total_steps, total_wall = [], 0, 0.0
+    rows, total_steps, total_wall, total_run = [], 0, 0.0, 0.0
+    loop_launches = 0
     build.reset_launches()
     for name in sorted(BENCHMARKS):
         trace = BENCHMARKS[name]()
@@ -482,21 +616,29 @@ def phase_main_path():
         rows.append((name, cycle_diffs(res, np.asarray(ideal))))
         total_steps += tm["steps"]
         total_wall += wall
+        total_run += tm["run_s"]
+        loop_launches += tm["launches"]
         log(f"[3] {name}: {trace.num_requests} requests, 100000 cycles, "
-            f"{tm['steps']} executed steps, {wall:.2f} s wall "
-            f"(run {tm['run_s']:.2f} s), {tm['steps'] / tm['run_s']:.0f} "
-            f"steps/s, matches golden digest")
+            f"{tm['steps']} executed steps in {tm['launches']} persistent "
+            f"K3 launch(es), {wall:.3f} s wall (run {tm['run_s']:.3f} s), "
+            f"{tm['steps'] / tm['run_s']:.0f} steps/s, matches golden "
+            f"digest")
     launches = dict(build.LAUNCHES)
-    check(launches["k3"] > 0, "K3 was never launched on the main path")
-    check(launches["k3"] == total_steps,
-          f"K3 launches {launches['k3']} != executed steps {total_steps}")
-    check(launches["k1"] == 0 and launches["k2"] == 0,
-          f"the fused path launched split kernels: {launches}")
-    log(f"[3] K3 launches {launches['k3']} = executed steps {total_steps} "
-        f"(1.00 per executed step); four traces in {total_wall:.1f} s, "
-        f"{total_steps / total_wall:.0f} steps/s")
+    check(launches["k3run"] > 0,
+          "the persistent K3 was never launched on the main path")
+    check(launches["k3run"] == loop_launches,
+          f"persistent K3 launches {launches['k3run']} != the host loop's "
+          f"launches {loop_launches}")
+    check(launches["k3"] == 0 and launches["k1"] == 0
+          and launches["k2"] == 0,
+          f"the fused path launched per-step kernels: {launches}")
+    log(f"[3] persistent K3 launches {launches['k3run']} = host loop "
+        f"launches (one host read each); per-step K3, K1, K2 launches 0; "
+        f"{total_steps} executed steps, four traces in {total_wall:.3f} s "
+        f"wall, {total_run:.3f} s run, {total_steps / total_run:.0f} "
+        f"steps/s")
     log("[3] Table 2 (MemorySim - ideal, cycles):\n" + format_table2(rows))
-    return launches["k3"]
+    return launches["k3run"]
 
 
 def phase_per_cycle():
@@ -511,14 +653,27 @@ def phase_per_cycle():
     q = golden.QUEUE_SIZE
     ideal = simulate_ideal(MemSimConfig(queue_size=q), trace,
                            device=DEVICE).t_complete.cpu().numpy()
+    no_steps = {k: v for k, v in expected.items() if k != "steps"}
+    build.reset_launches()
+    t0 = time.perf_counter()
+    fused = simulate(MemSimConfig(queue_size=q), trace, 20_000, device=DEVICE)
+    t_fused = time.perf_counter() - t0
+    bad = golden.mismatches(no_steps, golden.result_digest(fused, ideal))
+    check(not bad, f"simulate(fused) conv2d@20000 differs from golden in "
+          f"{bad}")
+    k3 = build.LAUNCHES["k3"]
+    check(k3 == 20_000, f"simulate(fused) launched K3 {k3} times for "
+          f"20000 cycles")
+    check(build.LAUNCHES["k3run"] == 0,
+          f"the per-cycle engine launched the persistent K3: "
+          f"{build.LAUNCHES}")
     build.reset_launches()
     t0 = time.perf_counter()
     split = simulate(MemSimConfig(queue_size=q, fsm_backend="split"),
                      trace, 20_000, device=DEVICE)
     t_split = time.perf_counter() - t0
     got = golden.result_digest(split, ideal)
-    bad = golden.mismatches({k: v for k, v in expected.items()
-                             if k != "steps"}, got)
+    bad = golden.mismatches(no_steps, got)
     check(not bad, f"simulate(split) conv2d@20000 differs from golden in "
           f"{bad}")
     tm = {}
@@ -540,10 +695,12 @@ def phase_per_cycle():
     t_plain = time.perf_counter() - t0
     check(golden.result_digest(plain, ideal) == got,
           "simulate(plain) on the card != simulate(split)")
-    log(f"[4] conv2d@20000: simulate split {t_split:.1f} s, simulate plain "
+    log(f"[4] conv2d@20000: simulate fused {t_fused:.1f} s (K3 launches "
+        f"{k3}), simulate split {t_split:.1f} s, simulate plain "
         f"{t_plain:.1f} s (bit-identical), simulate_fast split {t_fast:.1f} "
         f"s ({tm['steps']} steps); all match the golden digest; "
         f"K1 launches {launches['k1']}, K2 launches {launches['k2']}")
+    launches["k3"] = k3
     return launches
 
 
@@ -659,6 +816,79 @@ def phase_times():
     return out
 
 
+def run_bytes(view, trace, state):
+    """Bytes one persistent K3 launch from reset must move, counted from
+    its final state: the resident state (registers, timing, queues and
+    their rings, arbiter pointers, counters) loaded and stored once, the
+    parameters and each admitted trace entry read once, each record word
+    written once where it was set, and one ``mem`` word per completed
+    write, a ``mem`` read and an ``rdata`` write per completed read."""
+    from repro_torch.core.graphs import _leaves
+
+    records = (state.t_admit, state.t_dispatch, state.t_start,
+               state.t_complete)
+    n = trace.num_requests
+    in_place = {id(x) for x in (state.mem, state.rdata, *records)}
+    resident = sum(x.numel() for x in _leaves(state)
+                   if id(x) not in in_place)
+    admitted = int(state.next_arrival)
+    stamped = sum(int((r[:n] >= 0).sum()) for r in records)
+    done = state.t_complete[:n] >= 0
+    writes = int((done & (trace.is_write[:n] != 0)).sum())
+    reads = int(done.sum()) - writes
+    words = (2 * resident + sum(x.numel() for x in view.packed)
+             + 4 * admitted + stamped + writes + 2 * reads)
+    return words * 4
+
+
+def phase_run_times():
+    """The persistent K3 on each trace at 100k cycles: device time of its
+    one launch (CUDA events) per executed step, beside the plain loop's
+    wall time per step (300 steps of conv2d) and the byte bound of what
+    the launch must move (``run_bytes``)."""
+    import torch
+    from repro_torch.core import MemSimConfig
+    from repro_torch.kernels import build
+    from repro_torch.core.engine import fused_run_plain
+    from repro_torch.kernels.bank_fsm.fused import fused_run_cuda
+    from repro_torch.traces import BENCHMARKS
+
+    cfg = MemSimConfig(queue_size=128)
+    counted = dict(build.LAUNCHES)
+    out = {}
+    for name in sorted(BENCHMARKS):
+        topo, view, tr, state, _, _ = run_fused(cfg, BENCHMARKS[name](), 0)
+        torch.cuda.synchronize()
+        s, e = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        s.record()
+        t, steps = fused_run_cuda(topo, view, tr, state, 0, 100_000)
+        e.record()
+        torch.cuda.synchronize()
+        check(t == 100_000, f"{name}: one launch stopped at {t}")
+        ms = s.elapsed_time(e)
+        nbytes = run_bytes(view, tr, state)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        out[name] = (ms / steps, steps, ms, bound_ms / steps, nbytes)
+        log(f"[5] k3run {name}@100000: one launch {ms:.3f} ms for {steps} "
+            f"executed steps = {ms / steps * 1e3:.3f} us/step "
+            f"({steps / ms * 1e3:.0f} steps/s of device time); bound "
+            f"{bound_ms * 1e3:.3f} us per launch ({nbytes} B at 3.35 TB/s) "
+            f"= {bound_ms / steps * 1e6:.3f} ns/step")
+    topo, view, tr, state, _, _ = run_fused(cfg, BENCHMARKS["conv2d"](), 0)
+    fused_run_plain(topo, view, tr, state, 0, 100_000, 20)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, n = fused_run_plain(topo, view, tr, state, 20, 100_000, 300)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) / n * 1e3
+    log(f"[5] k3run plain loop (fused_run_plain, eager on the card): "
+        f"{plain_ms * 1e3:.1f} us wall per executed step (conv2d, {n} "
+        f"steps)")
+    build.LAUNCHES.update(counted)
+    return out, plain_ms
+
+
 def device_rows(prof):
     """The rows of a profile's ``key_averages()`` that ran on the device
     (kernels, copies, fills). The rows of CPU operators carry the device
@@ -674,7 +904,7 @@ def device_rows(prof):
 def phase_trace():
     """Where a main-path step's time goes: a device trace of conv2d over
     5000 cycles (kernels and device time per executed step, device busy
-    share), and the host synchronisations per executed step."""
+    share), and the host synchronisations against the launches."""
     import warnings
 
     import torch
@@ -697,11 +927,11 @@ def phase_trace():
     if dev:
         kernels = sum(e.count for e in dev)
         dev_us = sum(e.self_device_time_total for e in dev)
-        log(f"[6] conv2d@5000 ({steps} executed steps): {wall:.2f} s wall "
-            f"untraced = {wall / steps * 1e6:.0f} us/step; traced: "
-            f"{kernels / steps:.0f} device kernels/step, "
-            f"{dev_us / steps:.0f} us device time/step, device busy "
-            f"{dev_us * 1e-6 / wall:.0%} of the untraced wall time")
+        log(f"[6] conv2d@5000 ({steps} executed steps): {wall:.4f} s wall "
+            f"untraced = {wall / steps * 1e6:.2f} us/step; traced: "
+            f"{kernels} device kernels = {kernels / steps:.4f}/step, "
+            f"{dev_us / steps:.3f} us device time/step, device busy "
+            f"{dev_us * 1e-6 / wall:.1%} of the untraced wall time")
     else:
         log("[6] device trace: no device events recorded (not measured)")
     torch.cuda.set_sync_debug_mode(1)
@@ -712,10 +942,11 @@ def phase_trace():
     finally:
         torch.cuda.set_sync_debug_mode(0)
     syncs = sum("synchronizing" in str(w.message) for w in caught)
-    check(syncs <= steps + 64, f"{syncs} host synchronisations for "
-          f"{steps} executed steps")
-    log(f"[6] host synchronisations: {syncs} for {steps} executed steps "
-        f"(one per step reads the skip; the rest are set-up)")
+    check(syncs <= tm["launches"] + 64, f"{syncs} host synchronisations "
+          f"for {tm['launches']} persistent launches")
+    log(f"[6] host synchronisations: {syncs} for {steps} executed steps in "
+        f"{tm['launches']} persistent K3 launch(es) (one read of (t, "
+        f"steps) a launch; the rest are set-up and the result copy)")
 
 
 # ------------------------------------------------------- LLM serve slice --
@@ -1513,9 +1744,11 @@ def main():
     try:
         card = phase_device()
         errs = phase_kernels()
-        k3_launches = phase_main_path()
+        errs["k3run"] = phase_fused_run()
+        k3run_launches = phase_main_path()
         split_launches = phase_per_cycle()
         times = phase_times()
+        run_times, run_plain_ms = phase_run_times()
         phase_trace()
         attn_errs = phase_attention_kernels()
         llm_launches = phase_serve()
@@ -1535,7 +1768,7 @@ def main():
         "k2": ("bank_event_bound", src + "bank_fsm.cu",
                ref + "bank_fsm.py:300", split_launches["k2"]),
         "k3": ("fused_step", src + "fused.cu", ref + "fused.py:397",
-               k3_launches),
+               split_launches["k3"]),
     }
     kernels = []
     for k, (name, source, replaces, launches) in meta.items():
@@ -1545,6 +1778,13 @@ def main():
             "replaces": replaces, "launches": launches,
             "max_abs_err": errs[k], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None})
+    # the persistent K3, per executed step on conv2d at 100k cycles
+    ms_step, _, _, bound_step, _ = run_times["conv2d"]
+    kernels.append({
+        "name": "fused_run", "route": "cuda", "source": src + "fused.cu",
+        "replaces": ref + "fused.py:397", "launches": k3run_launches,
+        "max_abs_err": errs["k3run"], "ms": ms_step, "plain_ms": run_plain_ms,
+        "bound_ms": bound_step, "bound_by": "bytes", "library_ms": None})
     ref = "src/repro/kernels/"
     ms, plain_ms, bound_ms, bound_by = hybrid_times["k4"]
     kernels.append({

@@ -9,12 +9,15 @@ the next schedule boundary and the horizon — and jumps the clock there;
 exactly the skipped cycles. Results are bit-identical to the per-cycle
 engine (the exactness contract of ``repro.core.engine``).
 
-The loop is a Python loop on a host clock. Each executed cycle reads one
-value from the device — the skip ``delta`` — and nothing else, so each
-step costs its kernel launches plus one host synchronisation. With
-``fsm_backend="fused"`` (the default) one K3 launch computes the cycle and
-its ``delta``; ``"split"`` launches K1 for the edge and K2 for the bound;
-``"plain"`` runs PyTorch ops only.
+With ``fsm_backend="fused"`` (the default) the loop runs in K3's
+persistent form (:func:`fused_run`): on the card one launch of
+``kernels.bank_fsm.fused.fused_run_cuda`` executes every step from the
+clock to the horizon (or a step budget) and the host reads ``(t, steps)``
+once per launch; on the CPU the same loop runs eagerly
+(:func:`fused_run_plain`). The other backends keep a Python loop
+on a host clock that reads one value from the device per executed cycle,
+the skip ``delta``: ``"split"`` launches K1 for the edge and K2 for the
+bound, ``"plain"`` runs PyTorch ops only.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import torch
 from repro_torch.core import graphs as graphs_lib
 from repro_torch.core import power as power_lib
 from repro_torch.core.bank_fsm import cycles_until_actionable, wait_mask
+from repro_torch.core.fused_step import fused_cycle_step
 from repro_torch.core.indexing import take
 from repro_torch.core.params import (
     CMD_NOP,
@@ -55,6 +59,8 @@ from repro_torch.core.simulator import (
     state_to_result,
 )
 from repro_torch.kernels import build
+from repro_torch.kernels.bank_fsm.fused import (
+    DEFAULT_RUN_BUDGET, fused_run_cuda, fused_step_plain)
 
 _INF = 0x3FFFFFFF
 _PAD_T = 0x3FFFFFFF  # arrival time for padded trace slots: never due
@@ -146,29 +152,68 @@ def _skip_step(topo, view: ScheduleView, trace: Trace, horizon: int,
                seg: int, seg_next: int, state: SimState, cycle
                ) -> Tuple[SimState, torch.Tensor]:
     """One executed cycle of the event-horizon engine at ``cycle`` (segment
-    ``seg``; ``seg_next`` is the segment of ``cycle + 1``): the clock edge,
-    the distance ``delta`` to the next event, and the skip over it."""
-    if topo.fsm_backend == "fused":
-        from repro_torch.core.fused_step import fused_cycle_step
-
-        state, delta = fused_cycle_step(topo, view, trace, state, cycle,
-                                        horizon, seg)
-    else:
-        state = cycle_step(topo, view, trace, state, cycle, seg)
-        delta = _next_event(topo, view, trace, state, cycle + 1, horizon,
-                            seg_next)
+    ``seg``; ``seg_next`` is the segment of ``cycle + 1``) on the split or
+    plain backend: the clock edge, the distance ``delta`` to the next
+    event, and the skip over it."""
+    state = cycle_step(topo, view, trace, state, cycle, seg)
+    delta = _next_event(topo, view, trace, state, cycle + 1, horizon,
+                        seg_next)
     return _apply_skip(topo, view, state, delta, seg_next), delta
 
 
-def _run_skip_core(topo, view: ScheduleView, trace: Trace, num_cycles: int,
-                   state: SimState) -> Tuple[SimState, int]:
-    """Event-driven loop: execute one cycle per event, then jump the clock
-    to the next event horizon. Returns (final state, executed steps).
+def fused_run_plain(topo, view: ScheduleView, trace: Trace,
+                    state: SimState, t: int, t_end: int,
+                    budget: Optional[int] = None) -> Tuple[int, int]:
+    """The plain version of the persistent K3: the eager executed steps of
+    the fused backend (the glue of ``core.fused_step`` around
+    ``fused_step_plain``, then the skip) from clock ``t`` until ``t_end``
+    or ``budget`` steps; ``state`` is updated in place. Returns
+    ``(t, steps)``."""
+    budget = DEFAULT_RUN_BUDGET if budget is None else int(budget)
+    if budget < 1:
+        raise ValueError(f"fused_run: budget={budget} must be >= 1")
+    cur, steps = state, 0
+    while t < t_end and steps < budget:
+        seg, seg_next = view.segment_at(t), view.segment_at(t + 1)
+        cur, delta = fused_cycle_step(topo, view, trace, cur, t, t_end, seg,
+                                      kernel=fused_step_plain)
+        cur = _apply_skip(topo, view, cur, delta, seg_next)
+        t += 1 + int(delta)
+        steps += 1
+    graphs_lib.copy_into(state, cur)
+    return t, steps
 
-    Each executed cycle reads one value on the host, ``delta``. On the card
-    a cycle is a CUDA-graph replay of :func:`_skip_step` (one graph per
-    schedule segment; the last cycle before a boundary, whose bound is
-    taken under the next segment, runs eagerly)."""
+
+def fused_run(topo, view: ScheduleView, trace: Trace, state: SimState,
+              t: int, t_end: int, budget: Optional[int] = None
+              ) -> Tuple[int, int]:
+    """Executed steps of the fused backend from ``t`` until ``t_end`` or
+    ``budget`` steps, in place: one launch of the persistent K3 for a state
+    on the card, its plain version for one on the CPU. Returns
+    ``(t, steps)``."""
+    run = fused_run_cuda if state.mem.is_cuda else fused_run_plain
+    return run(topo, view, trace, state, t, t_end, budget)
+
+
+def _run_skip_core(topo, view: ScheduleView, trace: Trace, num_cycles: int,
+                   state: SimState) -> Tuple[SimState, int, int]:
+    """Event-driven loop: execute one cycle per event, then jump the clock
+    to the next event horizon. Returns (final state, executed steps, K3
+    launches).
+
+    The fused backend runs :func:`fused_run` launches until the horizon,
+    reading ``(t, steps)`` once per launch. The others read ``delta`` on
+    the host once per executed cycle; on the card such a cycle is a
+    CUDA-graph replay of :func:`_skip_step` (one graph per schedule
+    segment; the last cycle before a boundary, whose bound is taken under
+    the next segment, runs eagerly)."""
+    if topo.fsm_backend == "fused":
+        t, steps, launches = 0, 0, 0
+        while t < num_cycles:
+            t, n = fused_run(topo, view, trace, state, t, num_cycles)
+            steps += n
+            launches += 1
+        return state, steps, launches
     graphs = graphs_lib.graphs_for(state)
     t, steps = 0, 0
     while t < num_cycles:
@@ -187,13 +232,13 @@ def _run_skip_core(topo, view: ScheduleView, trace: Trace, num_cycles: int,
         steps += 1
         if replayed:
             graphs.advanced_to(t)
-    return (graphs.state if graphs is not None else state), steps
+    return (graphs.state if graphs is not None else state), steps, 0
 
 
 def _run_scan_core(topo, view: ScheduleView, trace: Trace, num_cycles: int,
-                   state: SimState) -> Tuple[SimState, int]:
+                   state: SimState) -> Tuple[SimState, int, int]:
     """Plain per-cycle loop with runtime limits/params."""
-    return run_cycles(topo, view, trace, state, 0, num_cycles), num_cycles
+    return run_cycles(topo, view, trace, state, 0, num_cycles), num_cycles, 0
 
 
 def _pad_trace(tr: Trace, n_max: int) -> Trace:
@@ -268,8 +313,10 @@ def simulate_fast(cfg: MemSimConfig, trace: Trace, num_cycles: int = 100_000,
     capacity) the runtime depth; ``params`` a :class:`RuntimeParams` or
     :class:`ParamSchedule` (default ``cfg.runtime()``). ``cycle_skip=False``
     runs the plain per-cycle loop. ``timings`` (optional dict) receives
-    ``compile_s`` (kernel build), ``run_s`` and ``steps`` (executed
-    cycles). ``device=None`` runs on the CUDA card and raises without one.
+    ``compile_s`` (kernel build), ``run_s``, ``steps`` (executed cycles)
+    and ``launches`` (persistent K3 launches of the fused backend's loop,
+    0 for the others). ``device=None`` runs on the CUDA card and raises
+    without one.
     """
     dev = resolve_device(device)
     cfg.validate()
@@ -289,13 +336,14 @@ def simulate_fast(cfg: MemSimConfig, trace: Trace, num_cycles: int = 100_000,
     view = ScheduleView(topo, sched, dev)
     state = init_state(topo, view, trace.num_requests, ql, rl, device=dev)
     runner = _run_skip_core if cycle_skip else _run_scan_core
-    final, steps = runner(topo, view, trace_d, num_cycles, state)
+    final, steps, launches = runner(topo, view, trace_d, num_cycles, state)
     res = state_to_result(cfg, trace_d, final, num_cycles)
     t2 = time.perf_counter()
     if timings is not None:
         timings["compile_s"] = timings.get("compile_s", 0.0) + (t1 - t0)
         timings["run_s"] = timings.get("run_s", 0.0) + (t2 - t1)
         timings["steps"] = int(steps)
+        timings["launches"] = int(launches)
     label = cfg if params is None else sched.apply_to(cfg)
     res.cfg = dataclasses.replace(label, queue_size=int(ql),
                                   resp_queue_size=int(rl))

@@ -5,7 +5,10 @@
 ``repro_torch.core.engine._next_event``. The front-end phases (trace
 admission and dispatch), the FR-FCFS promotion and the per-request
 record and memory scatters stay in PyTorch around the kernel; they are the
-same helpers ``cycle_step`` uses.
+same helpers ``cycle_step`` uses. The per-cycle ``simulate`` runs it with
+K3 on the card; ``engine.fused_run_plain``, the plain version of K3's
+persistent form, runs it with ``fused_step_plain`` (the card's
+``simulate_fast`` does all of this inside that persistent kernel).
 
 It returns ``(new_state, delta)``, ``delta`` a 0-d device tensor: the
 exact skip the unfused engine would compute, 0 unless the whole machine is
@@ -132,15 +135,17 @@ def _post(topo: Topology, view: ScheduleView, n: int, state: SimState,
 
 
 def fused_cycle_step(topo: Topology, view: ScheduleView, trace: Trace,
-                     state: SimState, cycle, horizon, seg=None
-                     ) -> Tuple[SimState, torch.Tensor]:
+                     state: SimState, cycle, horizon, seg=None,
+                     kernel=fused_step) -> Tuple[SimState, torch.Tensor]:
     """One synchronous clock edge + the event bound at ``cycle + 1`` with
     exactly one kernel launch. ``cycle`` is a host int or a 0-d device
     tensor (then ``seg``, its schedule segment, is required); ``horizon``
-    caps the skip — pass ``cycle + 1`` to force ``delta = 0``."""
+    caps the skip — pass ``cycle + 1`` to force ``delta = 0``. ``kernel``
+    is K3's entry point (``fused_step_plain`` for the plain version on any
+    device)."""
     if seg is None:
         seg = view.segment_at(cycle)
     ops, ctx = _pre(topo, view, trace, state, cycle, horizon, seg)
-    bank2, resp_buf2, scal2 = fused_step(topo, *ops)
+    bank2, resp_buf2, scal2 = kernel(topo, *ops)
     return _post(topo, view, trace.num_requests, state, cycle, ctx,
                  (bank2, resp_buf2, scal2[0]))

@@ -15,7 +15,9 @@ and a Python loop over cycles the clock. Request life-cycle:
 Differences from the JAX reference, none of them visible in results:
 
 * The loop's clock is a host ``int``; the step never waits for the device
-  (the event-horizon engine reads one value per executed cycle, the skip).
+  (the event-horizon engine reads one value per executed cycle, the skip;
+  on the fused backend it runs K3's persistent form instead, which keeps
+  the clock on the card).
   Choices that depend only on the cycle's schedule segment (its
   parameters, the FR-FCFS branch) are taken on the host through a
   :class:`ScheduleView`. On the card each cycle is replayed as a CUDA graph

@@ -26,19 +26,15 @@
 // tier int32[2] or null; the geometry as ints (every count a power of two).
 #include <cuda_runtime.h>
 
+#include "addr_decode.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxCtasPerSm = 8;
 
-struct Geometry {
-  int banks_per_group, bankgroups, ranks, channels;
-  int bank_bits, bankgroup_bits, rank_bits, row_shift;
-  int dram_channels, cxl_channels, num_banks;
-};
-
 __global__ void __launch_bounds__(kThreads)
-    addr_map_kernel(const int* __restrict__ addr, int n, Geometry g,
+    addr_map_kernel(const int* __restrict__ addr, int n, AddrGeometry g,
                     const int* __restrict__ tier, int* __restrict__ bank,
                     int* __restrict__ rank, int* __restrict__ row,
                     int* __restrict__ hist) {
@@ -53,18 +49,8 @@ __global__ void __launch_bounds__(kThreads)
   const int stride = gridDim.x * kThreads;
   for (int i = blockIdx.x * kThreads + threadIdx.x; i < n; i += stride) {
     const int a = addr[i];
-    const int ba = a & (g.banks_per_group - 1);
-    const int bg = (a >> g.bank_bits) & (g.bankgroups - 1);
-    const int rk = (a >> (g.bank_bits + g.bankgroup_bits)) & (g.ranks - 1);
-    int ch = (a >> (g.bank_bits + g.bankgroup_bits + g.rank_bits)) &
-             (g.channels - 1);
-    if (tier != nullptr) {
-      const bool is_cxl = ((a >> il) & frac_mask) == frac_mask;
-      ch = is_cxl ? g.dram_channels + (ch & (g.cxl_channels - 1))
-                  : ch & (g.dram_channels - 1);
-    }
-    const int rnk = ch * g.ranks + rk;
-    const int bk = (rnk * g.bankgroups + bg) * g.banks_per_group + ba;
+    int rnk;
+    const int bk = decode_bank(g, a, tier != nullptr, il, frac_mask, &rnk);
     bank[i] = bk;
     rank[i] = rnk;
     row[i] = a >> g.row_shift;
@@ -93,7 +79,7 @@ extern "C" int addr_map_launch(const void* addr, void* bank, void* rank,
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const int want = (n + kThreads - 1) / kThreads;
   const int ctas = want < sms * kMaxCtasPerSm ? want : sms * kMaxCtasPerSm;
-  Geometry g{banks_per_group, bankgroups, ranks, channels,
+  AddrGeometry g{banks_per_group, bankgroups, ranks, channels,
              bank_bits, bankgroup_bits, rank_bits, row_shift,
              dram_channels, cxl_channels, num_banks};
   addr_map_kernel<<<ctas, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(

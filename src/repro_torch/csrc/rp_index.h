@@ -3,7 +3,7 @@
 // Mirrors repro_torch/core/params.py: RP_* is the column of each runtime
 // parameter in the packed [T*S, NP] rows (RuntimeParams field order), S_* the
 // bank FSM states, CMD_* the command-bus codes, P_* the open-page
-// after-precharge codes. tests/test_torch_params.py parses this header and
+// after-precharge codes, SCHED_FRFCFS the row-hit-first policy flag. tests/test_torch_params.py parses this header and
 // holds every value against the Python package.
 #pragma once
 
@@ -27,6 +27,7 @@
 #define NUM_RUNTIME_PARAMS 17
 
 #define PAGE_OPEN 1
+#define SCHED_FRFCFS 1
 
 #define S_IDLE 0
 #define S_REF_ISSUE 1

@@ -1,4 +1,5 @@
-"""The fused hot-loop kernel K3: ONE launch per executed cycle.
+"""The fused hot-loop kernel K3: one launch per executed cycle
+(``fused_step``), or one persistent launch per run (``fused_run``).
 
 It does phases 3-7 of ``repro_torch.core.simulator.cycle_step`` plus the
 event-horizon bound of ``repro_torch.core.engine._next_event``:
@@ -37,11 +38,21 @@ request fields, T tiers, S schedule segments, C channels, NP = 17):
 ``fused_step`` launches the CUDA kernel (``csrc/fused.cu``) for CUDA
 tensors and runs ``fused_step_plain`` — the same function written with
 PyTorch ops — for CPU tensors.
+
+``fused_run`` is the persistent form of K3 that the event-horizon engine
+runs: ONE launch executes whole steps of ``simulate_fast``'s loop (the
+front end, the FR-FCFS promotion, the cycle above, the memory phase, the
+records and counters, and the skip) from the clock ``t`` to the horizon
+``t_end``, or until ``budget`` steps are spent, on the live ``SimState``
+tensors in place, and returns ``(t, steps)``: one host read per launch.
+``fused_run_cuda`` launches it; the engine owns its plain version and the
+choice between the two (``core.engine.fused_run``).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import ctypes
+from typing import Optional, Tuple
 
 import torch
 
@@ -352,3 +363,107 @@ def fused_step(topo: Topology, bank_rows: torch.Tensor,
                                scal, lanes)
     return fused_step_plain(topo, bank_rows, resp_buf, rp_mat, bounds, scal,
                             lanes)
+
+
+# ---------------------------------------------------------------------------
+# the persistent event-horizon kernel
+
+#: steps one ``fused_run`` launch may take when the caller gives no budget
+#: (a 100k-cycle run executes at most 100k steps: one launch)
+DEFAULT_RUN_BUDGET = 1 << 20
+
+_PTR_FIELDS = (
+    "tr_t", "tr_addr", "tr_write", "tr_data", "rp", "bounds",
+    "next_arrival", "req_buf", "req_head", "req_count", "req_limit",
+    "bq_buf", "bq_head", "bq_count", "bq_limit",
+    *[f"reg{i}" for i in range(10)],
+    "last_act", "act_win", "last_rd", "last_wr", "cmd_rr", "resp_rr",
+    "resp_buf", "resp_head", "resp_count", "resp_limit", "mem",
+    "t_admit", "t_dispatch", "t_start", "t_complete", "rdata",
+    "cmd_counts", "sref_cycles", "active_cycles", "idle_cycles",
+    "seg_cycles", "tier_active_cycles", "tier_idle_cycles",
+    "tier_sref_cycles", "blocked_arrival", "blocked_dispatch", "out")
+_INT_FIELDS = (
+    # AddrGeometry (csrc/addr_decode.cuh)
+    "banks_per_group", "bankgroups", "ranks", "channels", "bank_bits",
+    "bankgroup_bits", "rank_bits", "row_shift", "dram_channels",
+    "cxl_channels", "num_banks",
+    "n", "q_cap", "req_cap", "resp_cap", "S", "T", "tier_split",
+    "mem_words", "t", "t_end", "budget")
+
+
+class _RunArgs(ctypes.Structure):
+    """``FusedRunArgs`` of ``csrc/fused.cu``, field for field."""
+
+    _fields_ = ([(f, ctypes.c_void_p) for f in _PTR_FIELDS]
+                + [(f, ctypes.c_int) for f in _INT_FIELDS])
+
+
+def _run_tensors(view, trace, state, out) -> dict:
+    """The tensors of ``_PTR_FIELDS``, by name."""
+    bounds, rp_mat = view.packed
+    c = state.counters
+    t = {"tr_t": trace.t, "tr_addr": trace.addr, "tr_write": trace.is_write,
+         "tr_data": trace.wdata, "rp": rp_mat, "bounds": bounds,
+         "next_arrival": state.next_arrival,
+         "req_buf": state.req_q.buf, "req_head": state.req_q.head,
+         "req_count": state.req_q.count, "req_limit": state.req_q.limit,
+         "bq_buf": state.bank_q.buf, "bq_head": state.bank_q.head,
+         "bq_count": state.bank_q.count, "bq_limit": state.bank_q.limit,
+         "last_act": state.timing.last_act, "act_win": state.timing.act_win,
+         "last_rd": state.timing.last_rd, "last_wr": state.timing.last_wr,
+         "cmd_rr": state.cmd_rr, "resp_rr": state.resp_rr,
+         "resp_buf": state.resp_q.buf, "resp_head": state.resp_q.head,
+         "resp_count": state.resp_q.count, "resp_limit": state.resp_q.limit,
+         "mem": state.mem, "t_admit": state.t_admit,
+         "t_dispatch": state.t_dispatch, "t_start": state.t_start,
+         "t_complete": state.t_complete, "rdata": state.rdata,
+         "blocked_arrival": state.blocked_arrival,
+         "blocked_dispatch": state.blocked_dispatch, "out": out}
+    t.update({f"reg{i}": x for i, x in enumerate(state.bank)})
+    t.update({k: c[k] for k in ("cmd_counts", "sref_cycles", "active_cycles",
+                                "idle_cycles", "seg_cycles",
+                                "tier_active_cycles", "tier_idle_cycles",
+                                "tier_sref_cycles")})
+    return t
+
+
+def fused_run_cuda(topo: Topology, view, trace, state, t: int, t_end: int,
+                   budget: Optional[int] = None) -> Tuple[int, int]:
+    """Launch the persistent K3 on a ``SimState`` on the card: executed
+    steps from clock ``t`` until ``t_end`` (the horizon) or ``budget``
+    steps, in place. Returns ``(t, steps)`` (one host read)."""
+    budget = DEFAULT_RUN_BUDGET if budget is None else int(budget)
+    if budget < 1:
+        raise ValueError(f"fused_run: budget={budget} must be >= 1")
+    b = topo.num_banks
+    if b > MAX_LANE_BANKS:
+        raise ValueError(f"fused_run: {b} banks exceed the "
+                         f"{MAX_LANE_BANKS} threads of one CTA")
+    n = trace.num_requests
+    if n < 1:
+        raise ValueError("fused_run: the trace holds no request")
+    out = torch.empty((2,), dtype=I32, device=state.mem.device)
+    tensors = _run_tensors(view, trace, state, out)
+    build.require_cuda("fused_run", **tensors)
+    if t >= t_end:
+        return t, 0
+    s = view.num_segments
+    geo = dict(banks_per_group=topo.banks_per_group,
+               bankgroups=topo.bankgroups, ranks=topo.ranks,
+               channels=topo.channels, bank_bits=topo.bank_bits,
+               bankgroup_bits=topo.bankgroup_bits, rank_bits=topo.rank_bits,
+               row_shift=topo.row_shift, dram_channels=topo.dram_channels,
+               cxl_channels=topo.cxl_channels, num_banks=b)
+    args = _RunArgs(
+        **{k: v.data_ptr() for k, v in tensors.items()}, **geo, n=n,
+        q_cap=state.bank_q.capacity, req_cap=state.req_q.capacity,
+        resp_cap=state.resp_q.capacity, S=s, T=topo.tiers,
+        tier_split=topo.tier_split_bank, mem_words=topo.mem_words,
+        t=int(t), t_end=int(t_end), budget=budget)
+    lib = build.load()["fused"]
+    err = lib.fused_run_launch(ctypes.byref(args), build.stream_of(out))
+    build.check(err, "fused_run")
+    build.LAUNCHES["k3run"] += 1
+    t2, steps = out.tolist()  # the one host read of the launch
+    return t2, steps

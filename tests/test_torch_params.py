@@ -229,5 +229,6 @@ def test_cuda_header_matches_reference():
     for n in ("P_NONE", "P_RW", "P_REF", "P_SREF"):
         assert int(defs[n]) == getattr(jbf, n), n
     assert int(defs["PAGE_OPEN"]) == jp.PAGE_OPEN
+    assert int(defs["SCHED_FRFCFS"]) == jp.SCHED_FRFCFS
     assert int(defs["EVENT_INF"], 16) == jbf.EVENT_INF
     assert int(defs["SCHEDULE_INF"], 16) == jp.SCHEDULE_INF
