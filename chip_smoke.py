@@ -9,11 +9,14 @@ Phases (any failed check exits non-zero):
 
 1. device: the card's name and power limit, then the build of the CUDA
    kernels from ``src/repro_torch/csrc`` (seconds printed), the registers,
-   static shared memory and spills of K6's kernels and of K5's D = 128
-   kernels from the ``-Xptxas -v`` logs, and the count of ``HGMMA``
-   instructions in ``cuobjdump -sass`` of ``libflash_attention.so``
-   (non-zero: K6's bf16 path runs on the tensor cores), and the same
-   report for K3's kernels (``fused.log``);
+   static shared memory and spills of K3's kernels (the one-bank-a-thread
+   forms and the k-banks-a-thread form), K6's kernels, K5's D = 128
+   kernels and K7's production kernels from the ``-Xptxas -v`` logs, the
+   count of ``HGMMA`` instructions in ``cuobjdump -sass`` of
+   ``libflash_attention.so`` (non-zero: K6's bf16 path runs on the tensor
+   cores), and K7's bf16 S = 16 kernel's ``MUFU.EX2`` count (at least one
+   per element of a thread's chunk: exp on the SFUs) and instructions per
+   ``EX2``;
 2. every kernel against its plain PyTorch version on the card, bit for bit:
    K1/K2 at B in {32, 128}, S in {1, 3}, T in {1, 2}; K3 at lanes in
    {1, 4}, channels in {1, 2}, S in {1, 3}, T in {1, 2}, and channels of
@@ -23,9 +26,21 @@ Phases (any failed check exits non-zero):
    bit for bit (sink slots stripped), on the four traces at 3000 cycles
    (conv2d also cut into launches of 7 steps), on a DVFS schedule with an
    open-page FR-FCFS segment, on a two-tier topology (64 banks, block
-   barriers) and on 512 banks at 1500 cycles (bank-queue rings in device
-   memory); a mismatch names the leaf and the first clock at which the two
-   differ;
+   barriers), on 512 banks at 1500 cycles (bank-queue rings in device
+   memory), at queue 8192 / respQueue 8192 (and the response ring), at
+   queue 16384 / respQueue 16384 (and the request ring) and on a schedule
+   of 4096 one-cycle segments (longer than a launch holds: launches over
+   slices of it, more than one); then lanes above
+   1024 banks (k = B / 1024 banks a thread): 2 channels x 2 ranks x 16 x
+   32 (two channels of 1024), 1 x 2 x 32 x 32 (one channel of 2048), 2 x
+   4 x 16 x 32 (4096 banks, k = 4), 2 x 4 x 32 x 32 (8192 banks, k = 8),
+   8 x 8 x 32 x 32 (65 536 banks, k = 64, the bank-queue heads and counts
+   in device memory too) and 16 x 8 x 32 x 32 (131 072 banks, k = 128),
+   K3's per-step form against plain at lanes 1 and 2, and ``fused_run``
+   against ``fused_run_plain`` on a random trace over every bank at 400
+   cycles (budgets none and 7); each case prints its K3 launches (> 0)
+   and must keep in device memory what it is built to move there; a
+   mismatch names the leaf and the first clock at which the two differ;
 3. the main path at the paper's Table-1 size: ``simulate_fast`` (fused
    backend: persistent K3 launches, ``(t, steps)`` read once per launch)
    on the four benchmark traces at queue 128 over 100k cycles, each held
@@ -75,8 +90,13 @@ Phases (any failed check exits non-zero):
 10. K7 (selective scan) against its plain version on the card, y and
    h_final, in float32 (1e-5 x max |y|, resp. |h|) and bfloat16 (2e-2 +
    2e-2 |value|), at the reference test shapes, the jamba prefill shape
-   (2, 1024, 8192, 16), the invariant's (2, 128, 8192, 16) and a ragged
-   (2, 200, 600, 16);
+   (2, 1024, 8192, 16), the invariant's (2, 128, 8192, 16), a ragged
+   (2, 200, 600, 16), T = 1 and T = 33 at B = 1, S = 8, rows that are not
+   whole 16-byte pieces ((2, 33, 601, 8), and (1, 100, 36, 16) in
+   bfloat16), and a long scan (1, 4096, 256, 16) with dt and A scaled by
+   0.01 (dt A near 0: h accumulates over every step); each case prints
+   whether K7 staged it with bulk copies or plain loads, and each dtype
+   must take both;
 11. the hybrid serve path: qwen3-14b's weights freed, jamba-v0.1 at full
    width with its depth cut to one period of 8 layers (7 Mamba, 1
    attention; 4 dense and 4 MoE FFNs); a prefill of 2 x 1024 tokens (K7
@@ -94,7 +114,10 @@ Phases (any failed check exits non-zero):
    N in {1, 1000, 4096, 2^20 + 3} at the Table-1 topology, two channels
    and two tiered placements; device times of K4 at N = 2^24 and of K7 at
    the jamba prefill shape beside their plain versions and bounds (no
-   single PyTorch call computes either, so neither has a library time).
+   single PyTorch call computes either, so neither has a library time),
+   K7 beside its time before the Hopper redesign, and the sweep of K7's
+   shapes (lanes a channel, channels a CTA, chunk) at the prefill shape
+   and the invariant's, each held against the production kernel.
 
 The second-to-last lines are the kernel JSON object and the card line of
 ``nvidia-smi``; the last line is ``{"ok": true, "device": {...}}``.
@@ -260,10 +283,14 @@ def phase_device():
     log(f"[1] kernels built and loaded in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {build.build_seconds():.1f} s) from {build.CSRC}")
     out_dir = build.BUILD_ROOT / build.source_hash()
+    prod = k7_production()
     for name, keep in (("fused", None), ("flash_attention", None),
-                       ("decode_attention", "Li128E")):
+                       ("decode_attention", "Li128E"),
+                       ("selective_scan", "scan_kernel")):
         for fn, regs, smem, spills in ptxas_report(
                 (out_dir / f"{name}.log").read_text(), keep):
+            if name == "selective_scan" and prod["name"] not in fn:
+                continue  # the sweep's shapes: not on the path
             log(f"[1] {name}: {fn}: {regs} registers, {smem} B static "
                 f"shared memory, spill stores/loads {spills}")
     hgmma = count_sass(out_dir / "libflash_attention.so", "HGMMA")
@@ -271,7 +298,76 @@ def phase_device():
           "K6's bf16 path is not on the tensor cores")
     log(f"[1] libflash_attention.so: {hgmma} HGMMA instructions in "
         f"cuobjdump -sass")
+    k7_sass(out_dir / "libselective_scan.so", prod)
     return card
+
+
+def k7_production():
+    """K7's production shape (csrc/selective_scan.cu K7_PROD) and the name of
+    its bfloat16, S = 16 kernel as c++filt prints it."""
+    import ctypes
+
+    from repro_torch.kernels import build
+
+    cfg = (ctypes.c_int * 3)()
+    build.load()["selective_scan"].selective_scan_config(cfg)
+    lanes, channels, chunk = list(cfg)
+    return {"lanes": lanes, "channels": channels, "chunk": chunk,
+            "name": f"scan_kernel<__nv_bfloat16, 16, {lanes}, {channels}, "
+                    f"{chunk}>"}
+
+
+def sass_functions(lib):
+    """{demangled kernel name: [SASS opcodes]} of ``cuobjdump -sass``."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300)
+    check(sass.returncode == 0, f"cuobjdump failed on {lib}: {sass.stderr}")
+    funcs, cur = {}, None
+    for line in sass.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+            continue
+        m = re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)",
+                      line)
+        if m and cur is not None:
+            cur.append(m.group(1))
+    names = list(funcs)
+    plain = subprocess.run(["c++filt"], input="\n".join(names),
+                           capture_output=True, text=True, timeout=60)
+    if plain.returncode == 0 and len(plain.stdout.splitlines()) == len(names):
+        names = [n.replace("(anonymous namespace)::", "").replace(
+            "void ", "").split("(")[0] for n in plain.stdout.splitlines()]
+    return dict(zip(names, funcs.values()))
+
+
+def k7_sass(lib, prod):
+    """MUFU.EX2 and all instructions of K7's bf16 S = 16 production kernel:
+    at least one EX2 per element of a thread's unrolled chunk (chunk x S /
+    lanes; the compiler may copy part of the loop) shows exp on the SFUs;
+    the instructions spanned by the densest run of one chunk's EX2s, per
+    element, are the compute loop's cost per element."""
+    funcs = sass_functions(lib)
+    ops = funcs.get(prod["name"])
+    check(ops is not None, f"{prod['name']} not found in {lib.name}: "
+          f"{sorted(funcs)[:4]} ...")
+    ex2 = [i for i, op in enumerate(ops) if op.startswith("MUFU.EX2")]
+    per_chunk = prod["chunk"] * 16 // prod["lanes"]
+    check(len(ex2) >= per_chunk, f"K7 has {len(ex2)} MUFU.EX2, fewer than "
+          f"one per element of a thread's chunk ({per_chunk}): exp is not "
+          f"on the SFUs")
+    # the densest run of one chunk's EX2s is the unrolled compute loop
+    span = min(ex2[i + per_chunk - 1] - ex2[i] + 1
+               for i in range(len(ex2) - per_chunk + 1))
+    log(f"[1] libselective_scan.so {prod['name']}: {len(ex2)} MUFU.EX2 "
+        f"(a thread's chunk holds {per_chunk} elements: {prod['chunk']} "
+        f"steps x {16 // prod['lanes']} states); {len(ops)} SASS "
+        f"instructions in all; the densest {per_chunk} EX2 span {span} "
+        f"instructions = {span / per_chunk:.2f} per element")
 
 
 def ptxas_report(text, keep=None):
@@ -410,7 +506,64 @@ def phase_kernels():
         log(f"[2] K3 rollout 500 cycles C={topo.channels} T={topo.tiers} "
             f"L={lanes} S={s}: == plain every cycle ({delta_pos} "
             f"lane-cycles with a skip > 0)")
+
+    # lanes above 1024 banks: k = B / 1024 banks a thread
+    from repro_torch.kernels import build
+    for label, topo in big_topologies():
+        build.reset_launches()
+        n = 0
+        for lanes in (1, 2):
+            for s in (1, 3):
+                for cycle in (0, 100, 399, 2500):
+                    ops = k3_operands(gen, topo, lanes, s, cycle)
+                    cu = [x.to(DEVICE) for x in ops]
+                    k = fused_step_cuda(topo, *cu, lanes=lanes)
+                    p = fused_step_plain(topo, *cu, lanes=lanes)
+                    e = max(max_err(a, b) for a, b in zip(k, p))
+                    check(e == 0, f"K3 != plain at {label} L={lanes} S={s} "
+                          f"cycle={cycle} (err {e})")
+                    n += 1
+        launches = build.LAUNCHES["k3"]
+        check(launches == n, f"K3 launched {launches} times for {n} cases")
+        log(f"[2] K3 == plain at {label} ({topo.num_banks} banks, "
+            f"{topo.num_banks // 1024} a thread) on {n} random cases (L in "
+            f"{{1,2}}, S in {{1,3}}); K3 launches {launches}")
     return errs
+
+
+def big_topologies():
+    """(label, topology) of the lanes above 1024 banks that phase 2 runs."""
+    def topo(channels, ranks, bankgroups, banks_per_group, q=16):
+        from repro_torch.core.params import MemSimConfig
+
+        return MemSimConfig(channels=channels, ranks=ranks,
+                            bankgroups=bankgroups,
+                            banks_per_group=banks_per_group,
+                            queue_size=q).validate().topology()
+
+    return [("2 ch x 2 ranks x 16 x 32 (two channels of 1024)",
+             topo(2, 2, 16, 32)),
+            ("1 ch x 2 ranks x 32 x 32 (one channel of 2048)",
+             topo(1, 2, 32, 32)),
+            ("2 ch x 4 ranks x 16 x 32", topo(2, 4, 16, 32)),
+            ("2 ch x 4 ranks x 32 x 32", topo(2, 4, 32, 32)),
+            ("8 ch x 8 ranks x 32 x 32", topo(8, 8, 32, 32)),
+            ("16 ch x 8 ranks x 32 x 32", topo(16, 8, 32, 32))]
+
+
+def spread_trace(topo, n, last_arrival, seed):
+    """n requests at random times in [0, last_arrival) over every bank of
+    ``topo`` (4 rows, 3 columns each; a third of them writes)."""
+    import numpy as np
+    from repro_torch.core.simulator import Trace
+
+    rng = np.random.default_rng(seed)
+    addr = ((rng.integers(0, 4, n) << topo.row_shift)
+            | (rng.integers(0, 3, n) << topo.addr_low_bits)
+            | rng.integers(0, topo.num_banks, n))
+    return Trace.from_numpy(rng.integers(0, last_arrival, n), addr,
+                            rng.integers(0, 3, n) == 0,
+                            rng.integers(0, 1 << 20, n))
 
 
 def k3_rollout(gen, topo, lanes, segments, cycles):
@@ -486,6 +639,21 @@ def dvfs_schedule(cfg):
                          values=RuntimeParams.stack(pts)).validate()
 
 
+def long_schedule(cfg, segments):
+    """``segments`` segments of one cycle each, cycling through the three
+    points of ``dvfs_schedule``: a schedule longer than one persistent
+    launch holds (862 segments at one tier), so ``fused_run_cuda`` runs it
+    in slices."""
+    import torch
+    from repro_torch.core.params import ParamSchedule, RuntimeParams
+
+    pts = dvfs_schedule(cfg).values
+    idx = torch.arange(segments) % 3
+    return ParamSchedule(
+        boundaries=torch.arange(segments, dtype=torch.int32),
+        values=RuntimeParams(*[v[idx] for v in pts])).validate()
+
+
 def run_fused(cfg, trace, cycles, params=None, budget=None, kernel=True):
     """The fused event-horizon loop on a fresh state on the card:
     ``fused_run_cuda`` launches (``kernel``) or ``fused_run_plain``, until
@@ -539,51 +707,90 @@ def first_divergence(cfg, trace, cycles, params):
 def phase_fused_run():
     """K3's persistent form against its plain loop, the whole SimState."""
     from repro_torch.core import MemSimConfig
+    from repro_torch.kernels import build
+    from repro_torch.kernels.bank_fsm.fused import fused_run_placement
     from repro_torch.core.params import RuntimeParams, tiered_params
     from repro_torch.traces import BENCHMARKS, conv2d
 
     q = 128
     cfg = MemSimConfig(queue_size=q)
-    # (label, config, trace, params, cycles, kernel budgets); the plain
-    # loop runs once a case (its result does not depend on the budget)
+    rings = ("bank-queue rings",)
+    queues = rings + ("response ring", "request ring")
+    # (label, config, trace, params, cycles, kernel budgets, what the
+    # launch must keep in device memory); the plain loop runs once a case
+    # (its result does not depend on the budget)
     cases = [(name, cfg, BENCHMARKS[name](), None, 3_000,
-              (None, 7) if name == "conv2d" else (None,))
+              (None, 7) if name == "conv2d" else (None,), ())
              for name in sorted(BENCHMARKS)]
     cases += [
         ("conv2d dvfs+frfcfs", cfg, conv2d(), dvfs_schedule(cfg), 3_000,
-         (None,)),
+         (None,), ()),
         ("conv2d two-tier (64 banks)",
          MemSimConfig(queue_size=q, channels=2, tiers=2, cxl_channels=1),
          conv2d(), tiered_params(RuntimeParams(), RuntimeParams(
-             tRCDRD=30, tCL=24, tRFC=300, tREFI=5000)), 3_000, (None,)),
+             tRCDRD=30, tCL=24, tRFC=300, tREFI=5000)), 3_000, (None,), ()),
         ("conv2d 512 banks (rings of 1 MiB in device memory)",
          MemSimConfig(queue_size=q, channels=16), conv2d(), None, 1_500,
-         (None,)),
+         (None,), rings),
+        ("conv2d at queue 8192 / respQueue 8192",
+         MemSimConfig(queue_size=8192, resp_queue_size=8192), conv2d(),
+         None, 1_000, (None,), queues[:2]),
+        ("conv2d at queue 16384 / respQueue 16384",
+         MemSimConfig(queue_size=16384, resp_queue_size=16384), conv2d(),
+         None, 1_000, (None,), queues),
+        # one segment a cycle: a launch holds 862 of them, so the run is
+        # three launches over slices of the schedule
+        ("conv2d on a schedule of 4096 segments", cfg, conv2d(),
+         long_schedule(cfg, 4096), 2_000, (None,), ()),
     ]
-    for label, cfg, trace, params, cycles, budgets in cases:
+    for label, topo in big_topologies():
+        big = MemSimConfig(channels=topo.channels, ranks=topo.ranks,
+                           bankgroups=topo.bankgroups,
+                           banks_per_group=topo.banks_per_group,
+                           queue_size=topo.queue_size)
+        # a lane's heads and counts (2 B ints) leave shared memory above
+        # ~28 000 banks, the request and response rings before them
+        placed = (queues + ("bank-queue heads and counts",)
+                  if topo.num_banks > 28_000 else rings)
+        cases.append((f"{label}, {topo.num_banks} banks", big,
+                      spread_trace(topo, 300, 280, topo.num_banks), None,
+                      400, (None, 7), placed))
+    for label, cfg, trace, params, cycles, budgets, placed in cases:
         t0 = time.perf_counter()
         *_, p_state, p_steps, _ = run_fused(cfg, trace, cycles, params,
                                             kernel=False)
         t_p = time.perf_counter() - t0
+        topo, view, tr, state, _, _ = run_fused(cfg, trace, 0, params)
+        where = fused_run_placement(topo, view, tr, state)
+        check(where == placed, f"{label}: the launch keeps {where} in "
+              f"device memory, built to keep {placed}")
         for budget in budgets:
             t0 = time.perf_counter()
+            build.reset_launches()
             *_, k_state, k_steps, k_launches = run_fused(cfg, trace, cycles,
                                                          params, budget)
             t_k = time.perf_counter() - t0
+            check(build.LAUNCHES["k3run"] == k_launches > 0,
+                  f"{label}: {build.LAUNCHES['k3run']} K3 launches counted "
+                  f"for {k_launches}")
             bad = state_diff(k_state, p_state)
             if bad or k_steps != p_steps:
-                where = first_divergence(cfg, trace, cycles, params)
+                first = first_divergence(cfg, trace, cycles, params)
                 check(False, f"fused_run (budget {budget}) != "
                       f"fused_run_plain on {label}@{cycles}: leaves {bad}, "
                       f"steps {k_steps} vs {p_steps}; first divergence "
-                      f"(clock, leaves, next clocks) {where}")
+                      f"(clock, leaves, next clocks) {first}")
             if budget is not None:
                 check(k_launches == -(-k_steps // budget),
                       f"{label}: {k_launches} launches for {k_steps} steps")
+            elif "segments" in label:
+                check(k_launches > 1, f"{label}: one launch, the schedule "
+                      f"was not cut into slices")
             log(f"[2] fused_run (budget {budget or 'default'}) == "
                 f"fused_run_plain on {label}@{cycles}: whole SimState bit "
-                f"for bit, {k_steps} steps in {k_launches} launch(es) "
-                f"({t_k:.2f} s; plain {t_p:.1f} s)")
+                f"for bit, {k_steps} steps in {k_launches} K3 launch(es) "
+                f"({t_k:.2f} s; plain {t_p:.1f} s); in device memory: "
+                f"{', '.join(where) or 'nothing'}")
     return 0
 
 
@@ -1307,7 +1514,13 @@ SCAN_SHAPES = [  # b, t, d, s
     (2, 64, 32, 8), (1, 512, 512, 16), (3, 128, 64, 16),  # the JAX tests
     (2, 1024, 8192, 16),  # phase 11's prefill (jamba's d_inner, d_state)
     (2, 128, 8192, 16),   # phase 11's invariant prefill
-    (2, 200, 600, 16)]    # ragged: no multiple of a chunk or channel block
+    (2, 200, 600, 16),    # ragged: no multiple of a chunk or channel block
+    (1, 1, 600, 8), (1, 33, 600, 8),  # one step; a chunk and one step
+    # rows that are not whole 16-byte pieces: staged by plain loads
+    (2, 33, 601, 8), (1, 100, 36, 16)]
+#: a long scan with dt * A near 0, so that h accumulates over every step:
+#: (b, t, d, s) and the factor on the draw's dt and A
+SCAN_LONG = ((1, 4096, 256, 16), 0.01)
 #: K7 against its plain version: float32 max abs error relative to max |y|
 #: (resp. max |h|), which leaves room for 1024 steps of accumulated
 #: rounding in another order (fused multiply-adds, the shuffle sum);
@@ -1358,6 +1571,18 @@ def scan_check(got, want, dtype_name):
     return float(d.max()), bool((d <= tol + tol * w.abs()).all())
 
 
+def scan_staging(x, dt, bc, cc, a):
+    """How K7 stages these inputs (csrc/selective_scan.cu vec_ok): "bulk
+    copies" where every operand is 16-byte aligned and the rows of x, dt
+    (D values) and of B, C (S values) are whole 16-byte pieces, else
+    "plain loads"."""
+    esize = x.element_size()
+    vec = (all(v.data_ptr() % 16 == 0 for v in (x, dt, bc, cc))
+           and x.shape[-1] * esize % 16 == 0
+           and bc.shape[-1] * esize % 16 == 0)
+    return "bulk copies" if vec else "plain loads"
+
+
 def phase_scan_kernel():
     """K7 against its plain version on the card, y and h_final."""
     import torch
@@ -1368,10 +1593,17 @@ def phase_scan_kernel():
     gen = torch.Generator().manual_seed(13)
     worst = 0.0
     n = 0
+    long_shape, factor = SCAN_LONG
     for name in SCAN_TOL:
         dt_ = getattr(torch, name)
-        for b, t, d, s in SCAN_SHAPES:
+        paths = set()
+        for b, t, d, s in SCAN_SHAPES + [long_shape]:
             ins = scan_inputs(gen, b, t, d, s, dt_)
+            if (b, t, d, s) == long_shape:
+                x, dt, bc, cc, a = ins
+                ins = x, (dt.float() * factor).to(dt_), bc, cc, a * factor
+            path = scan_staging(*ins)
+            paths.add(path)
             got = selective_scan_cuda(*ins)
             want = selective_scan_ref(*ins)
             torch.cuda.synchronize()
@@ -1386,14 +1618,16 @@ def phase_scan_kernel():
                       f"{float(w.float().abs().max())})")
                 errs[what] = e
                 worst = max(worst, e)
-            log(f"[10] K7 {(b, t, d, s)} {name}: max abs err y "
+            log(f"[10] K7 {(b, t, d, s)} {name} ({path}): max abs err y "
                 f"{errs['y']:.3g} (max |y| "
                 f"{float(want[0].float().abs().max()):.3g}), h "
                 f"{errs['h']:.3g} (max |h| "
                 f"{float(want[1].abs().max()):.3g})")
             n += 1
+        check(len(paths) == 2, f"K7 {name} cases took only {paths}")
     log(f"[10] K7 == plain within tolerance on {n} cases over "
-        f"{len(SCAN_SHAPES)} shapes (max abs err {worst:.3g}); float32 "
+        f"{len(SCAN_SHAPES) + 1} shapes, the last {long_shape} with dt and A "
+        f"x {factor} (max abs err {worst:.3g}); float32 "
         f"{SCAN_TOL['float32']} x max |y| (resp. |h|), bfloat16 2e-2 + "
         f"2e-2 |y| (resp. |h|)")
     return worst
@@ -1714,12 +1948,65 @@ def phase_hybrid_times():
     by = "bytes" if bound == t_bytes else "operations"
     out["k7"] = (ms, plain_ms, bound, by)
     log(f"[12] K7 B={b} T={t} D={d} S={s} bf16: device {ms * 1e3:.1f} "
-        f"us/launch (plain {plain_ms * 1e3:.1f} us); bound "
+        f"us/launch (before the Hopper redesign {K7_BEFORE_US} us; plain "
+        f"{plain_ms * 1e3:.1f} us); bound "
         f"{bound * 1e3:.2f} us ({b * t * d * s} exp at 16/clock/SM x 132 "
         f"SMs x 1.98 GHz = {t_exp * 1e3:.2f} us; {nbytes} B at 3.35 TB/s = "
         f"{t_bytes * 1e3:.2f} us; {flops} float32 flops at 67 TFLOP/s = "
         f"{t_fma * 1e3:.2f} us; {by}; {bound / ms:.1%} of it)")
+    k7_sweep(gen)
     return out
+
+
+#: K7 at the jamba prefill shape (2, 1024, 8192, 16) bf16 before its Hopper
+#: redesign: device us per launch, this script's phase 12 on an NVIDIA H100
+#: 80GB HBM3 at 700 W
+K7_BEFORE_US = 366.4
+
+
+def k7_sweep(gen):
+    """Device time of each shape of K7's sweep (csrc/selective_scan.cu
+    K7_SWEEP: lanes a channel, channels a CTA, chunk) at the jamba prefill
+    shape and the invariant's, bf16, each output held against the
+    production kernel's within SCAN_TOL; the production shape is marked."""
+    import ctypes
+
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.selective_scan.selective_scan import (
+        selective_scan_cuda)
+
+    lib = build.load()["selective_scan"]
+    n = lib.selective_scan_sweep_configs(None, 0)
+    rows = (ctypes.c_int * (3 * n))()
+    lib.selective_scan_sweep_configs(rows, n)
+    shapes = [tuple(rows[3 * i:3 * i + 3]) for i in range(n)]
+    prod = k7_production()
+    prod = (prod["lanes"], prod["channels"], prod["chunk"])
+    for b, t, d, s in ((2, 1024, 8192, 16), (2, 128, 8192, 16)):
+        ins = scan_inputs(gen, b, t, d, s, torch.bfloat16)
+        want = selective_scan_cuda(*ins)
+        y = torch.empty_like(ins[0])
+        h = torch.empty((b, d, s), dtype=torch.float32, device=DEVICE)
+        cells = []
+        for shape in shapes:
+            def run():
+                build.check(lib.selective_scan_sweep_launch(
+                    *(v.data_ptr() for v in ins), y.data_ptr(), h.data_ptr(),
+                    b, t, d, *shape, build.stream_of(y)), "K7 sweep")
+
+            run()
+            torch.cuda.synchronize()
+            for what, g, w in (("y", y, want[0]), ("h", h, want[1])):
+                e, ok = scan_check(g, w, "bfloat16")
+                check(ok, f"K7 sweep shape {shape} {what} != production at "
+                      f"{(b, t, d, s)}: max abs err {e}")
+            ms = device_ms(run)
+            mark = " (production)" if shape == prod else ""
+            cells.append(f"L{shape[0]} CH{shape[1]} TC{shape[2]} "
+                         f"{ms * 1e3:.1f}{mark}")
+        log(f"[12] K7 sweep at {(b, t, d, s)} bf16, device us/launch: "
+            + "; ".join(cells))
 
 
 def main():

@@ -11,14 +11,25 @@
 // channel, the rank timing-window update, the response arbiter and
 // respQueue push, the FSM edge, the bank-queue pop bookkeeping, the
 // flow-through response ack, and the event-horizon bound at cycle + 1 that
-// gives the skip `delta`. One thread per bank of the lane (so at most 1024
-// banks a lane), every cross-bank step a reduction inside the CTA:
+// gives the skip `delta`. A lane is one CTA of B / k threads, k = 1 up to
+// B = LANE_THREADS (1024) banks and k = B / 1024 above (B is a power of
+// two, so k is: 2, 4, 8 ...). Bank b lives in thread b / k as slot b % k,
+// so a channel's banks stay on consecutive threads; every per-bank value
+// is a k-long per-thread array (`Slots`): at k = 1 a register, above in a
+// scratch in device memory that the host allocates (K3_SCRATCH_PER_BANK
+// bytes a bank), since a 1024-thread CTA leaves a thread 64 registers and
+// local arrays would cap k. Every cross-bank step reduces over the
+// thread's own slots first, then over the CTA (warp shuffles when the
+// group of threads fits a warp, shared memory above):
 //   * the command arbiter is a min-reduction of the rotated priority key
-//     over the channel's banks_per_channel threads (warp shuffles when the
-//     group fits a warp, shared memory above); the minimum names the one
-//     winner, which broadcasts its command and rank;
+//     over the channel's banks_per_channel banks; the key is unique within
+//     a channel, so the minimum names the one winner, which sends its
+//     command and rank (k = 1: a broadcast from its thread; k > 1: the
+//     same min-reduction of (rank << 3 | cmd) over the winner alone). A
+//     channel narrower than k lies inside one thread and reduces there;
 //   * record_issue is rank-uniform: every bank updates its copy of its
-//     rank's timing registers when the winner's rank is its own;
+//     rank's timing registers when the winner's rank is its own, and the
+//     tFAW slot replaced is the first minimum (argmin's tie order);
 //   * the response arbiter (its winner broadcasts the request) and the
 //     event bound reduce over the lane, so every lane-uniform result
 //     (delta, the response pointers) is known to every thread.
@@ -39,8 +50,8 @@
 //        resp_count2, ack, fitem[4], cmd_rr2[C], issued_cmd[C]
 //
 // fused_run_launch (fused_run_kernel): the persistent event-horizon loop of
-// one lane. One launch runs executed steps from the clock `t` until the
-// horizon `t_end` or `budget` steps, each step the body of the reference's
+// one lane. One launch runs executed steps from the clock `t` until
+// `t_stop` or `budget` steps, each step the body of the reference's
 // _run_skip_core (src/repro/core/engine.py:326-342) in the port's eager
 // order: (1) trace admission and dispatch to a bank queue (thread 0; the
 // address decode is addr_decode.cuh's, shared with K4), (2) the FR-FCFS
@@ -48,25 +59,85 @@
 // memory phase on the pre-edge registers (writes, a barrier, reads),
 // (5) the t_start / t_complete records and the power counters, (6) the
 // skip: WAIT timers down by delta, idle counters up (others reset when
-// delta > 0), the skipped cycles' counters, t += 1 + delta.
+// delta > 0), the skipped cycles' counters, t += 1 + delta. `t_end` is the
+// run's horizon (the skip's bound); `t_stop` <= t_end ends a launch at a
+// schedule boundary, for a schedule longer than a launch holds (the host
+// passes slices of it, kernels/bank_fsm/fused.py).
 //
 // What bounds it on an H100: the dependent latency chain of a step, not
 // bytes. At Table-1 size (B = 32) the lane is one warp, so every reduction
 // is a shuffle and every barrier a __syncwarp, and thread 0 loads the
-// trace a step ahead; the machine's registers and
-// queues stay in registers and shared memory for the whole launch: the bank
-// registers and the rank timing copies in registers, the req/resp rings,
-// the bank-queue rings (64 KB at B = 32, Q = 128; addressed in place in
-// device memory when they do not fit the 227 KB), parameter rows and
-// counters in dynamic shared memory. `mem`, `rdata`, the trace and the
-// records are read and written in place in device memory (the L2 holds the
-// 256 KB store). The host reads (t, steps) once per launch.
+// trace a step ahead. The bank registers and the rank timing copies stay
+// in registers for the whole launch; the rest of the machine goes to
+// dynamic shared memory: the reduction scratch, the schedule (parameter
+// rows, segment bounds; at most 64 KB a launch), the counters, the
+// bank-queue heads and counts, the req/resp rings and the bank-queue rings
+// (64 KB at B = 32, Q = 128). Where that exceeds the 227 KB a block may
+// opt in to, the launch keeps, in this order, the bank-queue rings, the
+// response ring, the request ring and the bank-queue heads and counts in
+// place in device memory instead (`dev`), until the rest fits; the rest
+// (the schedule and about 4 KB) always does, so every queue size runs.
+// `mem`, `rdata`, the trace and the records are read and written in place
+// in device memory (the L2 holds the 256 KB store). The host reads
+// (t, steps) once per launch.
 #include <cuda_runtime.h>
 
 #include "addr_decode.cuh"
 #include "bank_fsm.cuh"
 
-#define MAX_LANE_BANKS 1024
+#include <climits>
+
+#define LANE_THREADS 1024  // threads of a lane's CTA at most
+// scratch bytes a bank of a lane above LANE_THREADS banks needs at least
+// (the K = 0 form's slot arrays take 312 of them in fused_run_kernel)
+#define K3_SCRATCH_PER_BANK 512
+
+// The k slots of one per-bank array of a thread. The form K = 1 (lanes of
+// up to 1024 banks) holds its one slot in a register. The form K = 0 takes
+// any k = B / 1024 at run time and keeps the slots in the lane's scratch
+// in device memory: slot j of thread tid at v[j * NT + tid], so a warp's
+// accesses to one slot are contiguous. Each thread touches only its own
+// slots, so the scratch needs no barrier.
+template <int K, typename T>
+struct Slots {
+  T v[K];
+  __device__ __forceinline__ T& operator[](int j) { return v[j]; }
+  __device__ __forceinline__ const T& operator[](int j) const {
+    return v[j];
+  }
+};
+template <typename T>
+struct Slots<0, T> {
+  T* v;
+  int stride;
+  __device__ __forceinline__ T& operator[](int j) const {
+    return v[j * stride];
+  }
+};
+
+// A bump allocator over one lane's scratch: each array of the K = 0 form
+// takes nk * nt elements, 16-byte aligned; a lane whose arrays overrun the
+// scratch the host gave it traps.
+struct SlotArena {
+  char *next, *end;
+  int nk, nt, tid;
+  template <typename T>
+  __device__ __forceinline__ Slots<0, T> take() {
+    const Slots<0, T> s{reinterpret_cast<T*>(next) + tid, nt};
+    next += ((size_t)nk * nt * sizeof(T) + 15) & ~(size_t)15;
+    if (next > end) __trap();
+    return s;
+  }
+};
+
+// a slot array of the form K (K = 0: from the arena)
+template <int K, typename T>
+__device__ __forceinline__ Slots<K, T> slots(SlotArena& ar) {
+  if constexpr (K == 0)
+    return ar.template take<T>();
+  else
+    return Slots<K, T>{};
+}
 
 // Min of v over aligned groups of g consecutive threads of the block; every
 // thread of the block must call it (it may synchronise the block).
@@ -121,6 +192,31 @@ __device__ __forceinline__ bool lane_all(bool p) {
   return __syncthreads_and(p);
 }
 
+// v[j] becomes the min over the aligned group of g banks (g a power of two)
+// that slot j's bank belongs to, of a thread holding nk banks: a pass over
+// the thread's own slots, then group_min over the g / nk threads of a
+// group wider than nk. Every thread of the block calls it.
+template <int K>
+__device__ __forceinline__ void group_min_k(Slots<K, int>& v, int nk, int g,
+                                            int* sh) {
+  if constexpr (K == 1) {
+    v[0] = group_min(v[0], g, sh);
+  } else {
+    // running min within each group's slots, then its last slot's value
+#pragma unroll
+    for (int j = 1; j < nk; ++j)
+      if (j & (g - 1)) v[j] = min(v[j], v[j - 1]);
+#pragma unroll
+    for (int j = nk - 2; j >= 0; --j)
+      if ((j + 1) & (g - 1)) v[j] = v[j + 1];
+    if (g > nk) {
+      const int r = group_min(v[0], g / nk, sh);
+#pragma unroll
+      for (int j = 0; j < nk; ++j) v[j] = r;
+    }
+  }
+}
+
 // static shape of one lane
 struct LaneGeom {
   int B, Qr, S, T, tier_split, per, banks_per_rank, q_cap, row_shift;
@@ -156,97 +252,157 @@ struct CycleOut {
   int item[4];  // the accepted response (0 when none)
 };
 
-// Phases 3-7 and the event bound of one executed cycle for bank b of a
-// lane: rp [T*S, NP] and bnd [S] are the lane's schedule, cmd_ptr the
-// arbiter pointer of b's channel. Every thread of the block calls it.
-__device__ __forceinline__ void cycle_core(const LaneGeom& g, const int* rp,
-                                           const int* bnd, int b, int cmd_ptr,
-                                           const CycleScal& sc,
-                                           const BankIn& in, int* sh,
-                                           BankOut& out, CycleOut& co) {
+// Phases 3-7 and the event bound of one executed cycle for banks b0 ..
+// b0 + nk - 1 of a lane: rp [T*S, NP] and bnd [S] are the lane's schedule,
+// cmd_ptr[j] the arbiter pointer of slot j's channel; its own slot arrays
+// come from `ar` (a copy: they live for one call). Every thread of the
+// block calls it.
+template <int K>
+__device__ __forceinline__ void cycle_core(
+    const LaneGeom& g, const int* rp, const int* bnd, int b0, int nk,
+    const Slots<K, int>& cmd_ptr, const CycleScal& sc,
+    const Slots<K, BankIn>& in, int* sh, Slots<K, BankOut>& out,
+    CycleOut& co, SlotArena ar) {
+  if (K) nk = K;
   const int cycle = sc.cycle;
   const int nxt = wadd(cycle, 1);
-  const int tier = (g.T > 1 && b >= g.tier_split) ? 1 : 0;
-  const Rp p = resolve_rp(rp, bnd, g.S, tier, cycle);
-  const Rp p2 = resolve_rp(rp, bnd, g.S, tier, nxt);
-  const BankRegs& s = in.s;
+  const int per = g.per;
+  auto p = slots<K, Rp>(ar), p2 = slots<K, Rp>(ar);
+  auto cmd = slots<K, int>(ar), rot = slots<K, int>(ar);
+  auto m = slots<K, int>(ar), rank_in = slots<K, int>(ar);
+  auto ch = slots<K, int>(ar);
+  auto eligible = slots<K, bool>(ar);
 
   // ---- phase 3: bids, legality, per-channel RR grant, record_issue -------
-  const int per = g.per;
-  const int cmd = compute_cmd(s.st, s.cur_write);
-  const bool eligible =
-      cmd != CMD_NOP && cycle >= legal_at(p, cmd, in.la, in.aw0, in.aw1,
-                                          in.aw2, in.aw3, in.lr, in.lw);
-  const int ch = b / per;
-  const int wi = b - ch * per;
-  const int rot = fmod_floor(wsub(wi, cmd_ptr), per);
-  const int m = group_min(eligible ? rot : per, per, sh);
-  const bool any_g = m < per;
-  const bool grant = eligible && rot == m;
-  const int rank_in = wi / g.banks_per_rank;
+#pragma unroll
+  for (int j = 0; j < nk; ++j) {
+    const int b = b0 + j;
+    const int tier = (g.T > 1 && b >= g.tier_split) ? 1 : 0;
+    p[j] = resolve_rp(rp, bnd, g.S, tier, cycle);
+    p2[j] = resolve_rp(rp, bnd, g.S, tier, nxt);
+    const BankIn& x = in[j];
+    cmd[j] = compute_cmd(x.s.st, x.s.cur_write);
+    eligible[j] = cmd[j] != CMD_NOP &&
+                  cycle >= legal_at(p[j], cmd[j], x.la, x.aw0, x.aw1, x.aw2,
+                                    x.aw3, x.lr, x.lw);
+    ch[j] = b / per;
+    const int wi = b - ch[j] * per;
+    rot[j] = fmod_floor(wsub(wi, cmd_ptr[j]), per);
+    m[j] = eligible[j] ? rot[j] : per;
+    rank_in[j] = wi / g.banks_per_rank;
+  }
+  group_min_k<K>(m, nk, per, sh);
   // the one granted bank (rot == m) sends its command and rank
-  const int won = group_bcast(cmd << 16 | rank_in,
-                              ch * per + fmod_floor(wadd(cmd_ptr, m), per),
-                              per, sh);
-  const int cmd_w = any_g ? won >> 16 : CMD_NOP;
-  const int rank_w = any_g ? won & 0xffff : 0;
-  const bool upd = rank_in == rank_w;
-  const bool is_act = any_g && cmd_w == CMD_ACT && upd;
-  const bool is_rd = any_g && cmd_w == CMD_RD && upd;
-  const bool is_wr = any_g && cmd_w == CMD_WR && upd;
-  // tFAW window: replace the FIRST minimum slot (argmin tie order)
-  const int awm = min(min(in.aw0, in.aw1), min(in.aw2, in.aw3));
-  const bool s0 = in.aw0 == awm;
-  const bool s1 = in.aw1 == awm && !s0;
-  const bool s2 = in.aw2 == awm && !s0 && !s1;
-  const bool s3 = !s0 && !s1 && !s2;
-  out.la = is_act ? cycle : in.la;
-  out.aw0 = (is_act && s0) ? cycle : in.aw0;
-  out.aw1 = (is_act && s1) ? cycle : in.aw1;
-  out.aw2 = (is_act && s2) ? cycle : in.aw2;
-  out.aw3 = (is_act && s3) ? cycle : in.aw3;
-  out.lr = is_rd ? cycle : in.lr;
-  out.lw = is_wr ? cycle : in.lw;
-  out.cmd_ptr = any_g ? fmod_floor(wadd(wadd(cmd_ptr, m), 1), per) : cmd_ptr;
-  out.cmd_issued = cmd_w;
+  auto won = slots<K, int>(ar);
+  if constexpr (K == 1) {
+    won[0] = group_bcast(rank_in[0] << 3 | cmd[0],
+                         ch[0] * per + fmod_floor(wadd(cmd_ptr[0], m[0]), per),
+                         per, sh);
+  } else {
+#pragma unroll
+    for (int j = 0; j < nk; ++j)
+      won[j] = eligible[j] && rot[j] == m[j] ? rank_in[j] << 3 | cmd[j]
+                                             : INT_MAX;
+    group_min_k<K>(won, nk, per, sh);
+  }
+  auto grant = slots<K, bool>(ar);
+#pragma unroll
+  for (int j = 0; j < nk; ++j) {
+    const BankIn& x = in[j];
+    BankOut& o = out[j];
+    const bool any_g = m[j] < per;
+    grant[j] = eligible[j] && rot[j] == m[j];
+    const int cmd_w = any_g ? won[j] & 7 : CMD_NOP;
+    const int rank_w = any_g ? won[j] >> 3 : 0;
+    const bool upd = rank_in[j] == rank_w;
+    const bool is_act = any_g && cmd_w == CMD_ACT && upd;
+    const bool is_rd = any_g && cmd_w == CMD_RD && upd;
+    const bool is_wr = any_g && cmd_w == CMD_WR && upd;
+    // tFAW window: replace the FIRST minimum slot (argmin tie order)
+    const int awm = min(min(x.aw0, x.aw1), min(x.aw2, x.aw3));
+    const bool s0 = x.aw0 == awm;
+    const bool s1 = x.aw1 == awm && !s0;
+    const bool s2 = x.aw2 == awm && !s0 && !s1;
+    const bool s3 = !s0 && !s1 && !s2;
+    o.la = is_act ? cycle : x.la;
+    o.aw0 = (is_act && s0) ? cycle : x.aw0;
+    o.aw1 = (is_act && s1) ? cycle : x.aw1;
+    o.aw2 = (is_act && s2) ? cycle : x.aw2;
+    o.aw3 = (is_act && s3) ? cycle : x.aw3;
+    o.lr = is_rd ? cycle : x.lr;
+    o.lw = is_wr ? cycle : x.lw;
+    o.cmd_ptr = any_g ? fmod_floor(wadd(wadd(cmd_ptr[j], m[j]), 1), per)
+                      : cmd_ptr[j];
+    o.cmd_issued = cmd_w;
+  }
 
   // ---- phase 4: response arbitration + respQueue push --------------------
-  const bool bid_r = s.st == S_RESP_PEND && !(sc.resp_count >= sc.resp_limit);
-  const int rot_r = fmod_floor(wsub(b, sc.resp_rr), g.B);
-  const int m_r = group_min(bid_r ? rot_r : g.B, g.B, sh);
-  const bool any_resp = m_r < g.B;
-  const bool accept = bid_r && rot_r == m_r;
+  const bool resp_full = sc.resp_count >= sc.resp_limit;
+  auto m_r = slots<K, int>(ar);
+  auto accept = slots<K, bool>(ar);
+#pragma unroll
+  for (int j = 0; j < nk; ++j) {
+    const bool bid_r = in[j].s.st == S_RESP_PEND && !resp_full;
+    const int rot_r = fmod_floor(wsub(b0 + j, sc.resp_rr), g.B);
+    m_r[j] = bid_r ? rot_r : g.B;
+    accept[j] = bid_r;  // and rot_r == m_r, below
+  }
+  auto key_r = slots<K, int>(ar);
+#pragma unroll
+  for (int j = 0; j < nk; ++j) key_r[j] = m_r[j];
+  group_min_k<K>(m_r, nk, g.B, sh);
+  const int mr = m_r[0];
+  const bool any_resp = mr < g.B;
+#pragma unroll
+  for (int j = 0; j < nk; ++j) accept[j] = accept[j] && key_r[j] == mr;
   // the accepted bank (rot_r == m_r) sends its request
-  const int acc = fmod_floor(wadd(sc.resp_rr, m_r), g.B);
-  co.item[0] = group_bcast(s.cur_addr, acc, g.B, sh);
-  co.item[1] = group_bcast(s.cur_write, acc, g.B, sh);
-  co.item[2] = group_bcast(s.cur_data, acc, g.B, sh);
-  co.item[3] = group_bcast(s.cur_id, acc, g.B, sh);
+  const int acc = fmod_floor(wadd(sc.resp_rr, mr), g.B);
+  int f[4] = {0, 0, 0, 0};
+#pragma unroll
+  for (int j = 0; j < nk; ++j)
+    if (nk == 1 || b0 + j == acc) {
+      f[0] = in[j].s.cur_addr;
+      f[1] = in[j].s.cur_write;
+      f[2] = in[j].s.cur_data;
+      f[3] = in[j].s.cur_id;
+    }
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    co.item[q] = group_bcast(f[q], acc / nk, g.B / nk, sh);
   if (!any_resp) co.item[0] = co.item[1] = co.item[2] = co.item[3] = 0;
   co.any_resp = any_resp;
   co.widx = fmod_floor(wadd(sc.resp_head, sc.resp_count), g.Qr);
   const int resp_count1 = wadd(sc.resp_count, any_resp);
 
   // ---- phase 5: FSM clock edge + bank-queue pop bookkeeping --------------
-  fsm_edge(p, cycle, g.row_shift, s, grant, accept, in.qcount > 0,
-           in.pop_addr, in.pop_write, in.pop_data, in.pop_id, out.o,
-           out.want_pop, out.rw_done, out.completed);
-  out.qhead2 = fmod_floor(wadd(in.qhead, out.want_pop), g.q_cap);
-  out.qcount2 = wsub(in.qcount, out.want_pop);
-
-  // ---- event-horizon bound at nxt on the post-edge state -----------------
-  const BankRegs& o = out.o;
-  const int local = event_bound(p2, nxt, o.st, o.timer, o.idle_ctr,
-                                o.refresh_due);
-  const int cmd_n = compute_cmd(o.st, o.cur_write);
-  const int legal_n = legal_at(p2, cmd_n, out.la, out.aw0, out.aw1, out.aw2,
-                               out.aw3, out.lr, out.lw);
-  const bool blocked_n = cmd_n != CMD_NOP && !(nxt >= legal_n);
-  const bool inert = in_wait_state(o.st) || blocked_n ||
-                     ((o.st == S_IDLE || o.st == S_SREF) && !(out.qcount2 > 0));
-  const bool gate = lane_all(inert);
-  const int per_bank =
-      group_min(blocked_n ? wsub(legal_n, nxt) : local, g.B, sh);
+  // ---- and the event-horizon bound at nxt on the post-edge state ---------
+  bool inert_all = true;
+  auto pb = slots<K, int>(ar);
+#pragma unroll
+  for (int j = 0; j < nk; ++j) {
+    const BankIn& x = in[j];
+    BankOut& ob = out[j];
+    fsm_edge(p[j], cycle, g.row_shift, x.s, grant[j], accept[j],
+             x.qcount > 0, x.pop_addr, x.pop_write, x.pop_data, x.pop_id,
+             ob.o, ob.want_pop, ob.rw_done, ob.completed);
+    ob.qhead2 = fmod_floor(wadd(x.qhead, ob.want_pop), g.q_cap);
+    ob.qcount2 = wsub(x.qcount, ob.want_pop);
+    const BankRegs& o = ob.o;
+    const int local = event_bound(p2[j], nxt, o.st, o.timer, o.idle_ctr,
+                                  o.refresh_due);
+    const int cmd_n = compute_cmd(o.st, o.cur_write);
+    const int legal_n = legal_at(p2[j], cmd_n, ob.la, ob.aw0, ob.aw1, ob.aw2,
+                                 ob.aw3, ob.lr, ob.lw);
+    const bool blocked_n = cmd_n != CMD_NOP && !(nxt >= legal_n);
+    const bool inert =
+        in_wait_state(o.st) || blocked_n ||
+        ((o.st == S_IDLE || o.st == S_SREF) && !(ob.qcount2 > 0));
+    inert_all = inert_all && inert;
+    pb[j] = blocked_n ? wsub(legal_n, nxt) : local;
+  }
+  const bool gate = lane_all(inert_all);
+  group_min_k<K>(pb, nk, g.B, sh);
+  const int per_bank = pb[0];
 
   // ---- phase 7: flow-through respQueue ack (pop of the post-push queue) --
   co.ack = resp_count1 > 0;
@@ -259,75 +415,94 @@ __device__ __forceinline__ void cycle_core(const LaneGeom& g, const int* rp,
   b_val = min(b_val, wsub(nb, nxt));
   const bool maybe = sc.req_count == 0 && resp_count2 == 0;
   co.delta = (maybe && gate) ? max(b_val, 0) : 0;
-  co.resp_rr = any_resp ? fmod_floor(wadd(wadd(sc.resp_rr, m_r), 1), g.B)
+  co.resp_rr = any_resp ? fmod_floor(wadd(wadd(sc.resp_rr, mr), 1), g.B)
                         : sc.resp_rr;
   co.resp_head = fmod_floor(wadd(sc.resp_head, co.ack), g.Qr);
   co.resp_count = resp_count2;
 }
 
-__global__ void fused_step_kernel(
+template <int kThreads, int K>
+__global__ void __launch_bounds__(kThreads) fused_step_kernel(
     const int* __restrict__ bank_in, const int* __restrict__ resp_in,
     const int* __restrict__ rp, const int* __restrict__ bounds,
     const int* __restrict__ scal, int* __restrict__ bank_out,
-    int* __restrict__ resp_out, int* __restrict__ scal_out, int B, int Qr,
-    int S, int T, int tier_split, int C, int per, int banks_per_rank,
-    int q_cap, int row_shift) {
-  __shared__ int sh[MAX_LANE_BANKS];
+    int* __restrict__ resp_out, int* __restrict__ scal_out,
+    char* __restrict__ scratch, int scratch_per_bank, int B, int Qr, int S,
+    int T, int tier_split, int C, int per, int banks_per_rank, int q_cap,
+    int row_shift) {
+  __shared__ int sh[LANE_THREADS];
   const int lane = blockIdx.x;
-  const int b = threadIdx.x;
+  const int tid = threadIdx.x;
+  const int nk = K ? K : B / blockDim.x;  // banks a thread
+  const size_t lane_bytes = (size_t)B * scratch_per_bank;
+  char* const lane_scratch = scratch + lane * lane_bytes;
+  SlotArena ar{lane_scratch, lane_scratch + lane_bytes, nk, (int)blockDim.x,
+               tid};
+  const int b0 = tid * nk;                // the thread's first bank
   const int total = gridDim.x * B;
-  const int pos = lane * B + b;
   const int* sc = scal + lane * (8 + C);
   int* so = scal_out + lane * (9 + 2 * C);
   const LaneGeom g{B, Qr, S, T, tier_split, per, banks_per_rank, q_cap,
                    row_shift};
 
-  BankIn in;
-  in.s = load_regs(bank_in, total, pos);
-  in.qhead = bank_in[10 * total + pos];
-  in.qcount = bank_in[11 * total + pos];
-  in.la = bank_in[12 * total + pos];
-  in.aw0 = bank_in[13 * total + pos];
-  in.aw1 = bank_in[14 * total + pos];
-  in.aw2 = bank_in[15 * total + pos];
-  in.aw3 = bank_in[16 * total + pos];
-  in.lr = bank_in[17 * total + pos];
-  in.lw = bank_in[18 * total + pos];
-  in.pop_addr = bank_in[19 * total + pos];
-  in.pop_write = bank_in[20 * total + pos];
-  in.pop_data = bank_in[21 * total + pos];
-  in.pop_id = bank_in[22 * total + pos];
+  auto in = slots<K, BankIn>(ar);
+  auto cmd_ptr = slots<K, int>(ar);
+#pragma unroll
+  for (int j = 0; j < nk; ++j) {
+    const int pos = lane * B + b0 + j;
+    BankIn& x = in[j];
+    x.s = load_regs(bank_in, total, pos);
+    x.qhead = bank_in[10 * total + pos];
+    x.qcount = bank_in[11 * total + pos];
+    x.la = bank_in[12 * total + pos];
+    x.aw0 = bank_in[13 * total + pos];
+    x.aw1 = bank_in[14 * total + pos];
+    x.aw2 = bank_in[15 * total + pos];
+    x.aw3 = bank_in[16 * total + pos];
+    x.lr = bank_in[17 * total + pos];
+    x.lw = bank_in[18 * total + pos];
+    x.pop_addr = bank_in[19 * total + pos];
+    x.pop_write = bank_in[20 * total + pos];
+    x.pop_data = bank_in[21 * total + pos];
+    x.pop_id = bank_in[22 * total + pos];
+    cmd_ptr[j] = sc[8 + (b0 + j) / per];
+  }
   const CycleScal cs{scal[0], sc[1], scal[2], sc[3],
                      sc[4],   sc[5], sc[6],   sc[7]};
-  const int ch = b / per;
 
-  BankOut out;
+  auto out = slots<K, BankOut>(ar);
   CycleOut co;
-  cycle_core(g, rp + lane * T * S * NUM_RUNTIME_PARAMS, bounds + lane * S, b,
-             sc[8 + ch], cs, in, sh, out, co);
+  cycle_core<K>(g, rp + lane * T * S * NUM_RUNTIME_PARAMS, bounds + lane * S,
+                b0, nk, cmd_ptr, cs, in, sh, out, co, ar);
 
-  store_regs(bank_out, total, pos, out.o);
-  bank_out[10 * total + pos] = out.want_pop;
-  bank_out[11 * total + pos] = out.rw_done;
-  bank_out[12 * total + pos] = out.completed;
-  bank_out[13 * total + pos] = out.qhead2;
-  bank_out[14 * total + pos] = out.qcount2;
-  bank_out[15 * total + pos] = out.la;
-  bank_out[16 * total + pos] = out.aw0;
-  bank_out[17 * total + pos] = out.aw1;
-  bank_out[18 * total + pos] = out.aw2;
-  bank_out[19 * total + pos] = out.aw3;
-  bank_out[20 * total + pos] = out.lr;
-  bank_out[21 * total + pos] = out.lw;
-  if (b - ch * per == 0) {
-    so[9 + ch] = out.cmd_ptr;
-    so[9 + C + ch] = out.cmd_issued;
+#pragma unroll
+  for (int j = 0; j < nk; ++j) {
+    const int pos = lane * B + b0 + j;
+    const BankOut& o = out[j];
+    store_regs(bank_out, total, pos, o.o);
+    bank_out[10 * total + pos] = o.want_pop;
+    bank_out[11 * total + pos] = o.rw_done;
+    bank_out[12 * total + pos] = o.completed;
+    bank_out[13 * total + pos] = o.qhead2;
+    bank_out[14 * total + pos] = o.qcount2;
+    bank_out[15 * total + pos] = o.la;
+    bank_out[16 * total + pos] = o.aw0;
+    bank_out[17 * total + pos] = o.aw1;
+    bank_out[18 * total + pos] = o.aw2;
+    bank_out[19 * total + pos] = o.aw3;
+    bank_out[20 * total + pos] = o.lr;
+    bank_out[21 * total + pos] = o.lw;
+    const int ch = (b0 + j) / per;
+    if (b0 + j - ch * per == 0) {
+      so[9 + ch] = o.cmd_ptr;
+      so[9 + C + ch] = o.cmd_issued;
+    }
   }
   const int* old = resp_in + lane * Qr * 4;
   int* rout = resp_out + lane * Qr * 4;
-  for (int k = b; k < Qr * 4; k += B)
+  for (int k = tid; k < Qr * 4; k += B / nk)  // B / nk threads
     rout[k] = (co.any_resp && k / 4 == co.widx) ? co.item[k % 4] : old[k];
-  if (b == 0) {
+  if (tid == 0) {
     const int resp_head = sc[4];
     const bool head_ok = resp_head >= 0 && resp_head < Qr;
     const bool head_is_new = co.any_resp && co.widx == resp_head;
@@ -342,18 +517,37 @@ __global__ void fused_step_kernel(
   }
 }
 
+// the banks a thread of a lane owns: 1 up to LANE_THREADS banks, else
+// B / LANE_THREADS (B a power of two); 0 when no form takes the lane
+static int banks_per_thread(int B) {
+  if (B < 1) return 0;
+  if (B <= LANE_THREADS) return 1;
+  if ((B & (B - 1)) != 0) return 0;
+  return B / LANE_THREADS;
+}
+
+// scratch: the slot arrays of lanes above LANE_THREADS banks,
+// scratch_per_bank bytes a bank of each lane (null below).
 extern "C" int fused_step_launch(const void* bank_in, const void* resp_in,
                                  const void* rp, const void* bounds,
                                  const void* scal, void* bank_out,
-                                 void* resp_out, void* scal_out, int L, int B,
-                                 int Qr, int S, int T, int tier_split, int C,
-                                 int per, int banks_per_rank, int q_cap,
-                                 int row_shift, void* stream) {
-  fused_step_kernel<<<L, B, 0, (cudaStream_t)stream>>>(
+                                 void* resp_out, void* scal_out,
+                                 void* scratch, int scratch_per_bank, int L,
+                                 int B, int Qr, int S, int T, int tier_split,
+                                 int C, int per, int banks_per_rank,
+                                 int q_cap, int row_shift, void* stream) {
+  const int k = banks_per_thread(B);
+  if (k == 0 || (k > 1 && (scratch == nullptr ||
+                           scratch_per_bank < K3_SCRATCH_PER_BANK)))
+    return (int)cudaErrorInvalidValue;
+  const auto kern = B <= 32 ? fused_step_kernel<32, 1>
+                    : k == 1 ? fused_step_kernel<LANE_THREADS, 1>
+                             : fused_step_kernel<LANE_THREADS, 0>;
+  kern<<<L, B / k, 0, (cudaStream_t)stream>>>(
       (const int*)bank_in, (const int*)resp_in, (const int*)rp,
       (const int*)bounds, (const int*)scal, (int*)bank_out, (int*)resp_out,
-      (int*)scal_out, B, Qr, S, T, tier_split, C, per, banks_per_rank, q_cap,
-      row_shift);
+      (int*)scal_out, (char*)scratch, scratch_per_bank, B, Qr, S, T,
+      tier_split, C, per, banks_per_rank, q_cap, row_shift);
   return (int)cudaGetLastError();
 }
 
@@ -379,9 +573,11 @@ struct FusedRunArgs {
   int *seg_cycles, *tier_active, *tier_idle, *tier_sref;  // [S], [T] x 3
   int *blocked_arrival, *blocked_dispatch;
   int* out;  // [2]: the clock and the executed steps at exit
+  char* scratch;  // [B * scratch_per_bank] slot arrays above LANE_THREADS
+                  // banks (null below)
   AddrGeometry geo;
   int n, q_cap, req_cap, resp_cap, S, T, tier_split, mem_words;
-  int t, t_end, budget;
+  int t, t_end, t_stop, budget, scratch_per_bank;
 };
 
 struct TraceEntry {
@@ -411,10 +607,26 @@ __device__ __forceinline__ void lane_sync() {
     __syncthreads();
 }
 
-// the number of the lane's threads whose p holds (every thread calls it)
-__device__ __forceinline__ int lane_count(bool p) {
-  if (blockDim.x <= 32) return __popc(__ballot_sync(lane_mask(), p));
-  return __syncthreads_count(p);
+// the number of the lane's banks whose p holds (every thread calls it;
+// k > 1: a warp sum, then the warps' sums through sh)
+template <int K>
+__device__ __forceinline__ int lane_count(const Slots<K, bool>& p, int nk,
+                                          int* sh) {
+  if constexpr (K == 1) {
+    if (blockDim.x <= 32) return __popc(__ballot_sync(lane_mask(), p[0]));
+    return __syncthreads_count(p[0]);
+  } else {
+    int c = 0;
+#pragma unroll
+    for (int j = 0; j < nk; ++j) c += p[j];
+    c = __reduce_add_sync(0xffffffffu, c);
+    __syncthreads();  // earlier readers of sh are done
+    if ((threadIdx.x & 31) == 0) sh[threadIdx.x >> 5] = c;
+    __syncthreads();
+    int n = 0;
+    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) n += sh[w];
+    return n;
+  }
 }
 
 __device__ __forceinline__ int wmul(int a, int b) {
@@ -469,13 +681,25 @@ __device__ __forceinline__ void add_tier_counts(int* cnt, int S, int T,
   act[1] = wadd(act[1], wmul(k, B - tier_split - sref1 - idle1));
 }
 
-template <int kMaxBanks>
-__global__ void __launch_bounds__(kMaxBanks)
-    fused_run_kernel(const FusedRunArgs a, int ring_in_smem) {
+// where a launch keeps what does not fit shared memory: bits of `dev`,
+// set in this order until the rest fits (in place in device memory)
+#define DEV_BANK_RINGS 1
+#define DEV_RESP_RING 2
+#define DEV_REQ_RING 4
+#define DEV_QMETA 8
+
+template <int kThreads, int K>
+__global__ void __launch_bounds__(kThreads)
+    fused_run_kernel(const FusedRunArgs a, int dev) {
   extern __shared__ int smem[];
   const AddrGeometry& geo = a.geo;
   const int B = geo.num_banks;
-  const int b = threadIdx.x;
+  const int tid = threadIdx.x;
+  const int NT = blockDim.x;          // B / nk
+  const int nk = K ? K : B / NT;      // banks a thread
+  SlotArena ar{a.scratch, a.scratch + (size_t)B * a.scratch_per_bank, nk,
+               NT, tid};
+  const int b0 = tid * nk;            // the thread's first bank
   const int C = geo.channels;
   const int per = B / C;
   const int bpr = geo.bankgroups * geo.banks_per_group;
@@ -485,25 +709,36 @@ __global__ void __launch_bounds__(kMaxBanks)
                    geo.row_shift};
   const int n_cnt = CNT_SEG + S + 3 * T;
 
-  int* sh = smem;                          // [B] group_min scratch
-  int* qhead_s = sh + B;                   // [B]
-  int* qcount_s = qhead_s + B;             // [B]
-  int* rp_s = qcount_s + B;                // [T*S, NP]
-  int* bnd_s = rp_s + T * S * NUM_RUNTIME_PARAMS;  // [S]
-  int* req_s = bnd_s + S;                  // [Qc, 4]
-  int* resp_s = req_s + Qc * 4;            // [Qr, 4]
-  int* cnt_s = resp_s + Qr * 4;            // counters
-  int* fe_s = cnt_s + n_cnt;               // req_count, arrival_rel
-  int* ring = ring_in_smem ? fe_s + 2 : a.bq_buf;  // [B, Q, 4]
+  int* next_smem = smem;
+  const auto take = [&](int ints) {
+    int* p = next_smem;
+    next_smem += ints;
+    return p;
+  };
+  int* sh = take(NT);                                 // reduction scratch
+  int* rp_s = take(T * S * NUM_RUNTIME_PARAMS);       // [T*S, NP]
+  int* bnd_s = take(S);                               // [S]
+  int* cnt_s = take(n_cnt);                           // counters
+  int* fe_s = take(2);                                // req_count, arrival
+  int* qhead_s = dev & DEV_QMETA ? a.bq_head : take(B);    // [B]
+  int* qcount_s = dev & DEV_QMETA ? a.bq_count : take(B);  // [B]
+  int* req_s = dev & DEV_REQ_RING ? a.req_buf : take(Qc * 4);     // [Qc, 4]
+  int* resp_s = dev & DEV_RESP_RING ? a.resp_buf : take(Qr * 4);  // [Qr, 4]
+  int* ring = dev & DEV_BANK_RINGS ? a.bq_buf : take(B * Q * 4);  // [B, Q, 4]
 
   // ---- load the machine -------------------------------------------------
-  qhead_s[b] = a.bq_head[b];
-  qcount_s[b] = a.bq_count[b];
-  for (int i = b; i < T * S * NUM_RUNTIME_PARAMS; i += B) rp_s[i] = a.rp[i];
-  for (int i = b; i < S; i += B) bnd_s[i] = a.bounds[i];
-  for (int i = b; i < Qc * 4; i += B) req_s[i] = a.req_buf[i];
-  for (int i = b; i < Qr * 4; i += B) resp_s[i] = a.resp_buf[i];
-  for (int i = b; i < n_cnt; i += B) {
+  if (!(dev & DEV_QMETA))
+    for (int i = tid; i < B; i += NT) {
+      qhead_s[i] = a.bq_head[i];
+      qcount_s[i] = a.bq_count[i];
+    }
+  for (int i = tid; i < T * S * NUM_RUNTIME_PARAMS; i += NT) rp_s[i] = a.rp[i];
+  for (int i = tid; i < S; i += NT) bnd_s[i] = a.bounds[i];
+  if (!(dev & DEV_REQ_RING))
+    for (int i = tid; i < Qc * 4; i += NT) req_s[i] = a.req_buf[i];
+  if (!(dev & DEV_RESP_RING))
+    for (int i = tid; i < Qr * 4; i += NT) resp_s[i] = a.resp_buf[i];
+  for (int i = tid; i < n_cnt; i += NT) {
     const int* src;
     int j = i;
     if (j < 8) src = a.cmd_counts + j;
@@ -516,24 +751,42 @@ __global__ void __launch_bounds__(kMaxBanks)
     else src = a.tier_sref + (j - T);
     cnt_s[i] = *src;
   }
-  if (ring_in_smem)
-    for (int i = b; i < B * Q * 4; i += B) ring[i] = a.bq_buf[i];
-  BankRegs s;
-  s.st = a.regs[0][b];
-  s.timer = a.regs[1][b];
-  s.idle_ctr = a.regs[2][b];
-  s.refresh_due = a.regs[3][b];
-  s.cur_addr = a.regs[4][b];
-  s.cur_write = a.regs[5][b];
-  s.cur_data = a.regs[6][b];
-  s.cur_id = a.regs[7][b];
-  s.open_row = a.regs[8][b];
-  s.pending = a.regs[9][b];
-  const int rank = b / bpr;
-  int la = a.last_act[rank], lr = a.last_rd[rank], lw = a.last_wr[rank];
-  int aw0 = a.act_win[rank * 4], aw1 = a.act_win[rank * 4 + 1];
-  int aw2 = a.act_win[rank * 4 + 2], aw3 = a.act_win[rank * 4 + 3];
-  int cmd_ptr = a.cmd_rr[b / per];
+  if (!(dev & DEV_BANK_RINGS))
+    for (int i = tid; i < B * Q * 4; i += NT) ring[i] = a.bq_buf[i];
+  // each slot's bank: registers, its copy of its rank's timing registers,
+  // its channel's arbiter pointer
+  auto s = slots<K, BankRegs>(ar);
+  auto la = slots<K, int>(ar), aw0 = slots<K, int>(ar);
+  auto aw1 = slots<K, int>(ar), aw2 = slots<K, int>(ar);
+  auto aw3 = slots<K, int>(ar), lr = slots<K, int>(ar);
+  auto lw = slots<K, int>(ar), cmd_ptr = slots<K, int>(ar);
+  auto tier1 = slots<K, bool>(ar);
+  // the arrays of one step: the same scratch every step
+  const SlotArena step_ar = ar;
+#pragma unroll
+  for (int j = 0; j < nk; ++j) {
+    const int b = b0 + j;
+    s[j].st = a.regs[0][b];
+    s[j].timer = a.regs[1][b];
+    s[j].idle_ctr = a.regs[2][b];
+    s[j].refresh_due = a.regs[3][b];
+    s[j].cur_addr = a.regs[4][b];
+    s[j].cur_write = a.regs[5][b];
+    s[j].cur_data = a.regs[6][b];
+    s[j].cur_id = a.regs[7][b];
+    s[j].open_row = a.regs[8][b];
+    s[j].pending = a.regs[9][b];
+    const int rank = b / bpr;
+    la[j] = a.last_act[rank];
+    lr[j] = a.last_rd[rank];
+    lw[j] = a.last_wr[rank];
+    aw0[j] = a.act_win[rank * 4];
+    aw1[j] = a.act_win[rank * 4 + 1];
+    aw2[j] = a.act_win[rank * 4 + 2];
+    aw3[j] = a.act_win[rank * 4 + 3];
+    cmd_ptr[j] = a.cmd_rr[b / per];
+    tier1[j] = T > 1 && b >= a.tier_split;
+  }
   int resp_rr = *a.resp_rr, resp_head = *a.resp_head;
   int resp_count = *a.resp_count;
   const int resp_limit = *a.resp_limit, bq_limit = *a.bq_limit;
@@ -543,25 +796,24 @@ __global__ void __launch_bounds__(kMaxBanks)
   const int req_limit = *a.req_limit;
   int blocked_arrival = *a.blocked_arrival;
   int blocked_dispatch = *a.blocked_dispatch;
-  const bool tier1 = T > 1 && b >= a.tier_split;
   // thread 0 holds the trace entries at next_arrival and next_arrival + 1
   // (clamped) a step ahead of their use, off the step's latency chain
   TraceEntry e0{}, e1{};
-  if (b == 0) {
+  if (tid == 0) {
     e0 = load_entry(a, next_arrival);
     e1 = load_entry(a, wadd(next_arrival, 1));
   }
   int t = a.t, steps = 0;
   lane_sync();
 
-  while (t < a.t_end && steps < a.budget) {
+  while (t < a.t_stop && steps < a.budget) {
     const int nxt = wadd(t, 1);
     const int seg = active_segment(bnd_s, S, t);
     // tier 0's row: the tier-uniform fields the glue reads
     const Rp p0 = resolve_rp(rp_s, bnd_s, S, 0, t);
 
     // ---- 1: trace admission and dispatch (thread 0) ---------------------
-    if (b == 0) {
+    if (tid == 0) {
       const int idx = min(next_arrival, n - 1);
       const bool due = next_arrival < n && e0.t <= t;
       const bool admit = due && !(req_count >= req_limit);
@@ -602,40 +854,62 @@ __global__ void __launch_bounds__(kMaxBanks)
     }
     lane_sync();
 
-    // ---- 2: FR-FCFS promotion on the bank's own queue -------------------
-    const int qhead = qhead_s[b], qcount = qcount_s[b];
-    int* myq = ring + b * Q * 4;
-    if (p0(RP_sched_policy) == SCHED_FRFCFS)
-      promote_rowhit(myq, Q, qhead, qcount, s.open_row, geo.row_shift);
+    // ---- 2: FR-FCFS promotion on each bank's own queue ------------------
+    SlotArena sa = step_ar;
+    auto in = slots<K, BankIn>(sa);
+#pragma unroll
+    for (int j = 0; j < nk; ++j) {
+      const int b = b0 + j;
+      const int qhead = qhead_s[b], qcount = qcount_s[b];
+      int* myq = ring + b * Q * 4;
+      if (p0(RP_sched_policy) == SCHED_FRFCFS)
+        promote_rowhit(myq, Q, qhead, qcount, s[j].open_row, geo.row_shift);
+      const int* pop = myq + qhead * 4;
+      in[j] = BankIn{s[j],     qhead,   qcount,  la[j],  aw0[j],
+                     aw1[j],   aw2[j],  aw3[j],  lr[j],  lw[j],
+                     pop[0],   pop[1],  pop[2],  pop[3]};
+    }
 
     // ---- 3: the cycle body ------------------------------------------------
-    const int* pop = myq + qhead * 4;
-    const BankIn in{s,   qhead, qcount, la,     aw0,    aw1,    aw2,
-                    aw3, lr,    lw,     pop[0], pop[1], pop[2], pop[3]};
     const CycleScal cs{t,         fe_s[1],    a.t_end,    fe_s[0],
                        resp_head, resp_count, resp_limit, resp_rr};
-    BankOut out;
+    auto out = slots<K, BankOut>(sa);
     CycleOut co;
-    cycle_core(g, rp_s, bnd_s, b, cmd_ptr, cs, in, sh, out, co);
+    auto q_sref = slots<K, bool>(sa), q_idle = slots<K, bool>(sa);
+    auto q_sref1 = slots<K, bool>(sa), q_idle1 = slots<K, bool>(sa);
+    cycle_core<K>(g, rp_s, bnd_s, b0, nk, cmd_ptr, cs, in, sh, out, co, sa);
 
     // ---- 4: memory phase on the pre-edge registers ------------------------
-    const int maddr = s.cur_addr & (a.mem_words - 1);
-    const bool is_wr = s.cur_write == 1;
-    if (out.rw_done && is_wr) a.mem[maddr] = s.cur_data;
+#pragma unroll
+    for (int j = 0; j < nk; ++j)
+      if (out[j].rw_done && s[j].cur_write == 1)
+        a.mem[s[j].cur_addr & (a.mem_words - 1)] = s[j].cur_data;
     lane_sync();
-    if (out.rw_done && !is_wr && s.cur_id >= 0 && s.cur_id < n)
-      a.rdata[s.cur_id] = a.mem[maddr];
+#pragma unroll
+    for (int j = 0; j < nk; ++j)
+      if (out[j].rw_done && s[j].cur_write != 1 && s[j].cur_id >= 0 &&
+          s[j].cur_id < n)
+        a.rdata[s[j].cur_id] = a.mem[s[j].cur_addr & (a.mem_words - 1)];
 
     // ---- 5: records and counters -------------------------------------------
-    // a popping bank latched the popped item: the new cur_id is its id
-    if (out.want_pop && out.o.cur_id >= 0 && out.o.cur_id < n)
-      a.t_start[out.o.cur_id] = t;
-    const int sref = lane_count(s.st == S_SREF);
-    const int idle = lane_count(s.st == S_IDLE);
-    const int sref1 = T > 1 ? lane_count(tier1 && s.st == S_SREF) : 0;
-    const int idle1 = T > 1 ? lane_count(tier1 && s.st == S_IDLE) : 0;
-    if (b % per == 0) atomicAdd(cnt_s + out.cmd_issued, 1);
-    if (b == 0) {
+#pragma unroll
+    for (int j = 0; j < nk; ++j) {
+      // a popping bank latched the popped item: the new cur_id is its id
+      const int id = out[j].o.cur_id;
+      if (out[j].want_pop && id >= 0 && id < n) a.t_start[id] = t;
+      q_sref[j] = s[j].st == S_SREF;
+      q_idle[j] = s[j].st == S_IDLE;
+      q_sref1[j] = tier1[j] && q_sref[j];
+      q_idle1[j] = tier1[j] && q_idle[j];
+    }
+    const int sref = lane_count<K>(q_sref, nk, sh);
+    const int idle = lane_count<K>(q_idle, nk, sh);
+    const int sref1 = T > 1 ? lane_count<K>(q_sref1, nk, sh) : 0;
+    const int idle1 = T > 1 ? lane_count<K>(q_idle1, nk, sh) : 0;
+#pragma unroll
+    for (int j = 0; j < nk; ++j)
+      if ((b0 + j) % per == 0) atomicAdd(cnt_s + out[j].cmd_issued, 1);
+    if (tid == 0) {
       if (co.any_resp)
         for (int f = 0; f < 4; ++f) resp_s[co.widx * 4 + f] = co.item[f];
       if (co.ack) {  // the head after the push is the acked item
@@ -653,15 +927,23 @@ __global__ void __launch_bounds__(kMaxBanks)
     // ---- 6: the skip over delta inert cycles -------------------------------
     const int delta = co.delta;
     if (delta < 0) __trap();
-    s = out.o;
+#pragma unroll
+    for (int j = 0; j < nk; ++j) s[j] = out[j].o;
     if (delta > 0) {
-      if (in_wait_state(s.st)) s.timer = wsub(s.timer, delta);
-      s.idle_ctr = s.st == S_IDLE ? wadd(s.idle_ctr, delta) : 0;
-      const int sref_n = lane_count(s.st == S_SREF);
-      const int idle_n = lane_count(s.st == S_IDLE);
-      const int sref1_n = T > 1 ? lane_count(tier1 && s.st == S_SREF) : 0;
-      const int idle1_n = T > 1 ? lane_count(tier1 && s.st == S_IDLE) : 0;
-      if (b == 0) {
+#pragma unroll
+      for (int j = 0; j < nk; ++j) {
+        if (in_wait_state(s[j].st)) s[j].timer = wsub(s[j].timer, delta);
+        s[j].idle_ctr = s[j].st == S_IDLE ? wadd(s[j].idle_ctr, delta) : 0;
+        q_sref[j] = s[j].st == S_SREF;
+        q_idle[j] = s[j].st == S_IDLE;
+        q_sref1[j] = tier1[j] && q_sref[j];
+        q_idle1[j] = tier1[j] && q_idle[j];
+      }
+      const int sref_n = lane_count<K>(q_sref, nk, sh);
+      const int idle_n = lane_count<K>(q_idle, nk, sh);
+      const int sref1_n = T > 1 ? lane_count<K>(q_sref1, nk, sh) : 0;
+      const int idle1_n = T > 1 ? lane_count<K>(q_idle1, nk, sh) : 0;
+      if (tid == 0) {
         // every skipped cycle lies in the segment of nxt
         const int seg_n = active_segment(bnd_s, S, nxt);
         atomicAdd(cnt_s + CMD_NOP, wmul(delta, C));
@@ -675,19 +957,22 @@ __global__ void __launch_bounds__(kMaxBanks)
                         sref1_n, idle1_n);
       }
     }
-    la = out.la;
-    aw0 = out.aw0;
-    aw1 = out.aw1;
-    aw2 = out.aw2;
-    aw3 = out.aw3;
-    lr = out.lr;
-    lw = out.lw;
-    cmd_ptr = out.cmd_ptr;
+#pragma unroll
+    for (int j = 0; j < nk; ++j) {
+      la[j] = out[j].la;
+      aw0[j] = out[j].aw0;
+      aw1[j] = out[j].aw1;
+      aw2[j] = out[j].aw2;
+      aw3[j] = out[j].aw3;
+      lr[j] = out[j].lr;
+      lw[j] = out[j].lw;
+      cmd_ptr[j] = out[j].cmd_ptr;
+      qhead_s[b0 + j] = out[j].qhead2;
+      qcount_s[b0 + j] = out[j].qcount2;
+    }
     resp_rr = co.resp_rr;
     resp_head = co.resp_head;
     resp_count = co.resp_count;
-    qhead_s[b] = out.qhead2;
-    qcount_s[b] = out.qcount2;
     const int t_next = wadd(wadd(t, 1), delta);
     // no valid run reaches a clock that fails to advance or overshoots
     if (t_next <= t || t_next > a.t_end) __trap();
@@ -697,34 +982,44 @@ __global__ void __launch_bounds__(kMaxBanks)
   }
 
   // ---- write the machine back ---------------------------------------------
-  a.regs[0][b] = s.st;
-  a.regs[1][b] = s.timer;
-  a.regs[2][b] = s.idle_ctr;
-  a.regs[3][b] = s.refresh_due;
-  a.regs[4][b] = s.cur_addr;
-  a.regs[5][b] = s.cur_write;
-  a.regs[6][b] = s.cur_data;
-  a.regs[7][b] = s.cur_id;
-  a.regs[8][b] = s.open_row;
-  a.regs[9][b] = s.pending;
-  if (b % bpr == 0) {  // the rank's copies agree: its first bank writes
-    a.last_act[rank] = la;
-    a.act_win[rank * 4] = aw0;
-    a.act_win[rank * 4 + 1] = aw1;
-    a.act_win[rank * 4 + 2] = aw2;
-    a.act_win[rank * 4 + 3] = aw3;
-    a.last_rd[rank] = lr;
-    a.last_wr[rank] = lw;
+#pragma unroll
+  for (int j = 0; j < nk; ++j) {
+    const int b = b0 + j;
+    a.regs[0][b] = s[j].st;
+    a.regs[1][b] = s[j].timer;
+    a.regs[2][b] = s[j].idle_ctr;
+    a.regs[3][b] = s[j].refresh_due;
+    a.regs[4][b] = s[j].cur_addr;
+    a.regs[5][b] = s[j].cur_write;
+    a.regs[6][b] = s[j].cur_data;
+    a.regs[7][b] = s[j].cur_id;
+    a.regs[8][b] = s[j].open_row;
+    a.regs[9][b] = s[j].pending;
+    if (b % bpr == 0) {  // the rank's copies agree: its first bank writes
+      const int rank = b / bpr;
+      a.last_act[rank] = la[j];
+      a.act_win[rank * 4] = aw0[j];
+      a.act_win[rank * 4 + 1] = aw1[j];
+      a.act_win[rank * 4 + 2] = aw2[j];
+      a.act_win[rank * 4 + 3] = aw3[j];
+      a.last_rd[rank] = lr[j];
+      a.last_wr[rank] = lw[j];
+    }
+    if (b % per == 0) a.cmd_rr[b / per] = cmd_ptr[j];
   }
-  if (b % per == 0) a.cmd_rr[b / per] = cmd_ptr;
   lane_sync();
-  a.bq_head[b] = qhead_s[b];
-  a.bq_count[b] = qcount_s[b];
-  if (ring_in_smem)
-    for (int i = b; i < B * Q * 4; i += B) a.bq_buf[i] = ring[i];
-  for (int i = b; i < Qc * 4; i += B) a.req_buf[i] = req_s[i];
-  for (int i = b; i < Qr * 4; i += B) a.resp_buf[i] = resp_s[i];
-  for (int i = b; i < n_cnt; i += B) {
+  if (!(dev & DEV_QMETA))
+    for (int i = tid; i < B; i += NT) {
+      a.bq_head[i] = qhead_s[i];
+      a.bq_count[i] = qcount_s[i];
+    }
+  if (!(dev & DEV_BANK_RINGS))
+    for (int i = tid; i < B * Q * 4; i += NT) a.bq_buf[i] = ring[i];
+  if (!(dev & DEV_REQ_RING))
+    for (int i = tid; i < Qc * 4; i += NT) a.req_buf[i] = req_s[i];
+  if (!(dev & DEV_RESP_RING))
+    for (int i = tid; i < Qr * 4; i += NT) a.resp_buf[i] = resp_s[i];
+  for (int i = tid; i < n_cnt; i += NT) {
     int* dst;
     int j = i;
     if (j < 8) dst = a.cmd_counts + j;
@@ -737,7 +1032,7 @@ __global__ void __launch_bounds__(kMaxBanks)
     else dst = a.tier_sref + (j - T);
     *dst = cnt_s[i];
   }
-  if (b == 0) {
+  if (tid == 0) {
     *a.next_arrival = next_arrival;
     *a.req_head = req_head;
     *a.req_count = req_count;
@@ -751,45 +1046,73 @@ __global__ void __launch_bounds__(kMaxBanks)
   }
 }
 
-// Shared bytes of the launch without / with the bank-queue rings.
-static size_t run_smem(const FusedRunArgs& a, bool ring) {
-  const int B = a.geo.num_banks;
-  size_t ints = 3 * (size_t)B + (size_t)a.T * a.S * NUM_RUNTIME_PARAMS +
-                a.S + 4 * (size_t)a.req_cap + 4 * (size_t)a.resp_cap +
+// Shared bytes of a launch of `threads` threads that keeps the parts named
+// by `dev` in device memory.
+static size_t run_smem(const FusedRunArgs& a, int threads, int dev) {
+  const size_t B = a.geo.num_banks;
+  size_t ints = threads + (size_t)a.T * a.S * NUM_RUNTIME_PARAMS + a.S +
                 CNT_SEG + a.S + 3 * (size_t)a.T + 2;
-  if (ring) ints += (size_t)B * a.q_cap * 4;
+  if (!(dev & DEV_QMETA)) ints += 2 * B;
+  if (!(dev & DEV_REQ_RING)) ints += 4 * (size_t)a.req_cap;
+  if (!(dev & DEV_RESP_RING)) ints += 4 * (size_t)a.resp_cap;
+  if (!(dev & DEV_BANK_RINGS)) ints += B * a.q_cap * 4;
   return ints * sizeof(int);
 }
 
-// Returns a cudaError_t. The bank-queue rings go to shared memory when
-// they fit the block's opt-in limit beside the rest, else they stay in
-// place in device memory.
-extern "C" int fused_run_launch(const void* args, void* stream) {
-  const FusedRunArgs& a = *static_cast<const FusedRunArgs*>(args);
-  const int B = a.geo.num_banks;
-  if (B < 1 || B > MAX_LANE_BANKS || a.n < 1 || a.budget < 1)
-    return (int)cudaErrorInvalidValue;
+template <int kThreads, int K>
+static int run_launch(const FusedRunArgs& a, int threads, size_t bytes,
+                      int dev, cudaStream_t st) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      fused_run_kernel<kThreads, K>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  fused_run_kernel<kThreads, K><<<1, threads, bytes, st>>>(a, dev);
+  return (int)cudaGetLastError();
+}
+
+// The parts a launch keeps in place in device memory (DEV_* bits): none
+// while everything fits the block's opt-in shared memory, else the
+// bank-queue rings, then the response ring, the request ring and the
+// bank-queue heads and counts, until the rest (the schedule a launch
+// holds, at most 64 KB, and about 4 KB besides) does.
+static int run_placement(const FusedRunArgs& a, int threads, size_t* bytes) {
   int dev = 0, optin = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                          dev);
-  const bool ring = run_smem(a, true) <= (size_t)optin;
-  const size_t bytes = run_smem(a, ring);
-  if (bytes > (size_t)optin) return (int)cudaErrorInvalidValue;
+  static const int kOrder[] = {DEV_BANK_RINGS, DEV_RESP_RING, DEV_REQ_RING,
+                               DEV_QMETA};
+  int where = 0;
+  *bytes = run_smem(a, threads, where);
+  for (const int part : kOrder)
+    if (*bytes > (size_t)optin) *bytes = run_smem(a, threads, where |= part);
+  return where;
+}
+
+// The DEV_* bits a launch with these arguments would set (phase 2 of
+// chip_smoke.py holds each case to the placement it is built to reach);
+// -1 for a lane no form takes.
+extern "C" int fused_run_placement_query(const void* args) {
+  const FusedRunArgs& a = *static_cast<const FusedRunArgs*>(args);
+  const int k = banks_per_thread(a.geo.num_banks);
+  size_t bytes;
+  return k == 0 ? -1 : run_placement(a, a.geo.num_banks / k, &bytes);
+}
+
+// Returns a cudaError_t.
+extern "C" int fused_run_launch(const void* args, void* stream) {
+  const FusedRunArgs& a = *static_cast<const FusedRunArgs*>(args);
+  const int B = a.geo.num_banks;
+  const int k = banks_per_thread(B);
+  if (k == 0 || a.n < 1 || a.budget < 1) return (int)cudaErrorInvalidValue;
+  if (k > 1 &&
+      (a.scratch == nullptr || a.scratch_per_bank < K3_SCRATCH_PER_BANK))
+    return (int)cudaErrorInvalidValue;
+  const int threads = B / k;
+  size_t bytes;
+  const int where = run_placement(a, threads, &bytes);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (B <= 32) {
-    err = cudaFuncSetAttribute(fused_run_kernel<32>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)bytes);
-    if (err != cudaSuccess) return (int)err;
-    fused_run_kernel<32><<<1, B, bytes, st>>>(a, ring);
-  } else {
-    err = cudaFuncSetAttribute(fused_run_kernel<MAX_LANE_BANKS>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)bytes);
-    if (err != cudaSuccess) return (int)err;
-    fused_run_kernel<MAX_LANE_BANKS><<<1, B, bytes, st>>>(a, ring);
-  }
-  return (int)cudaGetLastError();
+  if (B <= 32) return run_launch<32, 1>(a, threads, bytes, where, st);
+  if (k == 1) return run_launch<LANE_THREADS, 1>(a, threads, bytes, where, st);
+  return run_launch<LANE_THREADS, 0>(a, threads, bytes, where, st);
 }

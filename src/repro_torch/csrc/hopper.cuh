@@ -64,6 +64,17 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
 
 // --------------------------------------------------------------------- TMA
 
+// copy `bytes` (a multiple of 16; both addresses 16-byte aligned) from
+// global `src` to shared `dst`; completion is counted on `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 // copy the box at coordinates (c0 innermost, c1, c2) of a 3-D tensor map
 // into shared memory at `dst`; completion is counted on `bar`
 __device__ __forceinline__ void tma_load_3d(uint32_t dst,

@@ -85,7 +85,20 @@ NUM_BANK_ROWS_IN = 23    # state 10 + qmeta 2 + timing 7 + pop 4
 NUM_BANK_ROWS_OUT = 22   # state 10 + flags 3 + qmeta 2 + timing 7
 NUM_SCAL_IN = 8          # + channels
 NUM_SCAL_OUT = 9         # + 2 * channels
-MAX_LANE_BANKS = 1024    # one thread per bank of a lane, one CTA per lane
+#: a lane is one CTA of at most 1024 threads: one bank a thread up to 1024
+#: banks, B / 1024 banks a thread above, their per-bank arrays in a scratch
+#: of SCRATCH_PER_BANK bytes a bank (csrc/fused.cu K3_SCRATCH_PER_BANK)
+LANE_THREADS = 1024
+SCRATCH_PER_BANK = 512
+
+
+def _scratch(b: int, lanes: int, device) -> Optional[torch.Tensor]:
+    """The slot-array scratch of ``lanes`` lanes of ``b`` banks: none up to
+    LANE_THREADS banks."""
+    if b <= LANE_THREADS:
+        return None
+    return torch.empty((lanes * b * SCRATCH_PER_BANK,), dtype=torch.uint8,
+                       device=device)
 
 
 def _check_abi(topo, bank_rows, resp_buf, rp_mat, bounds, scal, lanes):
@@ -126,11 +139,9 @@ def fused_step_cuda(topo: Topology, bank_rows: torch.Tensor,
                        rp=rp_mat, bounds=bounds, scal=scal)
     s = _check_abi(topo, bank_rows, resp_buf, rp_mat, bounds, scal, lanes)
     b = topo.num_banks
-    if b > MAX_LANE_BANKS:
-        raise ValueError(f"fused_step: {b} banks a lane exceed the "
-                         f"{MAX_LANE_BANKS} threads of one CTA")
     lib = build.load()["fused"]
     dev = bank_rows.device
+    scratch = _scratch(b, lanes, dev)
     bank2 = torch.empty((NUM_BANK_ROWS_OUT, lanes * b), dtype=I32,
                         device=dev)
     resp2 = torch.empty_like(resp_buf)
@@ -139,7 +150,9 @@ def fused_step_cuda(topo: Topology, bank_rows: torch.Tensor,
     err = lib.fused_step_launch(
         bank_rows.data_ptr(), resp_buf.data_ptr(), rp_mat.data_ptr(),
         bounds.data_ptr(), scal.data_ptr(), bank2.data_ptr(),
-        resp2.data_ptr(), scal2.data_ptr(), lanes, b,
+        resp2.data_ptr(), scal2.data_ptr(),
+        0 if scratch is None else scratch.data_ptr(), SCRATCH_PER_BANK,
+        lanes, b,
         resp_buf.shape[0] // lanes, s, topo.tiers,
         topo.tier_split_bank if topo.tiers > 1 else b, topo.channels,
         topo.banks_per_channel, topo.banks_per_rank, topo.queue_size,
@@ -382,14 +395,15 @@ _PTR_FIELDS = (
     "t_admit", "t_dispatch", "t_start", "t_complete", "rdata",
     "cmd_counts", "sref_cycles", "active_cycles", "idle_cycles",
     "seg_cycles", "tier_active_cycles", "tier_idle_cycles",
-    "tier_sref_cycles", "blocked_arrival", "blocked_dispatch", "out")
+    "tier_sref_cycles", "blocked_arrival", "blocked_dispatch", "out",
+    "scratch")
 _INT_FIELDS = (
     # AddrGeometry (csrc/addr_decode.cuh)
     "banks_per_group", "bankgroups", "ranks", "channels", "bank_bits",
     "bankgroup_bits", "rank_bits", "row_shift", "dram_channels",
     "cxl_channels", "num_banks",
     "n", "q_cap", "req_cap", "resp_cap", "S", "T", "tier_split",
-    "mem_words", "t", "t_end", "budget")
+    "mem_words", "t", "t_end", "t_stop", "budget", "scratch_per_bank")
 
 
 class _RunArgs(ctypes.Structure):
@@ -399,11 +413,39 @@ class _RunArgs(ctypes.Structure):
                 + [(f, ctypes.c_int) for f in _INT_FIELDS])
 
 
-def _run_tensors(view, trace, state, out) -> dict:
-    """The tensors of ``_PTR_FIELDS``, by name."""
+#: bytes of the parameter schedule (rows, bounds, segment counters) a
+#: persistent launch holds in shared memory at most: a longer schedule runs
+#: in launches over slices of it, each ending at a boundary
+SCHEDULE_SLICE_BYTES = 64 * 1024
+
+
+def _schedule_slice(topo: Topology, view, state, t: int):
+    """``(bounds, rp rows, seg_cycles, stop)`` of a launch from clock ``t``:
+    the whole schedule and no stop, or, for one of more than
+    SCHEDULE_SLICE_BYTES, its segments from the one of ``t``, ``stop`` the
+    boundary of the last but one. Every step of the launch (t < stop), the
+    cycle after it and the boundary after that then resolve in the slice."""
     bounds, rp_mat = view.packed
+    seg = state.counters["seg_cycles"]
+    s = view.num_segments
+    per_seg = (topo.tiers * NUM_RUNTIME_PARAMS + 2) * 4
+    if s * per_seg <= SCHEDULE_SLICE_BYTES:
+        return bounds, rp_mat, seg, None
+    w = SCHEDULE_SLICE_BYTES // per_seg - 2   # segments a launch runs in
+    s0 = view.segment_at(t)
+    hi = min(s, s0 + w + 2)
+    rows = rp_mat.reshape(topo.tiers, s, NUM_RUNTIME_PARAMS)[:, s0:hi]
+    stop = view.bounds[s0 + w] if s0 + w < s else None
+    return (bounds[s0:hi], rows.reshape(-1, NUM_RUNTIME_PARAMS).contiguous(),
+            seg[s0:], stop)
+
+
+def _run_tensors(topo: Topology, view, trace, state, out, t: int):
+    """The tensors of ``_PTR_FIELDS`` but the scratch, by name (the
+    schedule's slice of a launch from clock ``t``), and its stop."""
+    bounds, rp_mat, seg, stop = _schedule_slice(topo, view, state, t)
     c = state.counters
-    t = {"tr_t": trace.t, "tr_addr": trace.addr, "tr_write": trace.is_write,
+    ten = {"tr_t": trace.t, "tr_addr": trace.addr, "tr_write": trace.is_write,
          "tr_data": trace.wdata, "rp": rp_mat, "bounds": bounds,
          "next_arrival": state.next_arrival,
          "req_buf": state.req_q.buf, "req_head": state.req_q.head,
@@ -420,47 +462,72 @@ def _run_tensors(view, trace, state, out) -> dict:
          "t_complete": state.t_complete, "rdata": state.rdata,
          "blocked_arrival": state.blocked_arrival,
          "blocked_dispatch": state.blocked_dispatch, "out": out}
-    t.update({f"reg{i}": x for i, x in enumerate(state.bank)})
-    t.update({k: c[k] for k in ("cmd_counts", "sref_cycles", "active_cycles",
-                                "idle_cycles", "seg_cycles",
-                                "tier_active_cycles", "tier_idle_cycles",
-                                "tier_sref_cycles")})
-    return t
+    ten.update({f"reg{i}": x for i, x in enumerate(state.bank)})
+    ten.update({k: c[k] for k in ("cmd_counts", "sref_cycles", "active_cycles",
+                                "idle_cycles", "tier_active_cycles",
+                                "tier_idle_cycles", "tier_sref_cycles")})
+    ten["seg_cycles"] = seg
+    return ten, stop
+
+
+def _run_args(topo: Topology, trace, state, tensors, t: int, t_end: int,
+              t_stop: int, budget: int, scratch=None) -> _RunArgs:
+    geo = dict(banks_per_group=topo.banks_per_group,
+               bankgroups=topo.bankgroups, ranks=topo.ranks,
+               channels=topo.channels, bank_bits=topo.bank_bits,
+               bankgroup_bits=topo.bankgroup_bits, rank_bits=topo.rank_bits,
+               row_shift=topo.row_shift, dram_channels=topo.dram_channels,
+               cxl_channels=topo.cxl_channels, num_banks=topo.num_banks)
+    return _RunArgs(
+        **{k: v.data_ptr() for k, v in tensors.items()}, **geo,
+        scratch=0 if scratch is None else scratch.data_ptr(),
+        scratch_per_bank=SCRATCH_PER_BANK,
+        n=trace.num_requests, q_cap=state.bank_q.capacity,
+        req_cap=state.req_q.capacity, resp_cap=state.resp_q.capacity,
+        S=tensors["bounds"].shape[0], T=topo.tiers,
+        tier_split=topo.tier_split_bank, mem_words=topo.mem_words,
+        t=int(t), t_end=int(t_end), t_stop=int(t_stop), budget=budget)
+
+
+#: what a persistent launch may keep in place in device memory, in the order
+#: it gives up shared memory (csrc/fused.cu DEV_*)
+RUN_PLACEMENT = ("bank-queue rings", "response ring", "request ring",
+                 "bank-queue heads and counts")
+
+
+def fused_run_placement(topo: Topology, view, trace, state) -> Tuple[str, ...]:
+    """The parts of a ``SimState`` that a ``fused_run_cuda`` launch keeps
+    in device memory (the rest goes to the block's shared memory)."""
+    out = torch.empty((2,), dtype=I32, device=state.mem.device)
+    tensors, _ = _run_tensors(topo, view, trace, state, out, 0)
+    build.require_cuda("fused_run", **tensors)
+    args = _run_args(topo, trace, state, tensors, 0, 1, 1, 1)
+    bits = build.load()["fused"].fused_run_placement_query(
+        ctypes.byref(args))
+    return tuple(p for i, p in enumerate(RUN_PLACEMENT) if bits >> i & 1)
 
 
 def fused_run_cuda(topo: Topology, view, trace, state, t: int, t_end: int,
                    budget: Optional[int] = None) -> Tuple[int, int]:
     """Launch the persistent K3 on a ``SimState`` on the card: executed
     steps from clock ``t`` until ``t_end`` (the horizon) or ``budget``
-    steps, in place. Returns ``(t, steps)`` (one host read)."""
+    steps, in place (a schedule longer than a launch holds also ends the
+    launch at the end of its slice). Returns ``(t, steps)`` (one host
+    read)."""
     budget = DEFAULT_RUN_BUDGET if budget is None else int(budget)
     if budget < 1:
         raise ValueError(f"fused_run: budget={budget} must be >= 1")
-    b = topo.num_banks
-    if b > MAX_LANE_BANKS:
-        raise ValueError(f"fused_run: {b} banks exceed the "
-                         f"{MAX_LANE_BANKS} threads of one CTA")
-    n = trace.num_requests
-    if n < 1:
+    if trace.num_requests < 1:
         raise ValueError("fused_run: the trace holds no request")
     out = torch.empty((2,), dtype=I32, device=state.mem.device)
-    tensors = _run_tensors(view, trace, state, out)
+    tensors, stop = _run_tensors(topo, view, trace, state, out, t)
     build.require_cuda("fused_run", **tensors)
     if t >= t_end:
         return t, 0
-    s = view.num_segments
-    geo = dict(banks_per_group=topo.banks_per_group,
-               bankgroups=topo.bankgroups, ranks=topo.ranks,
-               channels=topo.channels, bank_bits=topo.bank_bits,
-               bankgroup_bits=topo.bankgroup_bits, rank_bits=topo.rank_bits,
-               row_shift=topo.row_shift, dram_channels=topo.dram_channels,
-               cxl_channels=topo.cxl_channels, num_banks=b)
-    args = _RunArgs(
-        **{k: v.data_ptr() for k, v in tensors.items()}, **geo, n=n,
-        q_cap=state.bank_q.capacity, req_cap=state.req_q.capacity,
-        resp_cap=state.resp_q.capacity, S=s, T=topo.tiers,
-        tier_split=topo.tier_split_bank, mem_words=topo.mem_words,
-        t=int(t), t_end=int(t_end), budget=budget)
+    scratch = _scratch(topo.num_banks, 1, out.device)
+    t_stop = t_end if stop is None else min(t_end, stop)
+    args = _run_args(topo, trace, state, tensors, t, t_end, t_stop, budget,
+                     scratch)
     lib = build.load()["fused"]
     err = lib.fused_run_launch(ctypes.byref(args), build.stream_of(out))
     build.check(err, "fused_run")

@@ -42,8 +42,9 @@ _ENTRY_POINTS = {
         "bank_event_bound_launch": [_P] * 5 + [_I] * 4 + [_P],
     },
     "fused": {
-        "fused_step_launch": [_P] * 8 + [_I] * 11 + [_P],
+        "fused_step_launch": [_P] * 9 + [_I] * 12 + [_P],
         "fused_run_launch": [_P] * 2,
+        "fused_run_placement_query": [_P],
     },
     "decode_attention": {
         "decode_attention_launch": [_P] * 8 + [_I] * 8 + [_P],
@@ -56,6 +57,9 @@ _ENTRY_POINTS = {
     },
     "selective_scan": {
         "selective_scan_launch": [_P] * 7 + [_I] * 5 + [_P],
+        "selective_scan_config": [_P],
+        "selective_scan_sweep_launch": [_P] * 7 + [_I] * 6 + [_P],
+        "selective_scan_sweep_configs": [_P, _I],
     },
 }
 

@@ -5,15 +5,18 @@ it runs its plain version ``fused_run_plain``:
   ``repro.core.simulate_fast``, every ``SimResult`` field, the counters,
   the blocked totals and the executed steps: a constant point, the
   3-segment DVFS schedule with an FR-FCFS segment, a two-tier DRAM + CXL
-  topology, and runtime queue limits below capacity with a respQueue small
-  enough to block;
+  topology, runtime queue limits below capacity with a respQueue small
+  enough to block, a lane of 2048 banks (two banks a kernel thread on the
+  card) and queues of 8192 (rings in device memory on the card);
 * a run cut into launches of 1 and 7 steps is the same run: the final
   ``SimState`` equals the one-launch run's, every leaf;
 * ``_run_step_mirror``, the CUDA kernel's step written per bank thread in
   the kernel's stage order, against JAX ``fused_cycle_step`` +
   ``engine._apply_skip`` (and against ``fused_run_plain`` with a budget of
   one step) on random states, so that an ordering slip in the kernel's
-  design shows on the CPU.
+  design shows on the CPU; with k banks a thread (k in {1, 2, 4}) its
+  cross-bank reductions run as the kernel's do, over each thread's k
+  slots first and then over the threads.
 """
 
 import numpy as np
@@ -82,6 +85,28 @@ def _case(name):
         tp = tiered_params(RuntimeParams(), RuntimeParams(**_SLOW_CXL))
         return JaxConfig(**kw), MemSimConfig(**kw), jtr, jp, tp, None, \
             None, 800
+    if name == "banks_2048":
+        # 2 channels x 2 ranks x 16 bank groups x 32 banks, a random trace
+        # over every bank; the card runs it two banks a thread
+        kw = dict(queue_size=4, resp_queue_size=16, channels=2, ranks=2,
+                  bankgroups=16, banks_per_group=32)
+        topo = MemSimConfig(**kw).topology()
+        rng = np.random.default_rng(16)
+        n = 48
+        bank = rng.integers(0, topo.num_banks, n)
+        addr = ((rng.integers(0, 4, n) << topo.row_shift)
+                | (rng.integers(0, 3, n) << topo.addr_low_bits) | bank)
+        jtr = JaxTrace(*[jnp.asarray(v, jnp.int32) for v in (
+            np.sort(rng.integers(0, 150, n)), addr, rng.integers(0, 3, n) == 0,
+            rng.integers(0, 1 << 20, n))])
+        return JaxConfig(**kw), MemSimConfig(**kw), jtr, None, None, None, \
+            None, 400
+    if name == "queues_8192":
+        # bank queues and respQueue of 8192: past the shared memory of one
+        # CTA, so the card keeps the rings in device memory
+        kw = dict(queue_size=8192, resp_queue_size=8192)
+        return JaxConfig(**kw), MemSimConfig(**kw), jtr, None, None, None, \
+            None, 1_500
     # runtime limits below capacity (queues of 3, a respQueue of 2) under
     # two arrivals a cycle aimed at four banks: admission and dispatch stall
     i = np.arange(64)
@@ -93,7 +118,8 @@ def _case(name):
 
 
 @pytest.mark.parametrize("name", ["constant", "dvfs_frfcfs", "two_tier",
-                                  "small_queues"])
+                                  "small_queues", "banks_2048",
+                                  "queues_8192"])
 def test_fused_run_matches_reference(name):
     jcfg, cfg, jtr, jp, tp, q, rq, cycles = _case(name)
     jt, tt = {}, {}
@@ -147,6 +173,7 @@ def test_budgets_cut_the_same_run():
 
 _WAIT = (2, 6, 8, 10, 12)  # REF_WAIT, SREF_EXIT_WAIT, ACT/RW/PRE_WAIT
 _INF = 0x3FFFFFFF
+_INT_MAX = (1 << 31) - 1
 _NEG = -(1 << 20)
 
 
@@ -254,10 +281,34 @@ _RP = ("tRP", "tFAW", "tRRDL", "tRCDRD", "tRCDWR", "tCCDL", "tWTR", "tRFC",
        "sched_policy", "tier_interleave_log2", "tier_cxl_frac_log2")
 
 
-def _run_step_mirror(topo, rp, bnd, tr, flat, t, t_end):
+def _group_min_k(v, k, g):
+    """csrc/fused.cu ``group_min_k`` over a lane whose threads hold k
+    consecutive banks each: v[b] becomes the min over b's aligned group of
+    g banks, first over each thread's slots (a running min within each
+    group, then the group's last slot copied back), then over the g / k
+    threads of a group wider than k."""
+    v = list(v)
+    for t0 in range(0, len(v), k):
+        s = v[t0:t0 + k]
+        for j in range(1, k):
+            if j & (g - 1):
+                s[j] = min(s[j], s[j - 1])
+        for j in range(k - 2, -1, -1):
+            if (j + 1) & (g - 1):
+                s[j] = s[j + 1]
+        v[t0:t0 + k] = s
+    if g > k:
+        for g0 in range(0, len(v), g):
+            r = min(v[g0:g0 + g:k])
+            v[g0:g0 + g] = [r] * g
+    return v
+
+
+def _run_step_mirror(topo, rp, bnd, tr, flat, t, t_end, banks_per_thread=1):
     """One step of fused_run_kernel (csrc/fused.cu) on a flat state (the
     keys of ``interop.flatten`` of a reference state), stage by stage as
-    its threads run it. Returns (new flat state, delta)."""
+    its threads run it, each thread holding ``banks_per_thread``
+    consecutive banks. Returns (new flat state, delta)."""
     x = {k: np.array(v, dtype=np.int64) for k, v in flat.items()}
     B, C, T = topo.num_banks, topo.channels, topo.tiers
     per, bpr, rs = topo.banks_per_channel, topo.banks_per_rank, topo.row_shift
@@ -329,7 +380,8 @@ def _run_step_mirror(topo, rp, bnd, tr, flat, t, t_end):
             continue
         q[[h, pos]] = q[[pos, h]]
 
-    # ---- 3: cycle_core ------------------------------------------------------
+    # ---- 3: cycle_core, each reduction over every thread's k slots first --
+    k = banks_per_thread
     rob = [b // bpr for b in range(B)]
     tm = [dict(la=int(x["timing.last_act"][r]),
                aw=[int(v) for v in x["timing.act_win"][r]],
@@ -343,34 +395,39 @@ def _run_step_mirror(topo, rp, bnd, tr, flat, t, t_end):
     elig = [cmds[b] != 0 and t >= legal_at(pr[b], cmds[b], tm[b]["la"],
                                             tm[b]["aw"], tm[b]["lr"],
                                             tm[b]["lw"]) for b in range(B)]
-    grant = [False] * B
-    issued = []
-    for c in range(C):
-        ptr = int(x["cmd_rr"][c])
-        banks = range(c * per, (c + 1) * per)
-        rot = {b: fmod(b - c * per - ptr, per) for b in banks}
-        m = min([rot[b] for b in banks if elig[b]], default=per)
-        cmd_w, rank_w = 0, 0
-        if m < per:
-            win = next(b for b in banks if elig[b] and rot[b] == m)
-            grant[win] = True
-            cmd_w, rank_w = cmds[win], (win - c * per) // bpr
-            x["cmd_rr"][c] = fmod(ptr + m + 1, per)
-        issued.append(cmd_w)
-        for b in banks:
-            if m < per and (b - c * per) // bpr == rank_w:
-                r = tm[b]
-                if cmd_w == 1:
-                    r["aw"][r["aw"].index(min(r["aw"]))] = t
-                    r["la"] = t
-                r["lr"] = t if cmd_w == 2 else r["lr"]
-                r["lw"] = t if cmd_w == 3 else r["lw"]
+    ptr = [int(x["cmd_rr"][b // per]) for b in range(B)]
+    rot = [fmod(b % per - ptr[b], per) for b in range(B)]
+    rank_in = [(b % per) // bpr for b in range(B)]
+    m = _group_min_k([rot[b] if elig[b] else per for b in range(B)], k, per)
+    grant = [elig[b] and rot[b] == m[b] for b in range(B)]
+    if k == 1:  # the winner's thread broadcasts (rank << 3 | cmd)
+        win = [b - b % per + fmod(ptr[b] + m[b], per) for b in range(B)]
+        won = [rank_in[w] << 3 | cmds[w] for w in win]
+    else:  # the same min-reduction over the winner alone
+        won = _group_min_k([rank_in[b] << 3 | cmds[b] if grant[b]
+                            else _INT_MAX for b in range(B)], k, per)
+    issued = [0] * C
+    for b in range(B):
+        any_g = m[b] < per
+        cmd_w, rank_w = (won[b] & 7, won[b] >> 3) if any_g else (0, 0)
+        if any_g and rank_in[b] == rank_w:
+            r = tm[b]
+            if cmd_w == 1:
+                r["aw"][r["aw"].index(min(r["aw"]))] = t
+                r["la"] = t
+            r["lr"] = t if cmd_w == 2 else r["lr"]
+            r["lw"] = t if cmd_w == 3 else r["lw"]
+        if b % per == 0:
+            issued[b // per] = cmd_w
+            x["cmd_rr"][b // per] = fmod(ptr[b] + m[b] + 1, per) if any_g \
+                else ptr[b]
     rr, rhd, rcnt = int(x["resp_rr"]), int(x["resp_q.head"]), \
         int(x["resp_q.count"])
     bids = [regs[b]["st"] == 13 and not rcnt >= int(x["resp_q.limit"])
             for b in range(B)]
-    m_r = min([fmod(b - rr, B) for b in range(B) if bids[b]], default=B)
-    acc = [bids[b] and fmod(b - rr, B) == m_r for b in range(B)]
+    key_r = [fmod(b - rr, B) if bids[b] else B for b in range(B)]
+    m_r = _group_min_k(key_r, k, B)[0]
+    acc = [bids[b] and key_r[b] == m_r for b in range(B)]
     new = []
     for b in range(B):
         pop = [int(v) for v in x["bank_q.buf"][b, qh[b]]]
@@ -390,12 +447,13 @@ def _run_step_mirror(topo, rp, bnd, tr, flat, t, t_end):
                   or (o["st"] in (0, 4) and not qc[b] > 0))
         bounds.append(w32(legal_n - nxt) if blocked
                       else event_bound(pr2[b], nxt, o))
+    per_bank = _group_min_k(bounds, k, B)[0]
     any_resp = m_r < B
     widx = fmod(rhd + rcnt, Qr)
     rcnt += any_resp
     ack = rcnt > 0
     nb = min([int(v) for v in bnd if v > nxt], default=_INF)
-    b_val = min(min(bounds), arrival_rel, w32(t_end - nxt), w32(nb - nxt))
+    b_val = min(per_bank, arrival_rel, w32(t_end - nxt), w32(nb - nxt))
     maybe = rc == 0 and rcnt - ack == 0
     delta = max(b_val, 0) if maybe and inert else 0
 
@@ -554,18 +612,12 @@ def _unflatten(template, flat, prefix=""):
     return jnp.asarray(flat[prefix[:-1]], jnp.int32)
 
 
-@pytest.mark.parametrize("tiered", [False, True], ids=["table1", "two_tier"])
-def test_kernel_step_order_matches_reference(tiered):
-    rng = np.random.default_rng(15 + tiered)
-    kw = dict(queue_size=8, resp_queue_size=8, **(_TIERED if tiered else {}))
+def _check_step_order(rng, kw, jsched, banks_per_thread=1):
+    """Six random states (every other one quiet, so that it may skip) of
+    the topology ``kw``: the mirror's step against JAX's, and the port's
+    plain loop with a budget of one step against both."""
     jcfg = JaxConfig(**kw)
     topo = MemSimConfig(**kw).topology()
-    if tiered:
-        open_fr = dict(page_policy=1, sched_policy=1)
-        jsched = jax_as_schedule(jax_tiered(JaxRP(**open_fr),
-                                            JaxRP(**_SLOW_CXL, **open_fr)))
-    else:
-        jsched = dvfs(jcfg)
     bounds, rp_mat = (np.asarray(v, np.int64) for v in jsched.pack())
     view = ScheduleView(topo, interop.schedule_from_numpy(bounds, rp_mat),
                         "cpu")
@@ -588,7 +640,8 @@ def test_kernel_step_order_matches_reference(tiered):
         want = interop.flatten(jax_apply_skip(jcfg.topology(), jsched,
                                               want_state, delta, t + 1))
         got, got_delta = _run_step_mirror(topo, rp_mat, bounds.reshape(-1),
-                                          tr, flat, t, t_end)
+                                          tr, flat, t, t_end,
+                                          banks_per_thread)
         assert got_delta == int(delta), case
         assert got.keys() == want.keys()
         for key in want:
@@ -605,3 +658,83 @@ def test_kernel_step_order_matches_reference(tiered):
                                           err_msg=f"port, case {case}: {key}")
         delta_pos += got_delta > 0
     assert delta_pos > 0  # some cases take the skip
+
+
+@pytest.mark.parametrize("tiered", [False, True], ids=["table1", "two_tier"])
+def test_kernel_step_order_matches_reference(tiered):
+    rng = np.random.default_rng(15 + tiered)
+    kw = dict(queue_size=8, resp_queue_size=8, **(_TIERED if tiered else {}))
+    if tiered:
+        open_fr = dict(page_policy=1, sched_policy=1)
+        jsched = jax_as_schedule(jax_tiered(JaxRP(**open_fr),
+                                            JaxRP(**_SLOW_CXL, **open_fr)))
+    else:
+        jsched = dvfs(JaxConfig(**kw))
+    _check_step_order(rng, kw, jsched)
+
+
+# channels of 32 banks (a thread's banks inside one channel, a channel
+# across threads) and of 2 banks (a thread holding whole channels)
+_LAYOUTS = {"table1": {}, "narrow_channels": dict(
+    channels=8, ranks=1, bankgroups=2, banks_per_group=1)}
+
+
+@pytest.mark.parametrize("layout", list(_LAYOUTS))
+@pytest.mark.parametrize("banks_per_thread", [2, 4])
+def test_kernel_step_order_with_banks_per_thread(banks_per_thread, layout):
+    """The kernel's form for lanes above 1024 banks (k banks a thread), at
+    small topologies: its reductions over slots, then threads, name the
+    same winners and bounds as JAX."""
+    rng = np.random.default_rng(17 + banks_per_thread)
+    kw = dict(queue_size=8, resp_queue_size=8, **_LAYOUTS[layout])
+    _check_step_order(rng, kw, dvfs(JaxConfig(**kw)), banks_per_thread)
+
+
+@pytest.mark.parametrize("tiered", [False, True], ids=["table1", "two_tier"])
+def test_schedule_slices_resolve_like_the_schedule(tiered):
+    """A schedule longer than a persistent launch holds goes to the kernel
+    in slices (``_schedule_slice``): from the segment of the launch's clock
+    t to its stop, every cycle up to stop + 1 resolves in the slice to the
+    row the whole schedule gives it, the first boundary after stop + 1 is
+    the schedule's, and the slice's segment counters are the run's."""
+    from repro_torch.core.params import NUM_RUNTIME_PARAMS, ParamSchedule
+    from repro_torch.kernels.bank_fsm.fused import _schedule_slice
+
+    kw = dict(queue_size=16, **(_TIERED if tiered else {}))
+    cfg = MemSimConfig(**kw)
+    topo = cfg.topology()
+    rng = np.random.default_rng(5)
+    s = 3000
+    base = cfg.runtime() if not tiered else tiered_params(
+        RuntimeParams(), RuntimeParams(**_SLOW_CXL))
+    vals = [torch.as_tensor(v) for v in base]
+    leaves = [v.reshape(1, *v.shape).repeat(s, *[1] * v.dim())
+              + torch.as_tensor(rng.integers(0, 4, (s, *v.shape)),
+                                dtype=v.dtype) for v in vals]
+    bounds = np.concatenate([[0], np.cumsum(rng.integers(1, 4, s - 1))])
+    sched = ParamSchedule(boundaries=torch.as_tensor(bounds, dtype=torch.int32),
+                          values=RuntimeParams(*leaves))
+    view = ScheduleView(topo, sched, "cpu")
+    state = init_state(topo, view, 4, device="cpu")
+    full_b, full_rp = view.packed
+    tiers = topo.tiers
+    seen_stops = 0
+    for t in [0, 1, int(bounds[700]) + 1, int(bounds[1500]), int(bounds[-3])]:
+        sb, rows, seg, stop = _schedule_slice(topo, view, state, t)
+        n = sb.shape[0]
+        assert n < s and rows.shape == (tiers * n, NUM_RUNTIME_PARAMS)
+        s0 = view.segment_at(t)
+        assert seg.data_ptr() == state.counters["seg_cycles"][s0:].data_ptr()
+        last = (stop if stop is not None else t + 50) + 1
+        seen_stops += stop is not None
+        for c in range(t, last + 1):
+            local = int((sb.reshape(-1) <= c).sum()) - 1
+            glob = view.segment_at(c)
+            assert local + s0 == glob
+            for tier in range(tiers):
+                assert torch.equal(rows[tier * n + local],
+                                   full_rp[tier * s + glob])
+        after = [int(b) for b in sb.reshape(-1) if b > last]
+        want = [b for b in view.bounds if b > last]
+        assert (after[:1] or [None]) == (want[:1] or [None])
+    assert seen_stops >= 3
