@@ -41,6 +41,13 @@ Phases (any failed check exits non-zero):
    cycles (budgets none and 7); each case prints its K3 launches (> 0)
    and must keep in device memory what it is built to move there; a
    mismatch names the leaf and the first clock at which the two differ;
+   then K3's per-cycle form (``fused_run(..., cycle_skip=False)``, what
+   ``simulate`` runs) against its plain version (the step of
+   ``fused_run_plain(cycle_skip=False)`` replayed from CUDA graphs), the
+   whole ``SimState`` bit for bit, steps = cycles: the four traces at 3000
+   cycles (conv2d also in launches of 7 and of 1 step), the DVFS and
+   two-tier cases, 512 banks, 2048 banks (k = 2; also launches of 7),
+   queue 16384 and the 4096-segment schedule (two launches);
 3. the main path at the paper's Table-1 size: ``simulate_fast`` (fused
    backend: persistent K3 launches, ``(t, steps)`` read once per launch)
    on the four benchmark traces at queue 128 over 100k cycles, each held
@@ -48,17 +55,23 @@ Phases (any failed check exits non-zero):
    with the Table-2 rows, executed steps, steps/s, wall seconds and the
    launches: persistent K3 launches = the host loop's launches, and no
    per-step K3, K1 or K2 launch;
-4. the per-cycle reference on the card: ``simulate`` with the fused
-   backend (per-step K3, one CUDA graph per cycle) and with the split
-   backend (K1), and ``simulate_fast`` split (K1 + K2), on conv2d at 20k
-   cycles against the golden digest, and ``simulate`` with the plain
-   backend, which must agree bit for bit;
+4. the per-cycle engine on the card: ``simulate`` with the fused backend
+   (K3's per-cycle persistent form: one launch, no per-step K3, no CUDA
+   graph captured) on conv2d at 20k cycles and on the four traces at 100k
+   against the golden digests (all fields but ``steps``), wall seconds
+   each, and on a trace with no request (``IndexError``, as the
+   reference); ``simulate`` with the split backend (K1) and
+   ``simulate_fast`` split (K1 + K2) on conv2d at 20k cycles against the
+   golden digest, and ``simulate`` with the plain backend, which must
+   agree bit for bit;
 5. kernel times at the main path's shapes: device time per launch (200
    launches replayed from CUDA graphs, timed with CUDA events) beside the
    plain version's and the bandwidth bound, and the eager call time with
-   its host launch (median of 200 calls); the persistent K3's device time
-   per executed step on each trace at 100k cycles (one launch, CUDA
-   events) beside the plain loop's time per step and the byte bound;
+   its host launch (median of 200 calls), and the launch floor (a
+   one-element int32 ``add_`` timed the same way); the persistent K3's
+   device time per executed step on each trace at 100k cycles (one launch,
+   CUDA events) beside the plain loop's time per step and the byte bound,
+   and the same per cycle for its per-cycle form;
 6. where a main-path step's time goes: a torch.profiler device trace of
    conv2d over 5000 cycles (device kernels and device time per executed
    step, device busy share) and the count of host synchronisations, at
@@ -654,10 +667,12 @@ def long_schedule(cfg, segments):
         values=RuntimeParams(*[v[idx] for v in pts])).validate()
 
 
-def run_fused(cfg, trace, cycles, params=None, budget=None, kernel=True):
-    """The fused event-horizon loop on a fresh state on the card:
-    ``fused_run_cuda`` launches (``kernel``) or ``fused_run_plain``, until
-    ``cycles``. Returns (topo, view, trace, state, steps, launches)."""
+def run_fused(cfg, trace, cycles, params=None, budget=None, kernel=True,
+              cycle_skip=True):
+    """The fused event-horizon loop (``cycle_skip=False``: its per-cycle
+    form) on a fresh state on the card: ``fused_run_cuda`` launches
+    (``kernel``) or ``fused_run_plain``, until ``cycles``. Returns (topo,
+    view, trace, state, steps, launches)."""
     from repro_torch.core.engine import _sched_i32, fused_run_plain
     from repro_torch.core.simulator import ScheduleView, init_state
     from repro_torch.kernels.bank_fsm.fused import fused_run_cuda
@@ -670,7 +685,7 @@ def run_fused(cfg, trace, cycles, params=None, budget=None, kernel=True):
     fn = fused_run_cuda if kernel else fused_run_plain
     t = steps = launches = 0
     while t < cycles:
-        t, n = fn(topo, view, tr, state, t, cycles, budget)
+        t, n = fn(topo, view, tr, state, t, cycles, budget, cycle_skip)
         steps += n
         launches += 1
     return topo, view, tr, state, steps, launches
@@ -685,7 +700,7 @@ def state_diff(a, b):
             or (x[k] != y[k]).any()]
 
 
-def first_divergence(cfg, trace, cycles, params):
+def first_divergence(cfg, trace, cycles, params, cycle_skip=True):
     """The first clock after which one kernel step and one plain step,
     taken in lockstep from reset, leave different states."""
     from repro_torch.core.engine import fused_run_plain
@@ -695,8 +710,8 @@ def first_divergence(cfg, trace, cycles, params):
     b = run_fused(cfg, trace, 0, params)[3]
     t = 0
     while t < cycles:
-        ta, _ = fused_run_cuda(topo, view, tr, a, t, cycles, 1)
-        tb, _ = fused_run_plain(topo, view, tr, b, t, cycles, 1)
+        ta, _ = fused_run_cuda(topo, view, tr, a, t, cycles, 1, cycle_skip)
+        tb, _ = fused_run_plain(topo, view, tr, b, t, cycles, 1, cycle_skip)
         bad = state_diff(a, b)
         if bad or ta != tb:
             return t, bad, (ta, tb)
@@ -794,6 +809,116 @@ def phase_fused_run():
     return 0
 
 
+def _plain_cycle(topo, view, tr, seg, state, cycle):
+    """One step of the per-cycle form's plain version (the step of
+    ``fused_run_plain(cycle_skip=False)``) at a 0-d device ``cycle``."""
+    from repro_torch.core.fused_step import fused_cycle_step
+    from repro_torch.kernels.bank_fsm.fused import fused_step_plain
+
+    new, _ = fused_cycle_step(topo, view, tr, state, cycle, cycle + 1, seg,
+                              kernel=fused_step_plain)
+    return new, None
+
+
+def run_cycle_plain(cfg, trace, cycles, params=None):
+    """The per-cycle form's plain version on a fresh state on the card,
+    until ``cycles``: its step replayed from one CUDA graph per schedule
+    segment (``core.graphs``, the same ops as the eager
+    ``fused_run_plain(cycle_skip=False)``, whose eager steps take ~8 ms
+    each), or eagerly on a schedule of more than 8 segments. Returns the
+    state."""
+    import functools
+
+    from repro_torch.core.engine import fused_run_plain
+    from repro_torch.core.graphs import StepGraphs
+
+    topo, view, tr, state, _, _ = run_fused(cfg, trace, 0, params)
+    if view.num_segments > 8:
+        fused_run_plain(topo, view, tr, state, 0, cycles, cycle_skip=False)
+        return state
+    graphs = StepGraphs(state)
+    for t in range(cycles):
+        seg = view.segment_at(t)
+        graphs.step(seg, t, functools.partial(_plain_cycle, topo, view, tr,
+                                              seg))
+    return graphs.state
+
+
+def phase_cycle_run():
+    """K3's per-cycle form (``fused_run(..., cycle_skip=False)``, what
+    ``simulate`` runs) against its plain version, the whole SimState."""
+    import torch
+    from repro_torch.core import MemSimConfig
+    from repro_torch.kernels import build
+    from repro_torch.core.params import RuntimeParams, tiered_params
+    from repro_torch.traces import BENCHMARKS, conv2d
+
+    q = 128
+    cfg = MemSimConfig(queue_size=q)
+    # (label, config, trace, params, cycles, kernel budgets)
+    cases = [(name, cfg, BENCHMARKS[name](), None, 3_000,
+              (None, 7, 1) if name == "conv2d" else (None,))
+             for name in sorted(BENCHMARKS)]
+    label, topo = big_topologies()[0]
+    big = MemSimConfig(channels=topo.channels, ranks=topo.ranks,
+                       bankgroups=topo.bankgroups,
+                       banks_per_group=topo.banks_per_group,
+                       queue_size=topo.queue_size)
+    cases += [
+        ("conv2d dvfs+frfcfs", cfg, conv2d(), dvfs_schedule(cfg), 3_000,
+         (None,)),
+        ("conv2d two-tier (64 banks)",
+         MemSimConfig(queue_size=q, channels=2, tiers=2, cxl_channels=1),
+         conv2d(), tiered_params(RuntimeParams(), RuntimeParams(
+             tRCDRD=30, tCL=24, tRFC=300, tREFI=5000)), 3_000, (None,)),
+        ("conv2d 512 banks", MemSimConfig(queue_size=q, channels=16),
+         conv2d(), None, 1_500, (None,)),
+        (f"{label}, {topo.num_banks} banks (k = 2)", big,
+         spread_trace(topo, 300, 280, topo.num_banks), None, 400, (None, 7)),
+        ("conv2d at queue 16384 / respQueue 16384",
+         MemSimConfig(queue_size=16384, resp_queue_size=16384), conv2d(),
+         None, 1_000, (None,)),
+        # a launch holds 862 one-cycle segments: two launches
+        ("conv2d on a schedule of 4096 segments", cfg, conv2d(),
+         long_schedule(cfg, 4096), 1_000, (None,)),
+    ]
+    for label, cfg, trace, params, cycles, budgets in cases:
+        t0 = time.perf_counter()
+        p_state = run_cycle_plain(cfg, trace, cycles, params)
+        torch.cuda.synchronize()  # graph replays return before they run
+        t_p = time.perf_counter() - t0
+        for budget in budgets:
+            t0 = time.perf_counter()
+            build.reset_launches()
+            *_, k_state, k_steps, k_launches = run_fused(
+                cfg, trace, cycles, params, budget, cycle_skip=False)
+            t_k = time.perf_counter() - t0
+            check(build.LAUNCHES["k3cyc"] == k_launches > 0
+                  and build.LAUNCHES["k3run"] == 0,
+                  f"{label}: per-cycle launches counted {build.LAUNCHES} "
+                  f"for {k_launches}")
+            bad = state_diff(k_state, p_state)
+            if bad or k_steps != cycles:
+                first = first_divergence(cfg, trace, cycles, params, False)
+                check(False, f"per-cycle fused_run (budget {budget}) != its "
+                      f"plain version on {label}@{cycles}: leaves {bad}, "
+                      f"steps {k_steps}; first divergence (clock, leaves, "
+                      f"next clocks) {first}")
+            if budget is not None:
+                check(k_launches == -(-cycles // budget),
+                      f"{label}: {k_launches} launches for {cycles} cycles")
+            elif "segments" in label:
+                check(k_launches > 1, f"{label}: one launch, the schedule "
+                      f"was not cut into slices")
+            else:
+                check(k_launches == 1, f"{label}: {k_launches} launches")
+            log(f"[2] per-cycle fused_run (budget {budget or 'default'}) == "
+                f"its plain version on {label}@{cycles}: whole SimState bit "
+                f"for bit, {k_steps} steps in {k_launches} launch(es) "
+                f"({t_k:.2f} s; plain {t_p:.1f} s)")
+    return 0
+
+
 def phase_main_path():
     import numpy as np
     from repro_torch import golden
@@ -836,8 +961,8 @@ def phase_main_path():
     check(launches["k3run"] == loop_launches,
           f"persistent K3 launches {launches['k3run']} != the host loop's "
           f"launches {loop_launches}")
-    check(launches["k3"] == 0 and launches["k1"] == 0
-          and launches["k2"] == 0,
+    check(launches["k3"] == 0 and launches["k3cyc"] == 0
+          and launches["k1"] == 0 and launches["k2"] == 0,
           f"the fused path launched per-step kernels: {launches}")
     log(f"[3] persistent K3 launches {launches['k3run']} = host loop "
         f"launches (one host read each); per-step K3, K1, K2 launches 0; "
@@ -848,32 +973,86 @@ def phase_main_path():
     return launches["k3run"]
 
 
+def simulate_fused(cfg, trace, cycles):
+    """``simulate`` on the fused backend on the card, with the graphs it
+    captures counted (it must capture none). Returns (result, wall s,
+    graphs captured)."""
+    from repro_torch.core import graphs, simulate
+
+    captured = []
+    capture = graphs.StepGraphs._capture
+
+    def counted(self, fn):
+        captured.append(fn)
+        return capture(self, fn)
+
+    graphs.StepGraphs._capture = counted
+    try:
+        t0 = time.perf_counter()
+        res = simulate(cfg, trace, cycles, device=DEVICE)
+        wall = time.perf_counter() - t0
+    finally:
+        graphs.StepGraphs._capture = capture
+    return res, wall, len(captured)
+
+
 def phase_per_cycle():
+    import torch
     from repro_torch import golden
     from repro_torch.core import (
         MemSimConfig, simulate, simulate_fast, simulate_ideal)
+    from repro_torch.core.simulator import Trace
     from repro_torch.kernels import build
-    from repro_torch.traces import conv2d
+    from repro_torch.traces import BENCHMARKS, conv2d
 
-    expected = golden.load()[golden.case_key("conv2d", 20_000)]
+    digests = golden.load()
+    expected = digests[golden.case_key("conv2d", 20_000)]
     trace = conv2d()
     q = golden.QUEUE_SIZE
-    ideal = simulate_ideal(MemSimConfig(queue_size=q), trace,
-                           device=DEVICE).t_complete.cpu().numpy()
+    cfg = MemSimConfig(queue_size=q)
+    ideal = simulate_ideal(cfg, trace, device=DEVICE).t_complete.cpu().numpy()
     no_steps = {k: v for k, v in expected.items() if k != "steps"}
+    # the main path: simulate (fused) in K3's per-cycle persistent form
     build.reset_launches()
-    t0 = time.perf_counter()
-    fused = simulate(MemSimConfig(queue_size=q), trace, 20_000, device=DEVICE)
-    t_fused = time.perf_counter() - t0
+    fused, t_fused, graphs = simulate_fused(cfg, trace, 20_000)
     bad = golden.mismatches(no_steps, golden.result_digest(fused, ideal))
     check(not bad, f"simulate(fused) conv2d@20000 differs from golden in "
           f"{bad}")
-    k3 = build.LAUNCHES["k3"]
-    check(k3 == 20_000, f"simulate(fused) launched K3 {k3} times for "
-          f"20000 cycles")
-    check(build.LAUNCHES["k3run"] == 0,
-          f"the per-cycle engine launched the persistent K3: "
-          f"{build.LAUNCHES}")
+    launches = dict(build.LAUNCHES)
+    check(launches["k3"] == 0 and launches["k3cyc"] == 1
+          and launches["k3run"] == 0 and graphs == 0,
+          f"simulate(fused) conv2d@20000: launches {launches}, {graphs} "
+          f"graphs captured; built for one per-cycle launch, no per-step "
+          f"K3 and no graph")
+    log(f"[4] simulate fused conv2d@20000: {t_fused:.3f} s wall, one "
+        f"per-cycle K3 launch, per-step K3 0, no graph; matches the golden "
+        f"digest")
+    for name in sorted(BENCHMARKS):
+        tr = BENCHMARKS[name]()
+        res, wall, graphs = simulate_fused(cfg, tr, 100_000)
+        ideal_n = simulate_ideal(cfg, tr, device=DEVICE).t_complete.cpu(
+            ).numpy()
+        want = {k: v for k, v in
+                digests[golden.case_key(name, 100_000)].items()
+                if k != "steps"}
+        bad = golden.mismatches(want, golden.result_digest(res, ideal_n))
+        check(not bad and graphs == 0,
+              f"simulate(fused) {name}@100000 differs from golden in {bad} "
+              f"({graphs} graphs captured)")
+        log(f"[4] simulate fused {name}@100000: {wall:.3f} s wall, matches "
+            f"the golden digest (all fields but steps)")
+    main = dict(build.LAUNCHES)
+    check(main["k3cyc"] == 1 + len(BENCHMARKS) and main["k3"] == 0
+          and main["k3run"] == 0,
+          f"simulate(fused) launches on the five runs: {main}")
+    empty = Trace(*[torch.zeros((0,), dtype=torch.int32) for _ in range(4)])
+    try:
+        simulate(cfg, empty, 100, device=DEVICE)
+        raised = False
+    except IndexError:
+        raised = True
+    check(raised, "simulate(fused) on a trace with no request did not "
+          "raise IndexError, as the reference does")
     build.reset_launches()
     t0 = time.perf_counter()
     split = simulate(MemSimConfig(queue_size=q, fsm_backend="split"),
@@ -895,19 +1074,22 @@ def phase_per_cycle():
     launches = dict(build.LAUNCHES)
     check(launches["k1"] > 0 and launches["k2"] > 0,
           f"split path did not launch K1 and K2: {launches}")
-    check(launches["k3"] == 0, f"split path launched K3: {launches}")
+    check(launches["k3"] == 0 and launches["k3cyc"] == 0,
+          f"split path launched K3: {launches}")
     t0 = time.perf_counter()
     plain = simulate(MemSimConfig(queue_size=q, fsm_backend="plain"),
                      trace, 20_000, device=DEVICE)
     t_plain = time.perf_counter() - t0
     check(golden.result_digest(plain, ideal) == got,
           "simulate(plain) on the card != simulate(split)")
-    log(f"[4] conv2d@20000: simulate fused {t_fused:.1f} s (K3 launches "
-        f"{k3}), simulate split {t_split:.1f} s, simulate plain "
+    log(f"[4] conv2d@20000: simulate fused {t_fused:.3f} s (per-cycle K3 "
+        f"launches {main['k3cyc']} over five runs, per-step K3 "
+        f"{main['k3']}), simulate split {t_split:.1f} s, simulate plain "
         f"{t_plain:.1f} s (bit-identical), simulate_fast split {t_fast:.1f} "
         f"s ({tm['steps']} steps); all match the golden digest; "
         f"K1 launches {launches['k1']}, K2 launches {launches['k2']}")
-    launches["k3"] = k3
+    launches["k3"] = main["k3"]
+    launches["k3cyc"] = main["k3cyc"]
     return launches
 
 
@@ -1019,6 +1201,14 @@ def phase_times():
             f"{call_ms * 1e3:.2f} us (plain {plain_call_ms * 1e3:.2f} us); "
             f"bound {bound_ms * 1e6:.2f} ns ({nbytes} B at 3.35 TB/s); "
             f"main-path shape B={b} S=1 T=1")
+    # the floor of a graph node: the same timing of the least kernel
+    one = torch.zeros((1,), dtype=torch.int32, device=DEVICE)
+    floor_ms = device_ms(lambda: one.add_(1))
+    out["floor"] = floor_ms
+    log(f"[5] launch floor: a one-element int32 add_ {floor_ms * 1e3:.2f} "
+        f"us/launch (20 in a graph, median replay / 20), beside k1 "
+        f"{out['k1'][0] * 1e3:.2f}, k2 {out['k2'][0] * 1e3:.2f}, per-step "
+        f"k3 {out['k3'][0] * 1e3:.2f} us")
     build.LAUNCHES.update(counted)
     return out
 
@@ -1052,7 +1242,9 @@ def phase_run_times():
     """The persistent K3 on each trace at 100k cycles: device time of its
     one launch (CUDA events) per executed step, beside the plain loop's
     wall time per step (300 steps of conv2d) and the byte bound of what
-    the launch must move (``run_bytes``)."""
+    the launch must move (``run_bytes``); then the same for its per-cycle
+    form, per cycle. Returns ({trace: skipping times}, skipping plain ms,
+    {trace: per-cycle times}, per-cycle plain ms)."""
     import torch
     from repro_torch.core import MemSimConfig
     from repro_torch.kernels import build
@@ -1092,8 +1284,39 @@ def phase_run_times():
     log(f"[5] k3run plain loop (fused_run_plain, eager on the card): "
         f"{plain_ms * 1e3:.1f} us wall per executed step (conv2d, {n} "
         f"steps)")
+    cyc = {}
+    for name in sorted(BENCHMARKS):
+        topo, view, tr, state, _, _ = run_fused(cfg, BENCHMARKS[name](), 0)
+        torch.cuda.synchronize()
+        s, e = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        s.record()
+        t, steps = fused_run_cuda(topo, view, tr, state, 0, 100_000,
+                                  cycle_skip=False)
+        e.record()
+        torch.cuda.synchronize()
+        check(t == steps == 100_000,
+              f"{name}: one per-cycle launch stopped at {t} ({steps} steps)")
+        ms = s.elapsed_time(e)
+        nbytes = run_bytes(view, tr, state)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        cyc[name] = (ms / steps, steps, ms, bound_ms / steps, nbytes)
+        log(f"[5] k3cyc {name}@100000: one per-cycle launch {ms:.3f} ms = "
+            f"{ms / steps * 1e3:.3f} us/cycle; bound {bound_ms * 1e3:.3f} us "
+            f"per launch ({nbytes} B at 3.35 TB/s) = "
+            f"{bound_ms / steps * 1e6:.3f} ns/cycle")
+    topo, view, tr, state, _, _ = run_fused(cfg, BENCHMARKS["conv2d"](), 0)
+    fused_run_plain(topo, view, tr, state, 0, 100_000, 20, False)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, n = fused_run_plain(topo, view, tr, state, 20, 100_000, 300, False)
+    torch.cuda.synchronize()
+    cyc_plain_ms = (time.perf_counter() - t0) / n * 1e3
+    log(f"[5] k3cyc plain loop (fused_run_plain(cycle_skip=False), eager on "
+        f"the card): {cyc_plain_ms * 1e3:.1f} us wall per cycle (conv2d, "
+        f"{n} cycles)")
     build.LAUNCHES.update(counted)
-    return out, plain_ms
+    return out, plain_ms, cyc, cyc_plain_ms
 
 
 def device_rows(prof):
@@ -2032,10 +2255,11 @@ def main():
         card = phase_device()
         errs = phase_kernels()
         errs["k3run"] = phase_fused_run()
+        errs["k3cyc"] = phase_cycle_run()
         k3run_launches = phase_main_path()
         split_launches = phase_per_cycle()
         times = phase_times()
-        run_times, run_plain_ms = phase_run_times()
+        run_times, run_plain_ms, cyc_times, cyc_plain_ms = phase_run_times()
         phase_trace()
         attn_errs = phase_attention_kernels()
         llm_launches = phase_serve()
@@ -2072,6 +2296,14 @@ def main():
         "replaces": ref + "fused.py:397", "launches": k3run_launches,
         "max_abs_err": errs["k3run"], "ms": ms_step, "plain_ms": run_plain_ms,
         "bound_ms": bound_step, "bound_by": "bytes", "library_ms": None})
+    # its per-cycle form (simulate), per cycle on conv2d at 100k cycles
+    ms_cyc, _, _, bound_cyc, _ = cyc_times["conv2d"]
+    kernels.append({
+        "name": "fused_run_cycle", "route": "cuda",
+        "source": src + "fused.cu", "replaces": ref + "fused.py:397",
+        "launches": split_launches["k3cyc"], "max_abs_err": errs["k3cyc"],
+        "ms": ms_cyc, "plain_ms": cyc_plain_ms, "bound_ms": bound_cyc,
+        "bound_by": "bytes", "library_ms": None})
     ref = "src/repro/kernels/"
     ms, plain_ms, bound_ms, bound_by = hybrid_times["k4"]
     kernels.append({

@@ -14,10 +14,12 @@ persistent form (:func:`fused_run`): on the card one launch of
 ``kernels.bank_fsm.fused.fused_run_cuda`` executes every step from the
 clock to the horizon (or a step budget) and the host reads ``(t, steps)``
 once per launch; on the CPU the same loop runs eagerly
-(:func:`fused_run_plain`). The other backends keep a Python loop
-on a host clock that reads one value from the device per executed cycle,
-the skip ``delta``: ``"split"`` launches K1 for the edge and K2 for the
-bound, ``"plain"`` runs PyTorch ops only.
+(:func:`fused_run_plain`). The per-cycle loop (``cycle_skip=False``, and
+``simulate``) runs the same launches in K3's per-cycle form (no skip).
+The other backends keep a Python loop on a host clock that reads one
+value from the device per executed cycle, the skip ``delta``: ``"split"``
+launches K1 for the edge and K2 for the bound, ``"plain"`` runs PyTorch
+ops only.
 """
 
 from __future__ import annotations
@@ -163,36 +165,56 @@ def _skip_step(topo, view: ScheduleView, trace: Trace, horizon: int,
 
 def fused_run_plain(topo, view: ScheduleView, trace: Trace,
                     state: SimState, t: int, t_end: int,
-                    budget: Optional[int] = None) -> Tuple[int, int]:
+                    budget: Optional[int] = None, cycle_skip: bool = True
+                    ) -> Tuple[int, int]:
     """The plain version of the persistent K3: the eager executed steps of
     the fused backend (the glue of ``core.fused_step`` around
     ``fused_step_plain``, then the skip) from clock ``t`` until ``t_end``
-    or ``budget`` steps; ``state`` is updated in place. Returns
-    ``(t, steps)``."""
+    or ``budget`` steps; ``state`` is updated in place. ``cycle_skip=False``
+    is the per-cycle form: each step's horizon is ``t + 1`` (its delta 0),
+    no skip, and ``t`` advances by 1. Returns ``(t, steps)``."""
     budget = DEFAULT_RUN_BUDGET if budget is None else int(budget)
     if budget < 1:
         raise ValueError(f"fused_run: budget={budget} must be >= 1")
     cur, steps = state, 0
     while t < t_end and steps < budget:
-        seg, seg_next = view.segment_at(t), view.segment_at(t + 1)
-        cur, delta = fused_cycle_step(topo, view, trace, cur, t, t_end, seg,
+        seg = view.segment_at(t)
+        if cycle_skip:
+            cur, delta = fused_cycle_step(topo, view, trace, cur, t, t_end,
+                                          seg, kernel=fused_step_plain)
+            cur = _apply_skip(topo, view, cur, delta, view.segment_at(t + 1))
+            t += 1 + int(delta)
+        else:
+            cur, _ = fused_cycle_step(topo, view, trace, cur, t, t + 1, seg,
                                       kernel=fused_step_plain)
-        cur = _apply_skip(topo, view, cur, delta, seg_next)
-        t += 1 + int(delta)
+            t += 1
         steps += 1
     graphs_lib.copy_into(state, cur)
     return t, steps
 
 
 def fused_run(topo, view: ScheduleView, trace: Trace, state: SimState,
-              t: int, t_end: int, budget: Optional[int] = None
-              ) -> Tuple[int, int]:
+              t: int, t_end: int, budget: Optional[int] = None,
+              cycle_skip: bool = True) -> Tuple[int, int]:
     """Executed steps of the fused backend from ``t`` until ``t_end`` or
     ``budget`` steps, in place: one launch of the persistent K3 for a state
-    on the card, its plain version for one on the CPU. Returns
-    ``(t, steps)``."""
+    on the card, its plain version for one on the CPU; ``cycle_skip=False``
+    runs its per-cycle form. Returns ``(t, steps)``."""
     run = fused_run_cuda if state.mem.is_cuda else fused_run_plain
-    return run(topo, view, trace, state, t, t_end, budget)
+    return run(topo, view, trace, state, t, t_end, budget, cycle_skip)
+
+
+def fused_cycles(topo, view: ScheduleView, trace: Trace, state: SimState,
+                 t: int, t_end: int, cycle_skip: bool) -> Tuple[int, int]:
+    """:func:`fused_run` launches from ``t`` until the horizon ``t_end``,
+    in place. Returns ``(executed steps, launches)``."""
+    steps = launches = 0
+    while t < t_end:
+        t, n = fused_run(topo, view, trace, state, t, t_end,
+                         cycle_skip=cycle_skip)
+        steps += n
+        launches += 1
+    return steps, launches
 
 
 def _run_skip_core(topo, view: ScheduleView, trace: Trace, num_cycles: int,
@@ -208,12 +230,8 @@ def _run_skip_core(topo, view: ScheduleView, trace: Trace, num_cycles: int,
     segment; the last cycle before a boundary, whose bound is taken under
     the next segment, runs eagerly)."""
     if topo.fsm_backend == "fused":
-        t, steps, launches = 0, 0, 0
-        while t < num_cycles:
-            t, n = fused_run(topo, view, trace, state, t, num_cycles)
-            steps += n
-            launches += 1
-        return state, steps, launches
+        return (state, *fused_cycles(topo, view, trace, state, 0, num_cycles,
+                                     cycle_skip=True))
     graphs = graphs_lib.graphs_for(state)
     t, steps = 0, 0
     while t < num_cycles:
@@ -237,7 +255,13 @@ def _run_skip_core(topo, view: ScheduleView, trace: Trace, num_cycles: int,
 
 def _run_scan_core(topo, view: ScheduleView, trace: Trace, num_cycles: int,
                    state: SimState) -> Tuple[SimState, int, int]:
-    """Plain per-cycle loop with runtime limits/params."""
+    """Plain per-cycle loop with runtime limits/params. Returns (final
+    state, executed steps = cycles, K3 launches): the fused backend runs
+    K3's per-cycle form (:func:`fused_run` with ``cycle_skip=False``), the
+    others :func:`run_cycles`."""
+    if topo.fsm_backend == "fused":
+        return (state, *fused_cycles(topo, view, trace, state, 0, num_cycles,
+                                     cycle_skip=False))
     return run_cycles(topo, view, trace, state, 0, num_cycles), num_cycles, 0
 
 
@@ -315,8 +339,8 @@ def simulate_fast(cfg: MemSimConfig, trace: Trace, num_cycles: int = 100_000,
     runs the plain per-cycle loop. ``timings`` (optional dict) receives
     ``compile_s`` (kernel build), ``run_s``, ``steps`` (executed cycles)
     and ``launches`` (persistent K3 launches of the fused backend's loop,
-    0 for the others). ``device=None`` runs on the CUDA card and raises
-    without one.
+    either form, 0 for the others). ``device=None`` runs on the CUDA card
+    and raises without one.
     """
     dev = resolve_device(device)
     cfg.validate()

@@ -5,10 +5,12 @@
 ``repro_torch.core.engine._next_event``. The front-end phases (trace
 admission and dispatch), the FR-FCFS promotion and the per-request
 record and memory scatters stay in PyTorch around the kernel; they are the
-same helpers ``cycle_step`` uses. The per-cycle ``simulate`` runs it with
-K3 on the card; ``engine.fused_run_plain``, the plain version of K3's
-persistent form, runs it with ``fused_step_plain`` (the card's
-``simulate_fast`` does all of this inside that persistent kernel).
+same helpers ``cycle_step`` uses. ``engine.fused_run_plain``, the plain
+version of K3's persistent form, runs it with ``fused_step_plain``, for
+``simulate_fast`` and (with ``horizon = cycle + 1``) for the per-cycle
+``simulate``; on the card both engines do all of this inside that
+persistent kernel, and ``cycle_step`` on a fused topology still runs it
+with the per-step K3.
 
 It returns ``(new_state, delta)``, ``delta`` a 0-d device tensor: the
 exact skip the unfused engine would compute, 0 unless the whole machine is

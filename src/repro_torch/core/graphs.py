@@ -1,11 +1,13 @@
 """CUDA-graph replay of one simulated cycle.
 
-On the card the cycle loops are bound by the host: an executed cycle is a
-few hundred small kernels (the PyTorch glue around K1/K2/K3), each costing
-microseconds of Python and dispatch on the host but about a microsecond on
-the device. :class:`StepGraphs` captures one cycle — the same step function
-the CPU runs eagerly — as a CUDA graph and replays it, so a cycle costs one
-graph launch on the host.
+On the card the split and plain backends' cycle loops are bound by the
+host: an executed cycle is a few hundred small kernels (the PyTorch glue
+around K1/K2), each costing microseconds of Python and dispatch on the host
+but about a microsecond on the device. (The fused backend runs both
+engines in K3's persistent form and captures no graph.)
+:class:`StepGraphs` captures one cycle — the same step function the CPU
+runs eagerly — as a CUDA graph and replays it, so a cycle costs one graph
+launch on the host.
 
 A graph is captured per schedule segment: the step bakes in what the host
 resolves per segment (the active parameters, the FR-FCFS branch, the

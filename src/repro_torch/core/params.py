@@ -26,10 +26,10 @@ port                  reference (JAX)     what runs on a CUDA tensor
 ``"plain"``           ``"jnp"``           PyTorch ops only (``fsm_update``)
 ``"split"``           ``"pallas"``        K1 ``bank_fsm_step`` + K2
                                           ``bank_event_bound`` CUDA kernels
-``"fused"`` (default) ``"fused"``         K3: ``simulate_fast`` one
-                                          persistent ``fused_run`` launch
-                                          per run, ``simulate`` one
-                                          ``fused_step`` launch per cycle
+``"fused"`` (default) ``"fused"``         K3: one persistent
+                                          ``fused_run`` launch per run,
+                                          ``simulate`` in its per-cycle
+                                          form (no skip)
 ====================  ==================  ===================================
 
 On a CPU tensor ``"split"`` and ``"fused"`` run the kernels' plain PyTorch

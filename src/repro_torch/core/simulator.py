@@ -15,15 +15,16 @@ and a Python loop over cycles the clock. Request life-cycle:
 Differences from the JAX reference, none of them visible in results:
 
 * The loop's clock is a host ``int``; the step never waits for the device
-  (the event-horizon engine reads one value per executed cycle, the skip;
-  on the fused backend it runs K3's persistent form instead, which keeps
-  the clock on the card).
+  (the event-horizon engine reads one value per executed cycle, the skip).
+  On the fused backend (the default) both engines run K3's persistent
+  form instead, which keeps the clock on the card: ``simulate`` one launch
+  of its per-cycle form per run (per 2^20 cycles and per schedule slice).
   Choices that depend only on the cycle's schedule segment (its
   parameters, the FR-FCFS branch) are taken on the host through a
-  :class:`ScheduleView`. On the card each cycle is replayed as a CUDA graph
-  (``repro_torch.core.graphs``); the step then reads the cycle from a 0-d
-  device tensor, which every function of the step accepts in place of the
-  host int.
+  :class:`ScheduleView`. On the card the split and plain backends replay
+  each cycle as a CUDA graph (``repro_torch.core.graphs``); the step then
+  reads the cycle from a 0-d device tensor, which every function of the
+  step accepts in place of the host int.
 * Large buffers are updated in place: the queue buffers, the backing store
   ``mem`` and the per-request records. ``_memory_phase`` keeps the
   reference's write order (scatter the writes, then gather the reads from
@@ -477,9 +478,16 @@ def state_to_result(cfg: MemSimConfig, trace: Trace, final: SimState,
 
 def run_cycles(topo: Topology, view: ScheduleView, trace: Trace,
                state: SimState, start: int, stop: int) -> SimState:
-    """Step ``state`` through cycles ``[start, stop)`` one edge each: on
-    the CPU eagerly, on the card by replaying one CUDA graph of
-    :func:`cycle_step` per schedule segment."""
+    """Step ``state`` through cycles ``[start, stop)`` one edge each. The
+    fused backend runs K3's persistent per-cycle form (its plain version on
+    the CPU), updating ``state`` in place; the split and plain backends
+    step :func:`cycle_step` eagerly on the CPU and, on the card, replay one
+    CUDA graph of it per schedule segment."""
+    if topo.fsm_backend == "fused":
+        from repro_torch.core.engine import fused_cycles
+
+        fused_cycles(topo, view, trace, state, start, stop, cycle_skip=False)
+        return state
     graphs = graphs_lib.graphs_for(state)
     if graphs is None:
         for cycle in range(start, stop):
@@ -499,7 +507,8 @@ def _graph_cycle(topo, view, trace, seg, state, cycle):
 def simulate(cfg: MemSimConfig, trace: Trace, num_cycles: int = 100_000,
              *, params=None, device=None) -> SimResult:
     """Run MemorySim for ``num_cycles`` over ``trace``; the reference
-    per-cycle engine (one ``cycle_step`` per clock).
+    per-cycle engine (one ``cycle_step`` per clock; on the fused backend,
+    one step of K3's per-cycle persistent form per clock).
 
     ``params`` may be a :class:`RuntimeParams` point or a
     :class:`ParamSchedule` (re-resolved every cycle); default from ``cfg``.

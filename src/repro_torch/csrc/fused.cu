@@ -62,7 +62,10 @@
 // delta > 0), the skipped cycles' counters, t += 1 + delta. `t_end` is the
 // run's horizon (the skip's bound); `t_stop` <= t_end ends a launch at a
 // schedule boundary, for a schedule longer than a launch holds (the host
-// passes slices of it, kernels/bank_fsm/fused.py).
+// passes slices of it, kernels/bank_fsm/fused.py). The per-cycle form
+// (`cycle_skip` == 0, the reference's `simulate`: one step every clock) is
+// a second instantiation with the event bound and step (6) compiled out,
+// t += 1; the host picks the form once a launch.
 //
 // What bounds it on an H100: the dependent latency chain of a step, not
 // bytes. At Table-1 size (B = 32) the lane is one warp, so every reduction
@@ -256,8 +259,9 @@ struct CycleOut {
 // b0 + nk - 1 of a lane: rp [T*S, NP] and bnd [S] are the lane's schedule,
 // cmd_ptr[j] the arbiter pointer of slot j's channel; its own slot arrays
 // come from `ar` (a copy: they live for one call). Every thread of the
-// block calls it.
-template <int K>
+// block calls it. kSkip == false is the per-cycle form: the event bound is
+// compiled out and delta is 0 (what horizon = cycle + 1 gives).
+template <int K, bool kSkip>
 __device__ __forceinline__ void cycle_core(
     const LaneGeom& g, const int* rp, const int* bnd, int b0, int nk,
     const Slots<K, int>& cmd_ptr, const CycleScal& sc,
@@ -279,7 +283,7 @@ __device__ __forceinline__ void cycle_core(
     const int b = b0 + j;
     const int tier = (g.T > 1 && b >= g.tier_split) ? 1 : 0;
     p[j] = resolve_rp(rp, bnd, g.S, tier, cycle);
-    p2[j] = resolve_rp(rp, bnd, g.S, tier, nxt);
+    if constexpr (kSkip) p2[j] = resolve_rp(rp, bnd, g.S, tier, nxt);
     const BankIn& x = in[j];
     cmd[j] = compute_cmd(x.s.st, x.s.cur_write);
     eligible[j] = cmd[j] != CMD_NOP &&
@@ -387,34 +391,39 @@ __device__ __forceinline__ void cycle_core(
              ob.o, ob.want_pop, ob.rw_done, ob.completed);
     ob.qhead2 = fmod_floor(wadd(x.qhead, ob.want_pop), g.q_cap);
     ob.qcount2 = wsub(x.qcount, ob.want_pop);
-    const BankRegs& o = ob.o;
-    const int local = event_bound(p2[j], nxt, o.st, o.timer, o.idle_ctr,
-                                  o.refresh_due);
-    const int cmd_n = compute_cmd(o.st, o.cur_write);
-    const int legal_n = legal_at(p2[j], cmd_n, ob.la, ob.aw0, ob.aw1, ob.aw2,
-                                 ob.aw3, ob.lr, ob.lw);
-    const bool blocked_n = cmd_n != CMD_NOP && !(nxt >= legal_n);
-    const bool inert =
-        in_wait_state(o.st) || blocked_n ||
-        ((o.st == S_IDLE || o.st == S_SREF) && !(ob.qcount2 > 0));
-    inert_all = inert_all && inert;
-    pb[j] = blocked_n ? wsub(legal_n, nxt) : local;
+    if constexpr (kSkip) {
+      const BankRegs& o = ob.o;
+      const int local = event_bound(p2[j], nxt, o.st, o.timer, o.idle_ctr,
+                                    o.refresh_due);
+      const int cmd_n = compute_cmd(o.st, o.cur_write);
+      const int legal_n = legal_at(p2[j], cmd_n, ob.la, ob.aw0, ob.aw1,
+                                   ob.aw2, ob.aw3, ob.lr, ob.lw);
+      const bool blocked_n = cmd_n != CMD_NOP && !(nxt >= legal_n);
+      const bool inert =
+          in_wait_state(o.st) || blocked_n ||
+          ((o.st == S_IDLE || o.st == S_SREF) && !(ob.qcount2 > 0));
+      inert_all = inert_all && inert;
+      pb[j] = blocked_n ? wsub(legal_n, nxt) : local;
+    }
   }
-  const bool gate = lane_all(inert_all);
-  group_min_k<K>(pb, nk, g.B, sh);
-  const int per_bank = pb[0];
 
   // ---- phase 7: flow-through respQueue ack (pop of the post-push queue) --
   co.ack = resp_count1 > 0;
   const int resp_count2 = wsub(resp_count1, co.ack);
-  // the next schedule boundary is an event (ParamSchedule.next_boundary)
-  int nb = SCHEDULE_INF;
-  for (int q = 0; q < g.S; ++q)
-    if (bnd[q] > nxt) nb = min(nb, bnd[q]);
-  int b_val = min(min(per_bank, sc.arrival_rel), wsub(sc.horizon, nxt));
-  b_val = min(b_val, wsub(nb, nxt));
-  const bool maybe = sc.req_count == 0 && resp_count2 == 0;
-  co.delta = (maybe && gate) ? max(b_val, 0) : 0;
+  co.delta = 0;
+  if constexpr (kSkip) {
+    const bool gate = lane_all(inert_all);
+    group_min_k<K>(pb, nk, g.B, sh);
+    const int per_bank = pb[0];
+    // the next schedule boundary is an event (ParamSchedule.next_boundary)
+    int nb = SCHEDULE_INF;
+    for (int q = 0; q < g.S; ++q)
+      if (bnd[q] > nxt) nb = min(nb, bnd[q]);
+    int b_val = min(min(per_bank, sc.arrival_rel), wsub(sc.horizon, nxt));
+    b_val = min(b_val, wsub(nb, nxt));
+    const bool maybe = sc.req_count == 0 && resp_count2 == 0;
+    co.delta = (maybe && gate) ? max(b_val, 0) : 0;
+  }
   co.resp_rr = any_resp ? fmod_floor(wadd(wadd(sc.resp_rr, mr), 1), g.B)
                         : sc.resp_rr;
   co.resp_head = fmod_floor(wadd(sc.resp_head, co.ack), g.Qr);
@@ -472,8 +481,9 @@ __global__ void __launch_bounds__(kThreads) fused_step_kernel(
 
   auto out = slots<K, BankOut>(ar);
   CycleOut co;
-  cycle_core<K>(g, rp + lane * T * S * NUM_RUNTIME_PARAMS, bounds + lane * S,
-                b0, nk, cmd_ptr, cs, in, sh, out, co, ar);
+  cycle_core<K, true>(g, rp + lane * T * S * NUM_RUNTIME_PARAMS,
+                      bounds + lane * S, b0, nk, cmd_ptr, cs, in, sh, out,
+                      co, ar);
 
 #pragma unroll
   for (int j = 0; j < nk; ++j) {
@@ -578,6 +588,7 @@ struct FusedRunArgs {
   AddrGeometry geo;
   int n, q_cap, req_cap, resp_cap, S, T, tier_split, mem_words;
   int t, t_end, t_stop, budget, scratch_per_bank;
+  int cycle_skip;  // 0: the per-cycle form (every clock a step, no skip)
 };
 
 struct TraceEntry {
@@ -688,7 +699,7 @@ __device__ __forceinline__ void add_tier_counts(int* cnt, int S, int T,
 #define DEV_REQ_RING 4
 #define DEV_QMETA 8
 
-template <int kThreads, int K>
+template <int kThreads, int K, bool kSkip>
 __global__ void __launch_bounds__(kThreads)
     fused_run_kernel(const FusedRunArgs a, int dev) {
   extern __shared__ int smem[];
@@ -877,7 +888,8 @@ __global__ void __launch_bounds__(kThreads)
     CycleOut co;
     auto q_sref = slots<K, bool>(sa), q_idle = slots<K, bool>(sa);
     auto q_sref1 = slots<K, bool>(sa), q_idle1 = slots<K, bool>(sa);
-    cycle_core<K>(g, rp_s, bnd_s, b0, nk, cmd_ptr, cs, in, sh, out, co, sa);
+    cycle_core<K, kSkip>(g, rp_s, bnd_s, b0, nk, cmd_ptr, cs, in, sh, out,
+                         co, sa);
 
     // ---- 4: memory phase on the pre-edge registers ------------------------
 #pragma unroll
@@ -924,12 +936,12 @@ __global__ void __launch_bounds__(kThreads)
                       idle1);
     }
 
-    // ---- 6: the skip over delta inert cycles -------------------------------
+    // ---- 6: the skip over delta inert cycles (0 in the per-cycle form) -----
     const int delta = co.delta;
     if (delta < 0) __trap();
 #pragma unroll
     for (int j = 0; j < nk; ++j) s[j] = out[j].o;
-    if (delta > 0) {
+    if (kSkip && delta > 0) {
 #pragma unroll
       for (int j = 0; j < nk; ++j) {
         if (in_wait_state(s[j].st)) s[j].timer = wsub(s[j].timer, delta);
@@ -1059,15 +1071,27 @@ static size_t run_smem(const FusedRunArgs& a, int threads, int dev) {
   return ints * sizeof(int);
 }
 
-template <int kThreads, int K>
+template <int kThreads, int K, bool kSkip>
 static int run_launch(const FusedRunArgs& a, int threads, size_t bytes,
                       int dev, cudaStream_t st) {
   const cudaError_t err = cudaFuncSetAttribute(
-      fused_run_kernel<kThreads, K>,
+      fused_run_kernel<kThreads, K, kSkip>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  fused_run_kernel<kThreads, K><<<1, threads, bytes, st>>>(a, dev);
+  fused_run_kernel<kThreads, K, kSkip><<<1, threads, bytes, st>>>(a, dev);
   return (int)cudaGetLastError();
+}
+
+// the form of a lane of B banks, k a thread: 32 threads up to 32 banks,
+// one bank a thread up to LANE_THREADS, k slots a thread above
+template <bool kSkip>
+static int run_form(const FusedRunArgs& a, int k, int threads, size_t bytes,
+                    int dev, cudaStream_t st) {
+  if (a.geo.num_banks <= 32)
+    return run_launch<32, 1, kSkip>(a, threads, bytes, dev, st);
+  if (k == 1)
+    return run_launch<LANE_THREADS, 1, kSkip>(a, threads, bytes, dev, st);
+  return run_launch<LANE_THREADS, 0, kSkip>(a, threads, bytes, dev, st);
 }
 
 // The parts a launch keeps in place in device memory (DEV_* bits): none
@@ -1112,7 +1136,7 @@ extern "C" int fused_run_launch(const void* args, void* stream) {
   size_t bytes;
   const int where = run_placement(a, threads, &bytes);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B <= 32) return run_launch<32, 1>(a, threads, bytes, where, st);
-  if (k == 1) return run_launch<LANE_THREADS, 1>(a, threads, bytes, where, st);
-  return run_launch<LANE_THREADS, 0>(a, threads, bytes, where, st);
+  // the form is chosen once a launch: no run-time branch in the step loop
+  return a.cycle_skip ? run_form<true>(a, k, threads, bytes, where, st)
+                      : run_form<false>(a, k, threads, bytes, where, st);
 }

@@ -39,14 +39,16 @@ request fields, T tiers, S schedule segments, C channels, NP = 17):
 tensors and runs ``fused_step_plain`` — the same function written with
 PyTorch ops — for CPU tensors.
 
-``fused_run`` is the persistent form of K3 that the event-horizon engine
-runs: ONE launch executes whole steps of ``simulate_fast``'s loop (the
-front end, the FR-FCFS promotion, the cycle above, the memory phase, the
-records and counters, and the skip) from the clock ``t`` to the horizon
-``t_end``, or until ``budget`` steps are spent, on the live ``SimState``
-tensors in place, and returns ``(t, steps)``: one host read per launch.
-``fused_run_cuda`` launches it; the engine owns its plain version and the
-choice between the two (``core.engine.fused_run``).
+``fused_run`` is the persistent form of K3 that the engines run: ONE
+launch executes whole steps of ``simulate_fast``'s loop (the front end, the
+FR-FCFS promotion, the cycle above, the memory phase, the records and
+counters, and the skip) from the clock ``t`` to the horizon ``t_end``, or
+until ``budget`` steps are spent, on the live ``SimState`` tensors in
+place, and returns ``(t, steps)``: one host read per launch. With
+``cycle_skip=False`` it is the per-cycle form that ``simulate`` runs: a
+step every clock, no event bound, no skip. ``fused_run_cuda`` launches it;
+the engine owns its plain version and the choice between the two
+(``core.engine.fused_run``).
 """
 
 from __future__ import annotations
@@ -403,7 +405,8 @@ _INT_FIELDS = (
     "bankgroup_bits", "rank_bits", "row_shift", "dram_channels",
     "cxl_channels", "num_banks",
     "n", "q_cap", "req_cap", "resp_cap", "S", "T", "tier_split",
-    "mem_words", "t", "t_end", "t_stop", "budget", "scratch_per_bank")
+    "mem_words", "t", "t_end", "t_stop", "budget", "scratch_per_bank",
+    "cycle_skip")
 
 
 class _RunArgs(ctypes.Structure):
@@ -471,7 +474,8 @@ def _run_tensors(topo: Topology, view, trace, state, out, t: int):
 
 
 def _run_args(topo: Topology, trace, state, tensors, t: int, t_end: int,
-              t_stop: int, budget: int, scratch=None) -> _RunArgs:
+              t_stop: int, budget: int, scratch=None,
+              cycle_skip: bool = True) -> _RunArgs:
     geo = dict(banks_per_group=topo.banks_per_group,
                bankgroups=topo.bankgroups, ranks=topo.ranks,
                channels=topo.channels, bank_bits=topo.bank_bits,
@@ -486,7 +490,8 @@ def _run_args(topo: Topology, trace, state, tensors, t: int, t_end: int,
         req_cap=state.req_q.capacity, resp_cap=state.resp_q.capacity,
         S=tensors["bounds"].shape[0], T=topo.tiers,
         tier_split=topo.tier_split_bank, mem_words=topo.mem_words,
-        t=int(t), t_end=int(t_end), t_stop=int(t_stop), budget=budget)
+        t=int(t), t_end=int(t_end), t_stop=int(t_stop), budget=budget,
+        cycle_skip=int(cycle_skip))
 
 
 #: what a persistent launch may keep in place in device memory, in the order
@@ -508,17 +513,22 @@ def fused_run_placement(topo: Topology, view, trace, state) -> Tuple[str, ...]:
 
 
 def fused_run_cuda(topo: Topology, view, trace, state, t: int, t_end: int,
-                   budget: Optional[int] = None) -> Tuple[int, int]:
+                   budget: Optional[int] = None, cycle_skip: bool = True
+                   ) -> Tuple[int, int]:
     """Launch the persistent K3 on a ``SimState`` on the card: executed
     steps from clock ``t`` until ``t_end`` (the horizon) or ``budget``
     steps, in place (a schedule longer than a launch holds also ends the
-    launch at the end of its slice). Returns ``(t, steps)`` (one host
-    read)."""
+    launch at the end of its slice). ``cycle_skip=False`` launches the
+    per-cycle form: one step every clock, counted under ``"k3cyc"``.
+    Returns ``(t, steps)`` (one host read)."""
     budget = DEFAULT_RUN_BUDGET if budget is None else int(budget)
     if budget < 1:
         raise ValueError(f"fused_run: budget={budget} must be >= 1")
     if trace.num_requests < 1:
-        raise ValueError("fused_run: the trace holds no request")
+        # what the reference does: its first read of the trace is out of
+        # bounds
+        raise IndexError("fused_run: index is out of bounds for the trace, "
+                         "which holds no request")
     out = torch.empty((2,), dtype=I32, device=state.mem.device)
     tensors, stop = _run_tensors(topo, view, trace, state, out, t)
     build.require_cuda("fused_run", **tensors)
@@ -527,10 +537,10 @@ def fused_run_cuda(topo: Topology, view, trace, state, t: int, t_end: int,
     scratch = _scratch(topo.num_banks, 1, out.device)
     t_stop = t_end if stop is None else min(t_end, stop)
     args = _run_args(topo, trace, state, tensors, t, t_end, t_stop, budget,
-                     scratch)
+                     scratch, cycle_skip)
     lib = build.load()["fused"]
     err = lib.fused_run_launch(ctypes.byref(args), build.stream_of(out))
     build.check(err, "fused_run")
-    build.LAUNCHES["k3run"] += 1
+    build.LAUNCHES["k3run" if cycle_skip else "k3cyc"] += 1
     t2, steps = out.tolist()  # the one host read of the launch
     return t2, steps

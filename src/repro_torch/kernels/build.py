@@ -25,8 +25,8 @@ from pathlib import Path
 from typing import Dict
 
 #: launches per kernel since the last :func:`reset_launches`
-LAUNCHES: Dict[str, int] = {"k1": 0, "k2": 0, "k3": 0, "k3run": 0, "k4": 0,
-                             "k5": 0, "k6": 0, "k7": 0}
+LAUNCHES: Dict[str, int] = {"k1": 0, "k2": 0, "k3": 0, "k3run": 0,
+                             "k3cyc": 0, "k4": 0, "k5": 0, "k6": 0, "k7": 0}
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"

@@ -35,6 +35,7 @@ from repro.core.params import RuntimeParams as JaxRP  # noqa: E402
 from repro.core.params import as_schedule as jax_as_schedule  # noqa: E402
 from repro.core.params import tiered_params as jax_tiered  # noqa: E402
 from repro.core.simulator import Trace as JaxTrace  # noqa: E402
+from repro.core.simulator import cycle_step as jax_cycle_step  # noqa: E402
 from repro.core.simulator import init_state as jax_init_state  # noqa: E402
 from repro.traces import BENCHMARKS as JAX_BENCHMARKS  # noqa: E402
 from repro_torch.core import MemSimConfig, simulate_fast  # noqa: E402
@@ -48,6 +49,7 @@ from test_torch_engine import assert_same, dvfs, port_trace  # noqa: E402
 # ops takes seconds a call)
 jax_fused = jax.jit(fused_cycle_step, static_argnums=0)
 jax_apply_skip = jax.jit(_apply_skip, static_argnums=0)
+jax_cycle = jax.jit(jax_cycle_step, static_argnums=0)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -136,14 +138,15 @@ def test_fused_run_matches_reference(name):
         assert got.blocked_arrival > 0 and got.blocked_dispatch > 0
 
 
-def _run_in_launches(cfg, jtr, params, cycles, budget):
+def _run_in_launches(cfg, jtr, params, cycles, budget, cycle_skip=True):
     topo = cfg.topology()
     view = ScheduleView(topo, params, "cpu")
     trace = port_trace(jtr)
     state = init_state(topo, view, trace.num_requests, 8, 12, device="cpu")
     t, steps, launches = 0, 0, 0
     while t < cycles:
-        t, n = fused_run(topo, view, trace, state, t, cycles, budget=budget)
+        t, n = fused_run(topo, view, trace, state, t, cycles, budget=budget,
+                         cycle_skip=cycle_skip)
         assert n == budget or t == cycles
         steps += n
         launches += 1
@@ -304,11 +307,13 @@ def _group_min_k(v, k, g):
     return v
 
 
-def _run_step_mirror(topo, rp, bnd, tr, flat, t, t_end, banks_per_thread=1):
+def _run_step_mirror(topo, rp, bnd, tr, flat, t, t_end, banks_per_thread=1,
+                     cycle_skip=True):
     """One step of fused_run_kernel (csrc/fused.cu) on a flat state (the
     keys of ``interop.flatten`` of a reference state), stage by stage as
     its threads run it, each thread holding ``banks_per_thread``
-    consecutive banks. Returns (new flat state, delta)."""
+    consecutive banks; ``cycle_skip=False`` is its per-cycle form, the
+    event bound compiled out (delta 0). Returns (new flat state, delta)."""
     x = {k: np.array(v, dtype=np.int64) for k, v in flat.items()}
     B, C, T = topo.num_banks, topo.channels, topo.tiers
     per, bpr, rs = topo.banks_per_channel, topo.banks_per_rank, topo.row_shift
@@ -436,26 +441,28 @@ def _run_step_mirror(topo, rp, bnd, tr, flat, t, t_end, banks_per_thread=1):
     for b in range(B):
         wp = new[b][1]
         qh[b], qc[b] = fmod(qh[b] + wp, Q), qc[b] - wp
-    inert, bounds = True, []
-    for b in range(B):
-        o = new[b][0]
-        cmd_n = compute_cmd(o["st"], o["cur_write"])
-        legal_n = legal_at(pr2[b], cmd_n, tm[b]["la"], tm[b]["aw"],
-                           tm[b]["lr"], tm[b]["lw"])
-        blocked = cmd_n != 0 and not nxt >= legal_n
-        inert &= (o["st"] in _WAIT or blocked
-                  or (o["st"] in (0, 4) and not qc[b] > 0))
-        bounds.append(w32(legal_n - nxt) if blocked
-                      else event_bound(pr2[b], nxt, o))
-    per_bank = _group_min_k(bounds, k, B)[0]
     any_resp = m_r < B
     widx = fmod(rhd + rcnt, Qr)
     rcnt += any_resp
     ack = rcnt > 0
-    nb = min([int(v) for v in bnd if v > nxt], default=_INF)
-    b_val = min(per_bank, arrival_rel, w32(t_end - nxt), w32(nb - nxt))
-    maybe = rc == 0 and rcnt - ack == 0
-    delta = max(b_val, 0) if maybe and inert else 0
+    delta = 0
+    if cycle_skip:
+        inert, bounds = True, []
+        for b in range(B):
+            o = new[b][0]
+            cmd_n = compute_cmd(o["st"], o["cur_write"])
+            legal_n = legal_at(pr2[b], cmd_n, tm[b]["la"], tm[b]["aw"],
+                               tm[b]["lr"], tm[b]["lw"])
+            blocked = cmd_n != 0 and not nxt >= legal_n
+            inert &= (o["st"] in _WAIT or blocked
+                      or (o["st"] in (0, 4) and not qc[b] > 0))
+            bounds.append(w32(legal_n - nxt) if blocked
+                          else event_bound(pr2[b], nxt, o))
+        per_bank = _group_min_k(bounds, k, B)[0]
+        nb = min([int(v) for v in bnd if v > nxt], default=_INF)
+        b_val = min(per_bank, arrival_rel, w32(t_end - nxt), w32(nb - nxt))
+        maybe = rc == 0 and rcnt - ack == 0
+        delta = max(b_val, 0) if maybe and inert else 0
 
     # ---- 4: memory phase on the pre-edge registers -------------------------
     words = topo.mem_words
@@ -612,10 +619,12 @@ def _unflatten(template, flat, prefix=""):
     return jnp.asarray(flat[prefix[:-1]], jnp.int32)
 
 
-def _check_step_order(rng, kw, jsched, banks_per_thread=1):
+def _check_step_order(rng, kw, jsched, banks_per_thread=1, cycle_skip=True):
     """Six random states (every other one quiet, so that it may skip) of
     the topology ``kw``: the mirror's step against JAX's, and the port's
-    plain loop with a budget of one step against both."""
+    plain loop with a budget of one step against both. ``cycle_skip=False``
+    holds the per-cycle form against JAX ``cycle_step`` (fused): the step
+    of ``fused_cycle_step`` with horizon ``t + 1``, no skip."""
     jcfg = JaxConfig(**kw)
     topo = MemSimConfig(**kw).topology()
     bounds, rp_mat = (np.asarray(v, np.int64) for v in jsched.pack())
@@ -635,13 +644,19 @@ def _check_step_order(rng, kw, jsched, banks_per_thread=1):
         counters = interop.flatten(template.counters, "counters.")
         flat.update({k: rng.integers(0, 1000, np.shape(v)).astype(np.int32)
                      for k, v in counters.items()})
-        want_state, delta = jax_fused(jcfg.topology(), jsched, jtrace,
-                                      _unflatten(template, flat), t, t_end)
-        want = interop.flatten(jax_apply_skip(jcfg.topology(), jsched,
-                                              want_state, delta, t + 1))
+        if cycle_skip:
+            want_state, delta = jax_fused(jcfg.topology(), jsched, jtrace,
+                                          _unflatten(template, flat), t,
+                                          t_end)
+            want = interop.flatten(jax_apply_skip(jcfg.topology(), jsched,
+                                                  want_state, delta, t + 1))
+        else:
+            delta = 0
+            want = interop.flatten(jax_cycle(jcfg.topology(), jsched, jtrace,
+                                             _unflatten(template, flat), t))
         got, got_delta = _run_step_mirror(topo, rp_mat, bounds.reshape(-1),
                                           tr, flat, t, t_end,
-                                          banks_per_thread)
+                                          banks_per_thread, cycle_skip)
         assert got_delta == int(delta), case
         assert got.keys() == want.keys()
         for key in want:
@@ -650,14 +665,15 @@ def _check_step_order(rng, kw, jsched, banks_per_thread=1):
         # the port's plain loop with a budget of one step: the same step
         state = interop.state_from_numpy(flat)
         t2, steps = fused_run(topo, view, interop.trace_from_numpy(*tr),
-                              state, t, t_end, budget=1)
+                              state, t, t_end, budget=1,
+                              cycle_skip=cycle_skip)
         assert (t2, steps) == (t + 1 + got_delta, 1)
         port = interop.state_to_numpy(state)
         for key in want:
             np.testing.assert_array_equal(port[key], want[key],
                                           err_msg=f"port, case {case}: {key}")
         delta_pos += got_delta > 0
-    assert delta_pos > 0  # some cases take the skip
+    assert (delta_pos > 0) == cycle_skip  # some cases take the skip
 
 
 @pytest.mark.parametrize("tiered", [False, True], ids=["table1", "two_tier"])
