@@ -130,7 +130,39 @@ Phases (any failed check exits non-zero):
    single PyTorch call computes either, so neither has a library time),
    K7 beside its time before the Hopper redesign, and the sweep of K7's
    shapes (lanes a channel, channels a CTA, chunk) at the prefill shape
-   and the invariant's, each held against the production kernel.
+   and the invariant's, each held against the production kernel;
+13. the lane-batched persistent K3 (``fused_run_batch_cuda``, one CTA a
+   lane; run last, after the LLM phases): against its plain version, every
+   lane's whole ``SimState`` bit for bit (sink slots stripped), in both
+   forms, on the four traces at 3000 cycles as one ragged batch (also in
+   launches of 7 steps, lanes finishing at different launches), a queue
+   sweep at capacity 2048 (bank-queue rings in device memory, asserted),
+   constant and DVFS lanes padded to three segments, two two-tier lanes,
+   two lanes of 2048 banks (k = 2; also in launches of 7) and a batch of
+   more lanes than the card holds at once (eight distinct lanes repeated,
+   so CTAs run in waves); the plain version's steps are replayed from CUDA
+   graphs (reused from phase 2 where the inputs are phase 2's), and a
+   mismatch names the first diverging lane and the clock at which that
+   lane alone first differs; then the main path through the batched entry
+   points: the Table-2 batch (``simulate_batch``, the four traces at queue
+   128 on capacity 2048, 100k cycles) against the golden batch digests and
+   the single-lane ones, the Fig 6-9 sweep (``sweep_queue_sizes``, 11
+   depths, conv2d at burst gap 18, capacity 2048) at 20k cycles against
+   its golden digests and at 100k against single-lane ``simulate_fast``
+   runs (Fig 7's rows printed), and ``sweep_grid`` grids of 132 (tRP x tCL
+   x queue_size) and 528 lanes (x page_policy x sched_policy) on conv2d at
+   100k, three lanes of each against single-lane runs; each is one launch,
+   and the lane-batched K3 is the only kernel they launch; then the time of
+   one launch of each batch (CUDA events) with its lanes, SMs busy, the
+   CTAs an SM holds (``fused_run_batch_occupancy``), executed steps/s and
+   device us per step of the longest lane, beside conv2d as a batch of one
+   lane and the single-lane kernel on the same inputs, the plain version's
+   time a step and the byte bound.
+
+``python3 chip_smoke.py --k3-step-times CHECKOUT`` runs only the
+single-lane persistent K3's time per step (four traces at 100k cycles,
+three launches each) of the port in another checkout, so that two
+checkouts compare on one card, each in its own process (A B B A).
 
 The second-to-last lines are the kernel JSON object and the card line of
 ``nvidia-smi``; the last line is ``{"ok": true, "device": {...}}``.
@@ -300,8 +332,12 @@ def phase_device():
     for name, keep in (("fused", None), ("flash_attention", None),
                        ("decode_attention", "Li128E"),
                        ("selective_scan", "scan_kernel")):
-        for fn, regs, smem, spills in ptxas_report(
-                (out_dir / f"{name}.log").read_text(), keep):
+        rows = ptxas_report((out_dir / f"{name}.log").read_text(), keep)
+        if name == "fused":
+            check(any("fused_run_batch_kernel" in r[0] for r in rows),
+                  "no lane-batched K3 (fused_run_batch_kernel) in the "
+                  "ptxas log of csrc/fused.cu")
+        for fn, regs, smem, spills in rows:
             if name == "selective_scan" and prod["name"] not in fn:
                 continue  # the sweep's shapes: not on the path
             log(f"[1] {name}: {fn}: {regs} registers, {smem} B static "
@@ -775,6 +811,7 @@ def phase_fused_run():
         *_, p_state, p_steps, _ = run_fused(cfg, trace, cycles, params,
                                             kernel=False)
         t_p = time.perf_counter() - t0
+        keep_plain(label, True, cycles, p_state, p_steps)
         topo, view, tr, state, _, _ = run_fused(cfg, trace, 0, params)
         where = fused_run_placement(topo, view, tr, state)
         check(where == placed, f"{label}: the launch keeps {where} in "
@@ -887,6 +924,7 @@ def phase_cycle_run():
         p_state = run_cycle_plain(cfg, trace, cycles, params)
         torch.cuda.synchronize()  # graph replays return before they run
         t_p = time.perf_counter() - t0
+        keep_plain(label, False, cycles, p_state, cycles)
         for budget in budgets:
             t0 = time.perf_counter()
             build.reset_launches()
@@ -1377,6 +1415,532 @@ def phase_trace():
     log(f"[6] host synchronisations: {syncs} for {steps} executed steps in "
         f"{tm['launches']} persistent K3 launch(es) (one read of (t, "
         f"steps) a launch; the rest are set-up and the result copy)")
+
+
+# ------------------------------------------------ lane-batched simulator --
+
+#: phase 2's plain final states and steps, kept where phase 13 runs a lane
+#: of the same inputs: (phase 2 label, cycle_skip, cycles) -> (SimState,
+#: steps)
+PLAIN_STATES = {}
+#: the phase 2 labels phase 13 reuses
+PLAIN_KEPT = ("conv2d", "multihead_attention", "trace_example",
+              "vector_similarity", "conv2d dvfs+frfcfs",
+              "conv2d two-tier (64 banks)")
+
+
+#: the horizon of phase 13's timed batches: the paper's
+BATCH_CYCLES = 100_000
+
+
+def keep_plain(label, cycle_skip, cycles, state, steps):
+    if label in PLAIN_KEPT or "2048 banks" in label:
+        PLAIN_STATES[(label, cycle_skip, cycles)] = (state, steps)
+
+
+def lane_inputs(spec, shared):
+    """(topology, view, trace on the card, fresh state) of a lane spec; the
+    view and trace of equal specs (``spec["key"]``) are shared."""
+    from repro_torch.core.engine import _sched_i32
+    from repro_torch.core.simulator import ScheduleView, init_state
+
+    cfg = spec["cfg"]
+    topo = cfg.topology()
+    if spec["key"] not in shared:
+        sched = _sched_i32(cfg.runtime() if spec.get("params") is None
+                           else spec["params"])
+        if spec.get("pad_to"):
+            sched = sched.pad_to(spec["pad_to"])
+        shared[spec["key"]] = (ScheduleView(topo, sched, DEVICE),
+                               spec["trace"].to(DEVICE))
+    view, tr = shared[spec["key"]]
+    state = init_state(topo, view, tr.num_requests, spec.get("q"),
+                       spec.get("r"), device=DEVICE)
+    return topo, view, tr, state
+
+
+def _plain_skip_step(topo, view, tr, horizon, seg, seg_next, state, cycle):
+    """One step of ``fused_run_plain`` (the fused step's plain version and
+    the skip) at a 0-d device ``cycle`` whose successor lies in the same
+    segment."""
+    from repro_torch.core.engine import _apply_skip
+    from repro_torch.core.fused_step import fused_cycle_step
+    from repro_torch.kernels.bank_fsm.fused import fused_step_plain
+
+    new, delta = fused_cycle_step(topo, view, tr, state, cycle, horizon, seg,
+                                  kernel=fused_step_plain)
+    return _apply_skip(topo, view, new, delta, seg_next), delta
+
+
+def run_plain_lane(lane, cycles, cycle_skip):
+    """A lane's run to ``cycles`` in the plain version of either form (the
+    steps of ``fused_run_plain``), each step replayed from a CUDA graph of
+    it (one a schedule segment; a step whose successor lies in the next
+    segment runs eagerly), as the split engine replays its steps. Returns
+    (final state, steps)."""
+    import functools
+
+    import torch
+    from repro_torch.core.graphs import StepGraphs
+
+    topo, view, tr, state = lane
+    graphs = StepGraphs(state)
+    t = steps = 0
+    while t < cycles:
+        seg = view.segment_at(t)
+        if not cycle_skip:
+            graphs.step(seg, t, functools.partial(_plain_cycle, topo, view,
+                                                  tr, seg))
+            t += 1
+        else:
+            seg_next = view.segment_at(t + 1)
+            fn = functools.partial(_plain_skip_step, topo, view, tr, cycles,
+                                   seg, seg_next)
+            if seg == seg_next:
+                t += 1 + int(graphs.step(seg, t, fn))
+                graphs.advanced_to(t)
+            else:
+                new, delta = fn(graphs.state, t)
+                graphs.adopt(new)
+                t += 1 + int(delta)
+        steps += 1
+    torch.cuda.synchronize()
+    return graphs.state, steps
+
+
+_PLAIN_LANES = {}
+
+
+def plain_lane(spec, cycles, cycle_skip):
+    """(numpy state, steps) of a lane spec's plain run, reused from phase
+    2 or computed once per spec key."""
+    from repro_torch.core import interop
+
+    reuse = spec.get("reuse", {}).get(cycle_skip)
+    if (reuse, cycle_skip, cycles) in PLAIN_STATES:
+        state, steps = PLAIN_STATES[(reuse, cycle_skip, cycles)]
+        return interop.state_to_numpy(state), steps
+    key = (spec["key"], cycle_skip, cycles)
+    if key not in _PLAIN_LANES:
+        state, steps = run_plain_lane(lane_inputs(spec, {}), cycles,
+                                      cycle_skip)
+        _PLAIN_LANES[key] = (interop.state_to_numpy(state), steps)
+    return _PLAIN_LANES[key]
+
+
+def batch_run(specs, cycles, cycle_skip=True, budget=None):
+    """The lane-batched K3 on fresh lanes of ``specs``. Returns (lanes,
+    steps of each, launches)."""
+    from repro_torch.kernels.bank_fsm.fused import fused_run_batch_cuda
+
+    shared = {}
+    lanes = [lane_inputs(s, shared) for s in specs]
+    _, steps, launches = fused_run_batch_cuda(
+        lanes[0][0], [x[1] for x in lanes], [x[2] for x in lanes],
+        [x[3] for x in lanes], cycles, budget, cycle_skip)
+    return lanes, steps, launches
+
+
+def batch_first_divergence(spec, cycles, cycle_skip):
+    """The first clock after which one step of the lane alone in the
+    lane-batched K3 and one plain step, in lockstep from reset, leave
+    different states."""
+    from repro_torch.core import interop
+    from repro_torch.core.engine import fused_run_plain
+    from repro_torch.kernels.bank_fsm.fused import fused_run_batch_cuda
+
+    topo, view, tr, a = lane_inputs(spec, {})
+    b = lane_inputs(spec, {})[3]
+    t = 0
+    while t < cycles:
+        (ta,), _, _ = fused_run_batch_cuda(topo, [view], [tr], [a], cycles,
+                                           1, cycle_skip, t=[t],
+                                           max_launches=1)
+        tb, _ = fused_run_plain(topo, view, tr, b, t, cycles, 1, cycle_skip)
+        x, y = interop.state_to_numpy(a), interop.state_to_numpy(b)
+        bad = [k for k in x if (x[k] != y[k]).any()]
+        if bad or ta != tb:
+            return t, bad, (ta, tb)
+        t = tb
+    return None
+
+
+def batch_cases(per_sm, sms):
+    """(label, lane specs, cycles, budgets, what a launch keeps in device
+    memory) of phase 13's checks against the plain version."""
+    from repro_torch.core import MemSimConfig
+    from repro_torch.core.params import RuntimeParams, tiered_params
+    from repro_torch.traces import BENCHMARKS, conv2d, trace_example
+
+    cfg = MemSimConfig(queue_size=128)
+    four = [{"cfg": cfg, "trace": BENCHMARKS[n](), "key": n,
+             "reuse": {True: n, False: n}} for n in sorted(BENCHMARKS)]
+    big = MemSimConfig(queue_size=2048)
+    over = conv2d(burst_gap=18)
+    sweep = [{"cfg": big, "trace": over, "q": q, "key": f"sweep q{q}"}
+             for q in (2, 16, 128, 512, 2048)]
+    dvfs = "conv2d dvfs+frfcfs"
+    mixed = [{"cfg": cfg, "trace": conv2d(), "pad_to": 3, "key": "const/3"},
+             {"cfg": cfg, "trace": conv2d(), "params": dvfs_schedule(cfg),
+              "key": "dvfs", "reuse": {True: dvfs, False: dvfs}},
+             {"cfg": cfg, "trace": conv2d(), "pad_to": 3, "key": "open/3",
+              "params": RuntimeParams(page_policy=1, sched_policy=1)}]
+    tiered = MemSimConfig(queue_size=128, channels=2, tiers=2,
+                          cxl_channels=1)
+    slow = RuntimeParams(tRCDRD=30, tCL=24, tRFC=300, tREFI=5000)
+    two = "conv2d two-tier (64 banks)"
+    tiers = [{"cfg": tiered, "trace": conv2d(), "key": "tiers",
+              "params": tiered_params(RuntimeParams(), slow),
+              "reuse": {True: two, False: two}},
+             {"cfg": tiered, "trace": conv2d(), "key": "tiers tCL 18",
+              "params": tiered_params(RuntimeParams(tCL=18), slow)}]
+    label, topo = big_topologies()[0]
+    wide = MemSimConfig(channels=topo.channels, ranks=topo.ranks,
+                        bankgroups=topo.bankgroups,
+                        banks_per_group=topo.banks_per_group,
+                        queue_size=topo.queue_size)
+    spread = spread_trace(topo, 300, 280, topo.num_banks)
+    k2 = [{"cfg": wide, "trace": spread, "key": "2048",
+           "reuse": {True: f"{label}, {topo.num_banks} banks",
+                     False: f"{label}, {topo.num_banks} banks (k = 2)"}},
+          {"cfg": wide, "trace": spread, "q": 4, "key": "2048 q4"}]
+    # more lanes than the card holds at once: eight distinct lanes, each
+    # repeated, so the CTAs run in waves
+    n_lanes = max(4 * sms, (per_sm + 1) * sms)
+    short = trace_example(n=150, gap=4)
+    distinct = [{"cfg": cfg, "trace": short, "q": q, "key": f"w{q}/{p}",
+                 "params": RuntimeParams(page_policy=p)}
+                for q in (8, 32, 64, 128) for p in (0, 1)]
+    waves = [distinct[i % len(distinct)] for i in range(n_lanes)]
+    return [
+        ("the four traces (ragged: 4000 to 10528 requests)", four, 3_000,
+         (None, 7), ()),
+        ("a queue sweep at capacity 2048 (conv2d, burst gap 18)", sweep, 600,
+         (None,), ("bank-queue rings",)),
+        ("mixed constant and DVFS lanes (padded to 3 segments)", mixed,
+         3_000, (None,), ()),
+        ("two-tier lanes (64 banks)", tiers, 3_000, (None,), ()),
+        ("two lanes of 2048 banks (k = 2)", k2, 400, (None, 7),
+         ("bank-queue rings",)),
+        (f"{n_lanes} lanes, {len(distinct)} distinct (waves)", waves, 1_000,
+         (None,), ()),
+    ]
+
+
+def batch_lanes(cfg, traces, qs, scheds):
+    """The lanes ``simulate_batch`` builds (padded traces, shared views,
+    fresh states on the card), for timing its launch alone."""
+    from repro_torch.core.engine import _lane_views, _pad_trace
+    from repro_torch.core.simulator import init_state
+
+    topo = cfg.topology()
+    n_max = max(t.num_requests for t in traces)
+    on_dev = {}
+    for tr in traces:
+        if id(tr) not in on_dev:
+            on_dev[id(tr)] = _pad_trace(tr, n_max).to(DEVICE)
+    trs = [on_dev[id(t)] for t in traces]
+    views = _lane_views(topo, scheds, DEVICE)
+    states = [init_state(topo, v, n_max, q, None, device=DEVICE)
+              for v, q in zip(views, qs)]
+    return topo, views, trs, states
+
+
+def grid_lanes(cfg, trace, grid, capacity):
+    """``batch_lanes`` of a ``sweep_grid``'s points."""
+    import dataclasses
+
+    from repro_torch.core.engine import _sched_i32, grid_points
+
+    pts = grid_points(grid)
+    cfgs = [dataclasses.replace(cfg, **p) for p in pts]
+    cap = dataclasses.replace(cfg, queue_size=capacity)
+    return batch_lanes(cap, [trace] * len(pts), [c.queue_size for c in cfgs],
+                       [_sched_i32(c.runtime()) for c in cfgs])
+
+
+def time_batch(label, lanes, cycles, sms, wall_s=None):
+    """Device time of one lane-batched launch of fresh ``lanes`` to
+    ``cycles`` (CUDA events), beside lanes, SMs busy, the CTAs an SM holds
+    and aggregate executed steps/s. Returns the record."""
+    import torch
+    from repro_torch.kernels.bank_fsm.fused import (
+        fused_run_batch_cuda, fused_run_batch_occupancy)
+
+    topo, views, trs, states = lanes
+    per_sm = fused_run_batch_occupancy(topo, views, trs, states)
+    torch.cuda.synchronize()
+    s, e = (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+    s.record()
+    _, steps, launches = fused_run_batch_cuda(topo, views, trs, states,
+                                              cycles)
+    e.record()
+    torch.cuda.synchronize()
+    check(launches == 1, f"{label}: {launches} launches")
+    ms = s.elapsed_time(e)
+    n = len(states)
+    rec = {"label": label, "lanes": n, "sms_busy": min(n, sms),
+           "ctas_per_sm": per_sm, "waves": -(-n // (per_sm * sms)),
+           "device_ms": ms, "max_steps": max(steps),
+           "steps_total": sum(steps),
+           "us_per_step": ms * 1e3 / max(steps),
+           "steps_per_s": sum(steps) / ms * 1e3, "wall_s": wall_s}
+    log(f"[13] {label}: {n} lanes, SMs busy {min(n, sms)} of {sms}, "
+        f"{per_sm} CTAs an SM at once ({rec['waves']} wave(s)); one launch "
+        f"{ms:.3f} ms of device time, longest lane {max(steps)} steps = "
+        f"{rec['us_per_step']:.3f} us/step, {sum(steps)} steps in all = "
+        f"{rec['steps_per_s']:.0f} steps/s"
+        + (f"; entry point {wall_s:.3f} s wall" if wall_s else ""))
+    return rec, lanes, steps
+
+
+def phase_batch():
+    """13: the lane-batched persistent K3 against its plain version, the
+    batched entry points against the golden digests and single-lane runs,
+    and their times."""
+    import dataclasses
+
+    import torch
+    from repro_torch import golden
+    from repro_torch.core import (
+        MemSimConfig, interop, simulate_batch, simulate_fast,
+        simulate_ideal, stats, sweep_grid, sweep_queue_sizes)
+    from repro_torch.core.engine import _sched_i32, fused_run_batch_plain
+    from repro_torch.kernels import build
+    from repro_torch.kernels.bank_fsm.fused import (
+        fused_run_batch_occupancy, fused_run_batch_placement, fused_run_cuda)
+    from repro_torch.traces import BENCHMARKS, conv2d
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cfg = MemSimConfig(queue_size=128)
+    probe = lane_inputs({"cfg": cfg, "trace": BENCHMARKS["conv2d"](),
+                         "key": "probe"}, {})
+    per_sm = fused_run_batch_occupancy(probe[0], [probe[1]], [probe[2]],
+                                       [probe[3]])
+    # ---- the kernel against its plain version, every lane's SimState ----
+    counted = dict(build.LAUNCHES)
+    for label, specs, cycles, budgets, placed in batch_cases(per_sm, sms):
+        topo, view, tr, state = lane_inputs(specs[0], {})
+        where = fused_run_batch_placement(topo, [view], [tr], [state])
+        check(where == placed, f"{label}: the launch keeps {where} in device "
+              f"memory, built to keep {placed}")
+        if "waves" in label:
+            check(len(specs) > per_sm * sms, f"{label}: the card holds "
+                  f"{per_sm * sms} lanes at once")
+        for cycle_skip in (True, False):
+            form = "skipping" if cycle_skip else "per-cycle"
+            t0 = time.perf_counter()
+            want = [plain_lane(s, cycles, cycle_skip) for s in specs]
+            t_p = time.perf_counter() - t0
+            for budget in budgets:
+                build.reset_launches()
+                t0 = time.perf_counter()
+                lanes, steps, launches = batch_run(specs, cycles, cycle_skip,
+                                                   budget)
+                t_k = time.perf_counter() - t0
+                check(build.LAUNCHES["k3batch"] == launches > 0
+                      and build.LAUNCHES["k3run"] == 0
+                      and build.LAUNCHES["k3cyc"] == 0,
+                      f"{label}: launches counted {build.LAUNCHES} for "
+                      f"{launches}")
+                for i, (lane, (w, w_steps)) in enumerate(zip(lanes, want)):
+                    got = interop.state_to_numpy(lane[3])
+                    bad = [k for k in w if got[k].shape != w[k].shape
+                           or (got[k] != w[k]).any()]
+                    if bad or steps[i] != w_steps:
+                        first = batch_first_divergence(specs[i], cycles,
+                                                       cycle_skip)
+                        check(False, f"lane-batched K3 ({form} form, budget "
+                              f"{budget}) != its plain version on "
+                              f"{label}@{cycles}: first diverging lane {i} "
+                              f"({specs[i]['key']}), leaves {bad}, steps "
+                              f"{steps[i]} vs {w_steps}; the lane alone in "
+                              f"lockstep diverges at (clock, leaves, next "
+                              f"clocks) {first}")
+                if budget is not None:
+                    check(launches == -(-max(steps) // budget),
+                          f"{label}: {launches} launches for "
+                          f"{max(steps)} steps")
+                else:
+                    check(launches == 1, f"{label}: {launches} launches")
+                log(f"[13] lane-batched K3 ({form}, budget "
+                    f"{budget or 'default'}) == its plain version on "
+                    f"{label}@{cycles}: every lane's SimState bit for bit, "
+                    f"steps {min(steps)}-{max(steps)}, {launches} "
+                    f"launch(es) ({t_k:.2f} s; plain {t_p:.1f} s); in "
+                    f"device memory: {', '.join(where) or 'nothing'}")
+    build.LAUNCHES.update(counted)
+
+    # ---- the main path: the batched entry points -------------------------
+    single, batch = golden.load(), golden.load_batch()
+    names = sorted(BENCHMARKS)
+    traces = [BENCHMARKS[n]() for n in names]
+    cap = golden.BATCH_CAPACITY
+    q = golden.QUEUE_SIZE
+    over = conv2d(burst_gap=golden.FIG_BURST_GAP)
+    depths = list(golden.SWEEP_F8)
+    grid132 = {"tRP": [14, 15, 16], "tCL": [14, 16, 18, 20],
+               "queue_size": depths}
+    grid528 = dict(grid132, page_policy=["closed", "open"],
+                   sched_policy=["fcfs", "frfcfs"])
+    runs = {}
+    build.reset_launches()
+
+    def entry(key, fn):
+        tm = {}
+        t0 = time.perf_counter()
+        res = fn(tm)
+        runs[key] = (res, time.perf_counter() - t0, tm)
+        check(tm["launches"] == 1, f"{key}: {tm['launches']} launches, "
+              f"built for one")
+        log(f"[13] {key}: {len(res)} lanes in {runs[key][1]:.3f} s wall: "
+            f"set-up {tm['setup_s']:.3f} s (traces, views, states), lanes "
+            f"{tm['lanes_s']:.3f} s (the launch and its read), results "
+            f"{tm['results_s']:.3f} s (copies to the host)")
+        return res
+
+    t2 = entry("table2", lambda tm: simulate_batch(
+        MemSimConfig(queue_size=cap), traces, golden.TABLE2_BATCH[1],
+        queue_sizes=[q] * len(traces), timings=tm, device=DEVICE))
+    f20 = entry("fig20k", lambda tm: sweep_queue_sizes(
+        MemSimConfig(), over, depths, golden.FIG_SWEEP[1], capacity=cap,
+        timings=tm, device=DEVICE))
+    f100 = entry("fig100k", lambda tm: sweep_queue_sizes(
+        MemSimConfig(), over, depths, BATCH_CYCLES, capacity=cap, timings=tm,
+        device=DEVICE))
+    g132 = entry("grid132", lambda tm: sweep_grid(
+        MemSimConfig(), conv2d(), grid132, BATCH_CYCLES, capacity=cap,
+        timings=tm, device=DEVICE))
+    g528 = entry("grid528", lambda tm: sweep_grid(
+        MemSimConfig(), conv2d(), grid528, BATCH_CYCLES, capacity=cap,
+        timings=tm, device=DEVICE))
+    main = dict(build.LAUNCHES)
+    check(main["k3batch"] == len(runs) and all(
+        v == 0 for k, v in main.items() if k != "k3batch"),
+          f"the batched entry points launched {main}; built for "
+          f"{len(runs)} lane-batched K3 launches and nothing else")
+
+    rows = []
+    batch_name, cycles = golden.TABLE2_BATCH
+    for name, tr, res, lane in zip(names, traces, t2,
+                                   runs["table2"][2]["per_lane"]):
+        ideal = simulate_ideal(MemSimConfig(queue_size=q), tr,
+                               device=DEVICE).t_complete.cpu().numpy()
+        got = golden.result_digest(res, ideal, lane["steps"])
+        bad = golden.mismatches(
+            batch[golden.batch_key(batch_name, name, cycles)], got)
+        bad1 = golden.mismatches(single[golden.case_key(name, cycles)], got)
+        check(not bad and not bad1, f"Table-2 batch lane {name} differs "
+              f"from the batch golden digest in {bad}, from the single-lane "
+              f"one in {bad1}")
+        rows.append((name, stats.cycle_diffs(res, ideal)))
+    log(f"[13] the Table-2 batch ({len(traces)} traces, queue {q} on "
+        f"capacity {cap}, {cycles} cycles): one launch, every lane equal to "
+        f"its golden batch digest and its single-lane digest\n"
+        + stats.format_table2(rows))
+    batch_name, cycles = golden.FIG_SWEEP
+    for d, res, lane in zip(depths, f20, runs["fig20k"][2]["per_lane"]):
+        got = golden.result_digest(res, None, lane["steps"])
+        bad = golden.mismatches(
+            batch[golden.batch_key(batch_name, f"q{d}", cycles)], got)
+        check(not bad, f"Fig sweep q{d}@{cycles} differs from the golden "
+              f"digest in {bad}")
+    log(f"[13] the Fig 6-9 sweep ({len(depths)} depths, conv2d at burst gap "
+        f"{golden.FIG_BURST_GAP}, capacity {cap}) at {cycles} cycles: one "
+        f"launch, every lane equal to its golden digest")
+    # each Fig-sweep lane at 100k against its single-lane run
+    for d, res, lane in zip(depths, f100, runs["fig100k"][2]["per_lane"]):
+        tm = {}
+        one = simulate_fast(MemSimConfig(queue_size=cap), over, BATCH_CYCLES,
+                            queue_size=d, timings=tm, device=DEVICE)
+        bad = golden.mismatches(golden.result_digest(one, None, tm["steps"]),
+                                golden.result_digest(res, None,
+                                                     lane["steps"]))
+        same_cfg = dataclasses.asdict(one.cfg) == dataclasses.asdict(res.cfg)
+        check(not bad and same_cfg, f"Fig sweep lane q{d}@{BATCH_CYCLES} != "
+              f"simulate_fast at queue {d}: {bad}, labels equal: {same_cfg}")
+    log(f"[13] Fig 7 (conv2d, burst gap 18, {BATCH_CYCLES} cycles; every "
+        f"lane equal to its single-lane simulate_fast):\n" + "\n".join(
+            f"  queue {d:5d}: read {s['read_mean']:9.2f}  write "
+            f"{s['write_mean']:9.2f}  mean {s['mean']:9.2f} cycles"
+            for d, s in ((d, stats.latency_summary(r))
+                         for d, r in zip(depths, f100))))
+    for key, res in (("grid132", g132), ("grid528", g528)):
+        per = runs[key][2]["per_lane"]
+        for i in (0, len(res) // 3, len(res) - 1):
+            tm = {}
+            c = res[i].cfg
+            one = simulate_fast(dataclasses.replace(c, queue_size=cap),
+                                conv2d(), BATCH_CYCLES,
+                                queue_size=c.queue_size, timings=tm,
+                                device=DEVICE)
+            bad = golden.mismatches(
+                golden.result_digest(one, None, tm["steps"]),
+                golden.result_digest(res[i], None, per[i]["steps"]))
+            check(not bad, f"{key} lane {i} != simulate_fast of its point: "
+                  f"{bad}")
+    log("[13] grids: lanes 0, L/3 and L-1 of each equal their single-lane "
+        "simulate_fast")
+
+    # ---- times --------------------------------------------------------------
+    counted = dict(build.LAUNCHES)
+    recs = {}
+    const = _sched_i32(MemSimConfig().runtime())
+    big = MemSimConfig(queue_size=cap)
+    recs["table2"], t2_lanes, t2_steps = time_batch(
+        f"Table-2 batch@{BATCH_CYCLES}",
+        batch_lanes(big, traces, [q] * 4, [const] * 4), BATCH_CYCLES, sms,
+        runs["table2"][1])
+    recs["fig100k"], _, _ = time_batch(
+        f"Fig sweep@{BATCH_CYCLES}",
+        batch_lanes(big, [over] * len(depths), depths,
+                    [const] * len(depths)), BATCH_CYCLES, sms,
+        runs["fig100k"][1])
+    for key, grid in (("grid132", grid132), ("grid528", grid528)):
+        axes = " x ".join(f"{k} {len(v)}" for k, v in grid.items())
+        recs[key], _, _ = time_batch(
+            f"sweep_grid {axes} on conv2d@{BATCH_CYCLES}",
+            grid_lanes(MemSimConfig(), conv2d(), grid, cap), BATCH_CYCLES,
+            sms, runs[key][1])
+    # the single lane, alone and as a batch of one, at the batch's inputs
+    for label, c in (("capacity 2048", cap), ("capacity 128", q)):
+        lanes = batch_lanes(MemSimConfig(queue_size=c), traces[:1], [q],
+                            [const])
+        time_batch(f"conv2d@{BATCH_CYCLES} as a batch of one lane, {label}",
+                   lanes, BATCH_CYCLES, sms)
+        topo, view, tr, state = lane_inputs(
+            {"cfg": MemSimConfig(queue_size=c), "trace": traces[0],
+             "q": q, "key": "one"}, {})
+        torch.cuda.synchronize()
+        s, e = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        s.record()
+        _, n = fused_run_cuda(topo, view, tr, state, 0, BATCH_CYCLES)
+        e.record()
+        torch.cuda.synchronize()
+        log(f"[13] conv2d@{BATCH_CYCLES} single-lane K3, {label}: "
+            f"{s.elapsed_time(e) * 1e3 / n:.3f} us/step ({n} steps)")
+    # the plain version of the Table-2 batch: one launch of its protocol
+    # (30 steps of every lane) on fresh lanes, after one of 5 to warm up
+    for budget in (5, 30):
+        topo, views, trs, states = batch_lanes(big, traces, [q] * 4,
+                                               [const] * 4)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fused_run_batch_plain(topo, views, trs, states, BATCH_CYCLES, budget,
+                              max_launches=1)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3 / budget
+    nbytes = sum(run_bytes(v, t, s) for v, t, s in zip(*t2_lanes[1:]))
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3 / max(t2_steps)
+    log(f"[13] the Table-2 batch's plain version (fused_run_batch_plain, "
+        f"eager on the card): {plain_ms * 1e3:.1f} us wall a step of the "
+        f"batch (every lane one step); bound {nbytes} B at 3.35 TB/s = "
+        f"{bound_ms * 1e6:.3f} ns per step of the longest lane")
+    build.LAUNCHES.update(counted)
+    return {"launches": main["k3batch"], "ms": recs["table2"]["us_per_step"]
+            / 1e3, "plain_ms": plain_ms, "bound_ms": bound_ms, "recs": recs}
 
 
 # ------------------------------------------------------- LLM serve slice --
@@ -2232,6 +2796,40 @@ def k7_sweep(gen):
             + "; ".join(cells))
 
 
+def k3_step_times():
+    """The single-lane persistent K3's device time per executed step on
+    the four traces at 100k cycles, three launches each (CUDA events), of
+    the port imported from ``sys.path``: run once per checkout, each in its
+    own process, to compare two checkouts on one card (A B B A)."""
+    import torch
+    from repro_torch.core import MemSimConfig
+    from repro_torch.core.engine import _sched_i32
+    from repro_torch.core.simulator import ScheduleView, init_state
+    from repro_torch.kernels import build
+    from repro_torch.kernels.bank_fsm.fused import fused_run_cuda
+    from repro_torch.traces import BENCHMARKS
+
+    build.load()
+    cfg = MemSimConfig(queue_size=128)
+    topo = cfg.topology()
+    view = ScheduleView(topo, _sched_i32(cfg.runtime()), DEVICE)
+    for name in sorted(BENCHMARKS):
+        tr = BENCHMARKS[name]().to(DEVICE)
+        per = []
+        for _ in range(3):
+            state = init_state(topo, view, tr.num_requests, device=DEVICE)
+            torch.cuda.synchronize()
+            s, e = (torch.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True))
+            s.record()
+            _, n = fused_run_cuda(topo, view, tr, state, 0, 100_000)
+            e.record()
+            torch.cuda.synchronize()
+            per.append(s.elapsed_time(e) * 1e3 / n)
+        log(f"k3 step times {build.CSRC.parents[2]} {name}: {n} steps, "
+            + ", ".join(f"{x:.4f}" for x in per) + " us/step")
+
+
 def main():
     try:
         import torch
@@ -2242,13 +2840,19 @@ def main():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false)", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
+    # --k3-step-times CHECKOUT: only k3_step_times, of that checkout's port
+    step_times = sys.argv[1:2] == ["--k3-step-times"] and len(sys.argv) == 3
+    root = Path(sys.argv[2]).resolve() if step_times else ROOT
+    sys.path.insert(0, str(root / "src"))
     try:
         import repro_torch  # noqa: F401
     except ImportError:
-        print(f"chip_smoke: src/repro_torch not found under {ROOT}",
+        print(f"chip_smoke: src/repro_torch not found under {root}",
               file=sys.stderr)
         return 2
+    if step_times:
+        k3_step_times()
+        return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     t_start = time.perf_counter()
     try:
@@ -2268,6 +2872,7 @@ def main():
         hybrid_launches = phase_jamba()
         k4_launches, k4_err = phase_addr_map()
         hybrid_times = phase_hybrid_times()
+        batch = phase_batch()
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2304,6 +2909,15 @@ def main():
         "launches": split_launches["k3cyc"], "max_abs_err": errs["k3cyc"],
         "ms": ms_cyc, "plain_ms": cyc_plain_ms, "bound_ms": bound_cyc,
         "bound_by": "bytes", "library_ms": None})
+    # the lane-batched persistent K3, per executed step of the longest lane
+    # of the Table-2 batch at 100k cycles
+    kernels.append({
+        "name": "fused_run_batch", "route": "cuda",
+        "source": src + "fused.cu", "replaces": ref + "fused.py:397",
+        "launches": batch["launches"], "max_abs_err": 0,
+        "ms": batch["ms"], "plain_ms": batch["plain_ms"],
+        "bound_ms": batch["bound_ms"], "bound_by": "bytes",
+        "library_ms": None})
     ref = "src/repro/kernels/"
     ms, plain_ms, bound_ms, bound_by = hybrid_times["k4"]
     kernels.append({

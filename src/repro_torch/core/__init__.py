@@ -10,7 +10,16 @@ from repro_torch.core.params import (
     as_schedule,
 )
 from repro_torch.core.simulator import SimResult, Trace, simulate
-from repro_torch.core.engine import simulate_fast
+from repro_torch.core.engine import (
+    GRID_AXES,
+    grid_points,
+    lane_schedule,
+    simulate_batch,
+    simulate_fast,
+    stack_traces,
+    sweep_grid,
+    sweep_queue_sizes,
+)
 from repro_torch.core.ideal import ideal_latencies, simulate_ideal
 from repro_torch.core import stats
 
@@ -25,6 +34,13 @@ __all__ = [
     "Trace",
     "simulate",
     "simulate_fast",
+    "simulate_batch",
+    "stack_traces",
+    "sweep_queue_sizes",
+    "GRID_AXES",
+    "lane_schedule",
+    "grid_points",
+    "sweep_grid",
     "simulate_ideal",
     "ideal_latencies",
     "stats",

@@ -1,5 +1,6 @@
-"""Event-horizon engine, single lane: PyTorch counterpart of the
-single-lane part of ``repro.core.engine``.
+"""Event-horizon engine: PyTorch counterpart of ``repro.core.engine``, the
+single lane and batches of independent lanes of one topology
+(``simulate_batch``, ``sweep_queue_sizes``, ``sweep_grid``).
 
 After every executed cycle the engine computes the distance to the next
 event — a min over per-bank bounds (WAIT expiries, blocked bids turning
@@ -20,14 +21,21 @@ The other backends keep a Python loop on a host clock that reads one
 value from the device per executed cycle, the skip ``delta``: ``"split"``
 launches K1 for the edge and K2 for the bound, ``"plain"`` runs PyTorch
 ops only.
+
+A batch on the fused backend runs every lane in launches of K3's
+lane-batched form (:func:`fused_run_batch`: one CTA a lane, each lane its
+own clock and event horizon; its plain version on the CPU); the other
+backends run a batch's lanes one after another.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import itertools
+import os
 import time
-from typing import Optional, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -62,7 +70,8 @@ from repro_torch.core.simulator import (
 )
 from repro_torch.kernels import build
 from repro_torch.kernels.bank_fsm.fused import (
-    DEFAULT_RUN_BUDGET, fused_run_cuda, fused_step_plain)
+    DEFAULT_RUN_BUDGET, fused_run_batch_cuda, fused_run_cuda,
+    fused_step_plain)
 
 _INF = 0x3FFFFFFF
 _PAD_T = 0x3FFFFFFF  # arrival time for padded trace slots: never due
@@ -202,6 +211,56 @@ def fused_run(topo, view: ScheduleView, trace: Trace, state: SimState,
     runs its per-cycle form. Returns ``(t, steps)``."""
     run = fused_run_cuda if state.mem.is_cuda else fused_run_plain
     return run(topo, view, trace, state, t, t_end, budget, cycle_skip)
+
+
+def fused_run_batch_plain(topo, views, traces, states, t_end: int,
+                          budget: Optional[int] = None,
+                          cycle_skip: bool = True, t=None,
+                          max_launches: Optional[int] = None
+                          ) -> Tuple[List[int], List[int], int]:
+    """The plain version of the lane-batched persistent K3, with its
+    launch protocol: a "launch" runs every lane that has not reached the
+    horizon ``t_end`` for at most ``budget`` steps (:func:`fused_run_plain`
+    on each lane in turn), until every lane has or ``max_launches`` have
+    run. Each lane starts at ``t[i]`` (default 0); the states are updated
+    in place. Returns (the clock of each lane, its executed steps,
+    launches)."""
+    budget = DEFAULT_RUN_BUDGET if budget is None else int(budget)
+    if budget < 1:
+        raise ValueError(f"fused_run_batch: budget={budget} must be >= 1")
+    n = len(states)
+    if len(views) != n or len(traces) != n:
+        raise ValueError("fused_run_batch: one view and one trace per state")
+    ts = [0] * n if t is None else [int(x) for x in t]
+    steps = [0] * n
+    launches = 0
+    active = [i for i in range(n) if ts[i] < t_end]
+    while active and launches != max_launches:
+        for i in active:
+            ts[i], k = fused_run_plain(topo, views[i], traces[i], states[i],
+                                       ts[i], t_end, budget, cycle_skip)
+            steps[i] += k
+        launches += 1
+        active = [i for i in active if ts[i] < t_end]
+    return ts, steps, launches
+
+
+def fused_run_batch(topo, views, traces, states, t_end: int,
+                    budget: Optional[int] = None, cycle_skip: bool = True,
+                    t=None, max_launches: Optional[int] = None
+                    ) -> Tuple[List[int], List[int], int]:
+    """Every lane (its own view, trace and state, one topology and
+    capacities) from its clock to the horizon ``t_end``, in place: launches
+    of the lane-batched persistent K3 for states on the card, its plain
+    version for states on the CPU. Returns (the clock of each lane, its
+    executed steps, launches)."""
+    on_card = {s.mem.is_cuda for s in states}
+    if len(on_card) > 1:
+        raise ValueError("fused_run_batch: lanes on the card and on the CPU")
+    run = fused_run_batch_cuda if on_card == {True} else \
+        fused_run_batch_plain
+    return run(topo, views, traces, states, t_end, budget, cycle_skip, t,
+               max_launches)
 
 
 def fused_cycles(topo, view: ScheduleView, trace: Trace, state: SimState,
@@ -372,3 +431,324 @@ def simulate_fast(cfg: MemSimConfig, trace: Trace, num_cycles: int = 100_000,
     res.cfg = dataclasses.replace(label, queue_size=int(ql),
                                   resp_queue_size=int(rl))
     return res
+
+
+# --------------------------------------------------------------------------
+# batches and sweeps: one topology a call, each lane an independent run
+
+
+def stack_traces(traces: Sequence[Trace],
+                 pad_lanes: int = 0) -> Tuple[Trace, List[int]]:
+    """Pad traces to a common length (see :func:`_pad_trace`) and stack on
+    a leading batch axis, appending ``pad_lanes`` all-sentinel lanes (see
+    :func:`_sentinel_trace`). Returns the stacked trace and the real
+    per-lane request counts (padding lanes excluded)."""
+    ns = [int(tr.num_requests) for tr in traces]
+    n_max = max(ns)
+    padded = [_pad_trace(tr, n_max) for tr in traces]
+    padded += [_sentinel_trace(n_max, traces[0].t.device)] * pad_lanes
+    stacked = Trace(*[torch.stack(xs) for xs in zip(*padded)])
+    return stacked, ns
+
+
+def _lane_views(topo, scheds: List[ParamSchedule], dev) -> List[ScheduleView]:
+    """One :class:`ScheduleView` a lane; lanes with equal schedules share
+    one."""
+    views, by_key = [], {}
+    for sc in scheds:
+        bounds, rp_mat = sc.pack()
+        key = (bounds.numpy().tobytes(), rp_mat.numpy().tobytes())
+        if key not in by_key:
+            by_key[key] = ScheduleView(topo, sc, dev)
+        views.append(by_key[key])
+    return views
+
+
+def simulate_batch(cfg: MemSimConfig,
+                   traces: Union[Trace, Sequence[Trace]],
+                   num_cycles: int = 100_000,
+                   *, queue_sizes: Optional[Sequence[int]] = None,
+                   resp_queue_sizes: Optional[Sequence[int]] = None,
+                   params=None,
+                   lane_cfgs: Optional[Sequence[MemSimConfig]] = None,
+                   cycle_skip: bool = True,
+                   shard: bool = True,
+                   batch_mode: str = "auto",
+                   timings: Optional[dict] = None,
+                   device=None) -> List[SimResult]:
+    """Run a batch of (trace, runtime-config) lanes of one topology; each
+    lane is bit-exact vs an individual :func:`simulate_fast` run at its
+    queue depths and parameter point or schedule.
+
+    ``traces`` is a list of traces (a multi-trace workload) or one trace
+    broadcast across the lanes that ``queue_sizes`` / ``params`` imply (a
+    sweep). ``cfg.queue_size`` / ``cfg.resp_queue_size`` are the static
+    capacities every lane shares; ``queue_sizes`` / ``resp_queue_sizes``
+    the lanes' runtime depths (default: capacity); ``params`` one
+    :class:`RuntimeParams` or :class:`ParamSchedule` a lane (mixed
+    constant and schedule lanes are padded to a common segment count).
+    Lanes are padded to a common request count. ``lane_cfgs`` (optional,
+    one a lane) labels each ``SimResult.cfg``; by default the label is
+    ``cfg`` with the lane's point and depths substituted.
+
+    On the fused backend (the default) every lane runs in launches of the
+    lane-batched persistent K3, one CTA a lane, each lane skipping by its
+    own event horizon (:func:`fused_run_batch`); a batch that needs no
+    relaunch is ONE launch. The split and plain backends run their lanes
+    one after another through the single-lane loops.
+
+    ``batch_mode`` takes the reference's values (``"auto"``, ``"vmap"``,
+    ``"lanes"``), and every mode runs independent lanes: the reference's
+    ``"lanes"`` semantics. The ``"vmap"`` mode's shared clock (joint
+    skipping) is not reproduced: results are identical, and only
+    ``timings["steps"]`` differs from the reference's ``"vmap"`` mode.
+    ``shard`` is accepted; the batch runs on one device.
+
+    ``timings`` (optional dict) receives ``compile_s``, ``run_s`` (split
+    into ``setup_s``: traces, views and states; ``lanes_s``: the runs;
+    ``results_s``: the copies to the host), ``steps`` (the largest lane's
+    executed steps, as the reference's lanes mode), ``steps_total``,
+    ``launches`` (lane-batched K3 launches, 0 for the split and plain
+    backends) and ``per_lane`` (``{lane, device, steps}`` a lane).
+    ``device=None`` runs on the CUDA card and raises without one.
+    """
+    dev = resolve_device(device)
+    cfg.validate()
+    topo = cfg.topology()
+    if batch_mode not in ("auto", "vmap", "lanes"):
+        raise ValueError(f"unknown batch_mode {batch_mode!r}")
+    if isinstance(traces, Trace):
+        n_lanes = (len(queue_sizes) if queue_sizes is not None
+                   else len(params) if params is not None else None)
+        if n_lanes is None:
+            raise ValueError(
+                "broadcasting a single trace requires queue_sizes or params")
+        trace_list = [traces] * n_lanes
+    else:
+        trace_list = list(traces)
+    lanes = len(trace_list)
+    if lanes == 0:
+        return []
+
+    def _broadcast(vals, default, name, cap):
+        if vals is None:
+            vals = [default] * lanes
+        vals = list(vals)
+        if len(vals) != lanes:
+            raise ValueError(f"{name} must have one entry per lane")
+        for v in vals:
+            if not (1 <= v <= cap):
+                raise ValueError(f"{name} entry {v} not in [1, {cap}]")
+        return [int(v) for v in vals]
+
+    qs = _broadcast(queue_sizes, cfg.queue_size, "queue_sizes",
+                    cfg.queue_size)
+    rs = _broadcast(resp_queue_sizes, cfg.resp_queue_size,
+                    "resp_queue_sizes", cfg.resp_queue_size)
+    if params is None:
+        scheds = [_sched_i32(cfg.runtime())] * lanes
+    else:
+        scheds = [_sched_i32(p) for p in params]
+        if len(scheds) != lanes:
+            raise ValueError("params must have one entry per lane")
+    # mixed constant/schedule lanes: every lane padded to the common
+    # segment count (inert SCHEDULE_INF rows), as the reference does
+    s_max = max(sc.num_segments for sc in scheds)
+    scheds = [sc.pad_to(s_max) for sc in scheds]
+    if lane_cfgs is not None and len(lane_cfgs) != lanes:
+        raise ValueError("lane_cfgs must have one entry per lane")
+
+    t0 = time.perf_counter()
+    if dev.type == "cuda" and topo.fsm_backend != "plain":
+        build.load()
+    t1 = time.perf_counter()
+    n_max = max(int(tr.num_requests) for tr in trace_list)
+    on_dev: Dict[int, Trace] = {}  # a broadcast trace goes over once
+    for tr in trace_list:
+        if id(tr) not in on_dev:
+            on_dev[id(tr)] = _pad_trace(tr, n_max).to(dev)
+    trs = [on_dev[id(tr)] for tr in trace_list]
+    views = _lane_views(topo, scheds, dev)
+    states = [init_state(topo, v, n_max, q, r, device=dev)
+              for v, q, r in zip(views, qs, rs)]
+    t_set = time.perf_counter()
+    if topo.fsm_backend == "fused":
+        _, lane_steps, launches = fused_run_batch(topo, views, trs, states,
+                                                  num_cycles,
+                                                  cycle_skip=cycle_skip)
+        finals = states
+    else:
+        runner = _run_skip_core if cycle_skip else _run_scan_core
+        finals, lane_steps, launches = [], [], 0
+        for v, tr, st in zip(views, trs, states):
+            final, k, _ = runner(topo, v, tr, num_cycles, st)
+            finals.append(final)
+            lane_steps.append(int(k))
+    t_lanes = time.perf_counter()
+
+    results = []
+    for i in range(lanes):
+        if lane_cfgs is not None:
+            lane_cfg = lane_cfgs[i]
+        else:
+            lane_cfg = dataclasses.replace(scheds[i].apply_to(cfg),
+                                           queue_size=qs[i],
+                                           resp_queue_size=rs[i])
+        results.append(state_to_result(lane_cfg, trace_list[i], finals[i],
+                                       num_cycles))
+    t2 = time.perf_counter()
+    if timings is not None:
+        timings["compile_s"] = timings.get("compile_s", 0.0) + (t1 - t0)
+        timings["run_s"] = timings.get("run_s", 0.0) + (t2 - t1)
+        timings["setup_s"] = t_set - t1
+        timings["lanes_s"] = t_lanes - t_set
+        timings["results_s"] = t2 - t_lanes
+        timings["steps"] = max(lane_steps)
+        timings["steps_total"] = sum(lane_steps)
+        timings["launches"] = int(launches)
+        timings.setdefault("per_lane", []).extend(
+            {"lane": i, "device": str(dev), "steps": int(k)}
+            for i, k in enumerate(lane_steps))
+    return results
+
+
+def sweep_queue_sizes(cfg: MemSimConfig, trace: Trace,
+                      queue_sizes: Sequence[int],
+                      num_cycles: int = 100_000,
+                      *, capacity: Optional[int] = None,
+                      cycle_skip: bool = True,
+                      batch_mode: str = "auto",
+                      timings: Optional[dict] = None,
+                      device=None) -> List[SimResult]:
+    """The paper's queue sweep as one batch: a one-axis
+    :func:`sweep_grid`. ``capacity`` (default ``max(queue_sizes)``) sizes
+    the static buffers every lane shares."""
+    return sweep_grid(cfg, trace, {"queue_size": list(queue_sizes)},
+                      num_cycles, capacity=capacity, cycle_skip=cycle_skip,
+                      batch_mode=batch_mode, timings=timings, device=device)
+
+
+#: grid axes resolvable by :func:`sweep_grid`: every RuntimeParams field
+#: (policies given as their config strings), the runtime queue depths, and
+#: ``"schedule"``, whose values are time-varying parameter schedules (see
+#: :func:`lane_schedule`)
+GRID_AXES = tuple(RuntimeParams._fields) + ("queue_size", "resp_queue_size",
+                                            "schedule")
+
+
+def lane_schedule(cfg: MemSimConfig, spec) -> ParamSchedule:
+    """Resolve a ``"schedule"`` grid-axis value against a lane's config:
+
+      * ``None``: the constant schedule ``cfg.runtime()``;
+      * a :class:`ParamSchedule`: used as it is (it does not compose with
+        the lane's other axes);
+      * a :class:`RuntimeParams`: a constant override point;
+      * a sequence of ``(start_cycle, override_dict)`` segments: each
+        segment is ``cfg`` with the overrides substituted and validated,
+        so schedules compose with the other grid axes and a bad segment
+        fails with the config's own ValueError.
+    """
+    if spec is None:
+        return ParamSchedule.constant(cfg.runtime())
+    if isinstance(spec, ParamSchedule):
+        return spec
+    if isinstance(spec, RuntimeParams):
+        return ParamSchedule.constant(spec)
+    segs = []
+    for start, ov in spec:
+        seg_cfg = dataclasses.replace(cfg, **dict(ov)).validate()
+        segs.append((int(start), seg_cfg.runtime()))
+    return ParamSchedule.from_segments(segs)
+
+
+def _stream_threshold() -> int:
+    """Lane count from which the reference's :func:`sweep_grid` streams
+    (``MEMSIM_STREAM_THRESHOLD``, default 4096, read every call)."""
+    raw = os.environ.get("MEMSIM_STREAM_THRESHOLD", "").strip()
+    try:
+        v = int(raw) if raw else 4096
+    except ValueError:
+        v = 4096
+    return max(1, v)
+
+
+def grid_points(grid: Mapping[str, Sequence]) -> List[Dict]:
+    """Expand an axis dict into the Cartesian product of override dicts,
+    last axis fastest (``itertools.product`` order)."""
+    keys = list(grid)
+    for k in keys:
+        if k not in GRID_AXES:
+            raise ValueError(f"unknown grid axis {k!r}; valid: {GRID_AXES}")
+        if len(grid[k]) == 0:
+            raise ValueError(f"grid axis {k!r} is empty")
+    return [dict(zip(keys, vals))
+            for vals in itertools.product(*(grid[k] for k in keys))]
+
+
+def sweep_grid(cfg: MemSimConfig, trace: Trace,
+               grid: Mapping[str, Sequence],
+               num_cycles: int = 100_000,
+               *, capacity: Optional[int] = None,
+               resp_capacity: Optional[int] = None,
+               cycle_skip: bool = True,
+               shard: bool = True,
+               batch_mode: str = "auto",
+               stream: Optional[bool] = None,
+               chunk_lanes: Optional[int] = None,
+               memory_budget_bytes: Optional[int] = None,
+               checkpoint_dir: Optional[str] = None,
+               resume: bool = True,
+               timings: Optional[dict] = None,
+               device=None) -> List[SimResult]:
+    """A runtime-parameter grid as one batch (:func:`simulate_batch`), one
+    lane per point of the Cartesian product in :func:`grid_points` order,
+    each ``result.cfg`` that point's full config.
+
+    ``grid`` maps axis names (:data:`GRID_AXES`) to value lists: any
+    Table-1 timing, ``page_policy`` / ``sched_policy`` (config strings),
+    ``sref_idle_cycles``, the runtime depths ``queue_size`` /
+    ``resp_queue_size`` and ``"schedule"`` (see :func:`lane_schedule`).
+    ``capacity`` / ``resp_capacity`` (defaults: the largest swept depth)
+    size the static queue buffers.
+
+    The reference's streaming executor is not ported (ROADMAP.md §1, item
+    4, streaming and persistence): a call it would stream (``stream=True``,
+    a ``checkpoint_dir``, or at least ``MEMSIM_STREAM_THRESHOLD`` points,
+    default 4096, unless ``stream=False``), or one that sets one of its
+    options (``chunk_lanes``, ``memory_budget_bytes``), raises
+    ``NotImplementedError``. ``resume`` only applies to it.
+    """
+    points = grid_points(grid)
+    if stream is None:
+        stream = (checkpoint_dir is not None
+                  or len(points) >= _stream_threshold())
+    if stream or checkpoint_dir is not None or chunk_lanes is not None \
+            or memory_budget_bytes is not None:
+        raise NotImplementedError(
+            f"sweep_grid: {len(points)} points on the streaming executor "
+            f"(stream, checkpoint_dir, chunk_lanes, memory_budget_bytes, or "
+            f">= MEMSIM_STREAM_THRESHOLD = {_stream_threshold()} points) "
+            f"are not ported; see ROADMAP.md §1, item 4 (streaming and "
+            f"persistence)")
+    # per-point full configs, validated as config construction would; the
+    # "schedule" axis resolves against each lane's config
+    lane_cfgs = [dataclasses.replace(
+        cfg, **{k: v for k, v in ov.items() if k != "schedule"}).validate()
+        for ov in points]
+    lane_scheds = [lane_schedule(c, ov.get("schedule"))
+                   for c, ov in zip(lane_cfgs, points)]
+    qs = [c.queue_size for c in lane_cfgs]
+    rs = [c.resp_queue_size for c in lane_cfgs]
+    cap = max(qs) if capacity is None else capacity
+    rcap = max(rs) if resp_capacity is None else resp_capacity
+    if cap < max(qs):
+        raise ValueError("capacity below largest swept queue size")
+    if rcap < max(rs):
+        raise ValueError("resp_capacity below largest swept resp queue size")
+    cfg_cap = dataclasses.replace(cfg, queue_size=cap, resp_queue_size=rcap)
+    return simulate_batch(cfg_cap, trace, num_cycles,
+                          queue_sizes=qs, resp_queue_sizes=rs,
+                          params=lane_scheds, lane_cfgs=lane_cfgs,
+                          cycle_skip=cycle_skip, shard=shard,
+                          batch_mode=batch_mode, timings=timings,
+                          device=device)

@@ -368,6 +368,18 @@ class ParamSchedule(NamedTuple):
         return cls(boundaries=torch.zeros((1,), dtype=I32),
                    values=RuntimeParams.stack([rp]))
 
+    @classmethod
+    def from_segments(cls, segments) -> "ParamSchedule":
+        """Build from ``[(start_cycle, RuntimeParams), ...]`` and validate
+        (boundaries sorted, unique, starting at 0; every segment through
+        :func:`runtime_constraint_violations`)."""
+        if not segments:
+            raise ValueError("ParamSchedule needs at least one segment")
+        starts = [int(s) for s, _ in segments]
+        rps = [rp for _, rp in segments]
+        return cls(boundaries=torch.tensor(starts, dtype=I32),
+                   values=RuntimeParams.stack(rps)).validate()
+
     # ---- the one resolver ------------------------------------------------
     def segment_at(self, cycle) -> torch.Tensor:
         """Index of the segment governing ``cycle`` (int32 0-d tensor)."""

@@ -67,6 +67,17 @@
 // a second instantiation with the event bound and step (6) compiled out,
 // t += 1; the host picks the form once a launch.
 //
+// fused_run_batch_launch (fused_run_batch_kernel): the same loop for L
+// lanes of one topology, capacities, tiers and form in one launch, CTA i
+// running lane i, each from its own FusedRunArgs (its state, trace,
+// schedule slice, queue limits, clock, horizon, budget, scratch and
+// (t, steps) row), which the CTA copies to shared memory once. Both
+// kernels call one body, run_lane(); the single-lane kernel keeps reading
+// its arguments from the kernel's parameters. Every lane of a launch has
+// the placement and shared-memory size of the lane with the most schedule
+// segments, computed once; lanes the card cannot hold at once run in
+// waves.
+//
 // What bounds it on an H100: the dependent latency chain of a step, not
 // bytes. At Table-1 size (B = 32) the lane is one warp, so every reduction
 // is a shuffle and every barrier a __syncwarp, and thread 0 loads the
@@ -89,6 +100,7 @@
 #include "bank_fsm.cuh"
 
 #include <climits>
+#include <cstring>
 
 #define LANE_THREADS 1024  // threads of a lane's CTA at most
 // scratch bytes a bank of a lane above LANE_THREADS banks needs at least
@@ -699,9 +711,11 @@ __device__ __forceinline__ void add_tier_counts(int* cnt, int S, int T,
 #define DEV_REQ_RING 4
 #define DEV_QMETA 8
 
+// The persistent loop of one lane, the CTA's threads: the body of both
+// fused_run_kernel (one lane, `a` in the kernel's parameters) and
+// fused_run_batch_kernel (lane blockIdx.x, `a` copied to shared memory).
 template <int kThreads, int K, bool kSkip>
-__global__ void __launch_bounds__(kThreads)
-    fused_run_kernel(const FusedRunArgs a, int dev) {
+__device__ __forceinline__ void run_lane(const FusedRunArgs& a, int dev) {
   extern __shared__ int smem[];
   const AddrGeometry& geo = a.geo;
   const int B = geo.num_banks;
@@ -1058,6 +1072,28 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+template <int kThreads, int K, bool kSkip>
+__global__ void __launch_bounds__(kThreads)
+    fused_run_kernel(const FusedRunArgs a, int dev) {
+  run_lane<kThreads, K, kSkip>(a, dev);
+}
+
+// L lanes of one topology, capacities and form, one CTA a lane. A lane's
+// arguments are copied to shared memory once, so its step loop reads them
+// there instead of from device memory.
+template <int kThreads, int K, bool kSkip>
+__global__ void __launch_bounds__(kThreads)
+    fused_run_batch_kernel(const FusedRunArgs* __restrict__ lanes, int dev) {
+  __shared__ FusedRunArgs lane;
+  const int* src = reinterpret_cast<const int*>(lanes + blockIdx.x);
+  int* dst = reinterpret_cast<int*>(&lane);
+  for (int i = threadIdx.x; i < (int)(sizeof(FusedRunArgs) / sizeof(int));
+       i += blockDim.x)
+    dst[i] = src[i];
+  __syncthreads();
+  run_lane<kThreads, K, kSkip>(lane, dev);
+}
+
 // Shared bytes of a launch of `threads` threads that keeps the parts named
 // by `dev` in device memory.
 static size_t run_smem(const FusedRunArgs& a, int threads, int dev) {
@@ -1071,45 +1107,69 @@ static size_t run_smem(const FusedRunArgs& a, int threads, int dev) {
   return ints * sizeof(int);
 }
 
+// The launches of the form <kThreads, K, kSkip>: `run` one lane (its
+// arguments in the kernel's parameters), `batch` L lanes, CTA i running
+// lanes_dev[i], or, with per_sm, the CTAs of it an SM holds at once.
 template <int kThreads, int K, bool kSkip>
-static int run_launch(const FusedRunArgs& a, int threads, size_t bytes,
-                      int dev, cudaStream_t st) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      fused_run_kernel<kThreads, K, kSkip>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  fused_run_kernel<kThreads, K, kSkip><<<1, threads, bytes, st>>>(a, dev);
-  return (int)cudaGetLastError();
-}
+struct Form {
+  static int run(const FusedRunArgs& a, int threads, size_t bytes, int dev,
+                 cudaStream_t st) {
+    const auto kern = fused_run_kernel<kThreads, K, kSkip>;
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    kern<<<1, threads, bytes, st>>>(a, dev);
+    return (int)cudaGetLastError();
+  }
+  static int batch(const FusedRunArgs* lanes_dev, int L, int threads,
+                   size_t bytes, int dev, cudaStream_t st, int* per_sm) {
+    const auto kern = fused_run_batch_kernel<kThreads, K, kSkip>;
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    if (per_sm != nullptr)
+      return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          per_sm, kern, threads, bytes);
+    kern<<<L, threads, bytes, st>>>(lanes_dev, dev);
+    return (int)cudaGetLastError();
+  }
+};
 
-// the form of a lane of B banks, k a thread: 32 threads up to 32 banks,
-// one bank a thread up to LANE_THREADS, k slots a thread above
-template <bool kSkip>
-static int run_form(const FusedRunArgs& a, int k, int threads, size_t bytes,
-                    int dev, cudaStream_t st) {
-  if (a.geo.num_banks <= 32)
-    return run_launch<32, 1, kSkip>(a, threads, bytes, dev, st);
-  if (k == 1)
-    return run_launch<LANE_THREADS, 1, kSkip>(a, threads, bytes, dev, st);
-  return run_launch<LANE_THREADS, 0, kSkip>(a, threads, bytes, dev, st);
+// f(Form<..>{}) of a lane of B banks, k a thread: 32 threads up to 32
+// banks, one bank a thread up to LANE_THREADS, k slots a thread above;
+// the per-cycle form when !skip. The form is chosen once a launch: no
+// run-time branch in the step loop.
+template <typename F>
+static int with_form(int B, int k, bool skip, F&& f) {
+  if (skip) {
+    if (B <= 32) return f(Form<32, 1, true>{});
+    if (k == 1) return f(Form<LANE_THREADS, 1, true>{});
+    return f(Form<LANE_THREADS, 0, true>{});
+  }
+  if (B <= 32) return f(Form<32, 1, false>{});
+  if (k == 1) return f(Form<LANE_THREADS, 1, false>{});
+  return f(Form<LANE_THREADS, 0, false>{});
 }
 
 // The parts a launch keeps in place in device memory (DEV_* bits): none
-// while everything fits the block's opt-in shared memory, else the
-// bank-queue rings, then the response ring, the request ring and the
-// bank-queue heads and counts, until the rest (the schedule a launch
-// holds, at most 64 KB, and about 4 KB besides) does.
-static int run_placement(const FusedRunArgs& a, int threads, size_t* bytes) {
+// while everything fits the block's opt-in shared memory (less `reserve`
+// bytes of static shared memory), else the bank-queue rings, then the
+// response ring, the request ring and the bank-queue heads and counts,
+// until the rest (the schedule a launch holds, at most 64 KB, and about
+// 4 KB besides) does.
+static int run_placement(const FusedRunArgs& a, int threads, size_t* bytes,
+                         size_t reserve = 0) {
   int dev = 0, optin = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                          dev);
+  const size_t room = (size_t)optin - reserve;
   static const int kOrder[] = {DEV_BANK_RINGS, DEV_RESP_RING, DEV_REQ_RING,
                                DEV_QMETA};
   int where = 0;
   *bytes = run_smem(a, threads, where);
   for (const int part : kOrder)
-    if (*bytes > (size_t)optin) *bytes = run_smem(a, threads, where |= part);
+    if (*bytes > room) *bytes = run_smem(a, threads, where |= part);
   return where;
 }
 
@@ -1121,6 +1181,93 @@ extern "C" int fused_run_placement_query(const void* args) {
   const int k = banks_per_thread(a.geo.num_banks);
   size_t bytes;
   return k == 0 ? -1 : run_placement(a, a.geo.num_banks / k, &bytes);
+}
+
+// The host's FusedRunArgs size, which the Python mirror of the struct must
+// equal (a batch is an array of them).
+extern "C" int fused_run_args_bytes() { return (int)sizeof(FusedRunArgs); }
+
+// Checks that the L lanes of a batch (host copies) can share one launch:
+// one topology, capacities, tiers, form and scratch layout, each lane with
+// a trace, a budget and, above LANE_THREADS banks, its scratch. Returns the
+// lane with the most schedule segments (which sizes the shared memory of
+// every lane), or -1.
+static int batch_lead(const FusedRunArgs* h, int L) {
+  if (L < 1) return -1;
+  const FusedRunArgs& a0 = h[0];
+  const int k = banks_per_thread(a0.geo.num_banks);
+  if (k == 0) return -1;
+  int lead = 0;
+  for (int i = 0; i < L; ++i) {
+    const FusedRunArgs& a = h[i];
+    if (memcmp(&a.geo, &a0.geo, sizeof(AddrGeometry)) != 0 ||
+        a.q_cap != a0.q_cap || a.req_cap != a0.req_cap ||
+        a.resp_cap != a0.resp_cap || a.T != a0.T ||
+        a.tier_split != a0.tier_split || a.mem_words != a0.mem_words ||
+        a.cycle_skip != a0.cycle_skip ||
+        a.scratch_per_bank != a0.scratch_per_bank || a.n < 1 ||
+        a.budget < 1 || a.S < 1)
+      return -1;
+    if (k > 1 &&
+        (a.scratch == nullptr || a.scratch_per_bank < K3_SCRATCH_PER_BANK))
+      return -1;
+    if (a.S > h[lead].S) lead = i;
+  }
+  return lead;
+}
+
+// the batched launch (or, with per_sm, its occupancy) of the lanes that
+// `lead` sizes
+static int batch_form(const FusedRunArgs& lead, const FusedRunArgs* lanes_dev,
+                      int L, int* per_sm, cudaStream_t st) {
+  const int B = lead.geo.num_banks;
+  const int k = banks_per_thread(B);
+  const int threads = B / k;
+  size_t bytes;
+  const int where =
+      run_placement(lead, threads, &bytes, sizeof(FusedRunArgs));
+  return with_form(B, k, lead.cycle_skip, [&](auto form) {
+    return decltype(form)::batch(lanes_dev, L, threads, bytes, where, st,
+                                 per_sm);
+  });
+}
+
+// The DEV_* bits of a batched launch of these L lanes (host copies); -1
+// for lanes that cannot share one.
+extern "C" int fused_run_batch_placement_query(const void* lanes_host,
+                                               int L) {
+  const FusedRunArgs* h = static_cast<const FusedRunArgs*>(lanes_host);
+  const int lead = batch_lead(h, L);
+  if (lead < 0) return -1;
+  const int B = h[lead].geo.num_banks;
+  size_t bytes;
+  return run_placement(h[lead], B / banks_per_thread(B), &bytes,
+                       sizeof(FusedRunArgs));
+}
+
+// The CTAs (lanes) of a batched launch of these lanes that one SM holds at
+// once (cudaOccupancyMaxActiveBlocksPerMultiprocessor at the launch's
+// threads and shared memory); a negative cudaError_t on failure.
+extern "C" int fused_run_batch_occupancy(const void* lanes_host, int L) {
+  const FusedRunArgs* h = static_cast<const FusedRunArgs*>(lanes_host);
+  const int lead = batch_lead(h, L);
+  if (lead < 0) return -(int)cudaErrorInvalidValue;
+  int per_sm = 0;
+  const int err = batch_form(h[lead], nullptr, L, &per_sm, nullptr);
+  return err != 0 ? -err : per_sm;
+}
+
+// L lanes in one launch, CTA i running lanes_dev[i] (a device copy of the
+// host array lanes_host, which sizes and checks the launch). Returns a
+// cudaError_t.
+extern "C" int fused_run_batch_launch(const void* lanes_host,
+                                      const void* lanes_dev, int L,
+                                      void* stream) {
+  const FusedRunArgs* h = static_cast<const FusedRunArgs*>(lanes_host);
+  const int lead = batch_lead(h, L);
+  if (lead < 0 || lanes_dev == nullptr) return (int)cudaErrorInvalidValue;
+  return batch_form(h[lead], static_cast<const FusedRunArgs*>(lanes_dev), L,
+                    nullptr, static_cast<cudaStream_t>(stream));
 }
 
 // Returns a cudaError_t.
@@ -1136,7 +1283,7 @@ extern "C" int fused_run_launch(const void* args, void* stream) {
   size_t bytes;
   const int where = run_placement(a, threads, &bytes);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // the form is chosen once a launch: no run-time branch in the step loop
-  return a.cycle_skip ? run_form<true>(a, k, threads, bytes, where, st)
-                      : run_form<false>(a, k, threads, bytes, where, st);
+  return with_form(B, k, a.cycle_skip, [&](auto form) {
+    return decltype(form)::run(a, threads, bytes, where, st);
+  });
 }

@@ -49,6 +49,12 @@ place, and returns ``(t, steps)``: one host read per launch. With
 step every clock, no event bound, no skip. ``fused_run_cuda`` launches it;
 the engine owns its plain version and the choice between the two
 (``core.engine.fused_run``).
+
+``fused_run_batch_cuda`` runs L such lanes (one topology and capacities,
+each lane its own state, trace, schedule, depths and clock) in launches of
+the lane-batched form, one CTA a lane, and reads every lane's ``(t,
+steps)`` in one copy a launch; ``core.engine.fused_run_batch`` chooses it
+or its plain version.
 """
 
 from __future__ import annotations
@@ -544,3 +550,129 @@ def fused_run_cuda(topo: Topology, view, trace, state, t: int, t_end: int,
     build.LAUNCHES["k3run" if cycle_skip else "k3cyc"] += 1
     t2, steps = out.tolist()  # the one host read of the launch
     return t2, steps
+
+
+# ---------------------------------------------------------------------------
+# the lane-batched persistent kernel: one CTA a lane
+
+def _batch_lib():
+    """The fused library, its ``FusedRunArgs`` checked against ``_RunArgs``
+    (a batch passes an array of them)."""
+    lib = build.load()["fused"]
+    c_bytes = lib.fused_run_args_bytes()
+    if c_bytes != ctypes.sizeof(_RunArgs):
+        raise RuntimeError(
+            f"fused_run_batch: FusedRunArgs is {c_bytes} bytes in "
+            f"csrc/fused.cu, {ctypes.sizeof(_RunArgs)} in _RunArgs")
+    return lib
+
+
+def _batch_args(topo: Topology, views, traces, states, lanes, ts,
+                t_end: int, budget: int, scratch, outs, cycle_skip: bool):
+    """The host array of the ``_RunArgs`` of ``lanes`` (lane ``lanes[j]``
+    writes its ``(t, steps)`` to ``outs[j]``) and the tensors it points
+    to, which must live until the launch has ended."""
+    args, keep = [], []
+    for j, i in enumerate(lanes):
+        tensors, stop = _run_tensors(topo, views[i], traces[i], states[i],
+                                     outs[j], ts[i])
+        build.require_cuda("fused_run_batch", **tensors)
+        t_stop = t_end if stop is None else min(t_end, stop)
+        args.append(_run_args(topo, traces[i], states[i], tensors, ts[i],
+                              t_end, t_stop, budget, scratch[i], cycle_skip))
+        keep.append(tensors)
+    return (_RunArgs * len(args))(*args), keep
+
+
+def _batch_scratch(topo: Topology, n: int, device):
+    return [_scratch(topo.num_banks, 1, device) for _ in range(n)]
+
+
+def _batch_query(entry: str, topo: Topology, views, traces, states,
+                 cycle_skip: bool) -> int:
+    """``entry`` of the fused library on the host array of a launch of
+    these lanes from reset."""
+    n = len(states)
+    dev = states[0].mem.device
+    outs = torch.empty((n, 2), dtype=I32, device=dev)
+    host, _ = _batch_args(topo, views, traces, states, range(n), [0] * n, 1,
+                          1, _batch_scratch(topo, n, dev), outs, cycle_skip)
+    return getattr(_batch_lib(), entry)(ctypes.byref(host), n)
+
+
+def fused_run_batch_placement(topo: Topology, views, traces, states
+                              ) -> Tuple[str, ...]:
+    """The parts of each lane's ``SimState`` that a ``fused_run_batch_cuda``
+    launch of these lanes keeps in device memory (every lane of a launch
+    keeps the same parts)."""
+    bits = _batch_query("fused_run_batch_placement_query", topo, views,
+                        traces, states, True)
+    if bits < 0:
+        raise ValueError("fused_run_batch: the lanes cannot share a launch")
+    return tuple(p for i, p in enumerate(RUN_PLACEMENT) if bits >> i & 1)
+
+
+def fused_run_batch_occupancy(topo: Topology, views, traces, states,
+                              cycle_skip: bool = True) -> int:
+    """The lanes (CTAs) of a ``fused_run_batch_cuda`` launch of these lanes
+    that one SM runs at once, at the launch's threads and shared memory."""
+    per_sm = _batch_query("fused_run_batch_occupancy", topo, views, traces,
+                          states, cycle_skip)
+    build.check(min(per_sm, 0), "fused_run_batch occupancy")
+    return per_sm
+
+
+def fused_run_batch_cuda(topo: Topology, views, traces, states, t_end: int,
+                         budget: Optional[int] = None,
+                         cycle_skip: bool = True, t=None,
+                         max_launches: Optional[int] = None
+                         ) -> Tuple[list, list, int]:
+    """Run L lanes of one topology and capacities on the card, each from
+    its clock (``t[i]``, default 0) to the horizon ``t_end``, in place, by
+    launches of the lane-batched persistent K3: one CTA a lane, each lane
+    with its own ``ScheduleView``, trace, ``SimState``, scratch and
+    ``(t, steps)`` row. A launch runs every lane that has not reached the
+    horizon for at most ``budget`` steps (and to the end of its schedule
+    slice); the host reads every lane's ``(t, steps)`` in one copy and
+    relaunches the lanes left, compacted. ``cycle_skip=False`` is the
+    per-cycle form; ``max_launches`` stops the protocol after that many
+    launches. Launches count under ``"k3batch"``. Returns (the clock of
+    each lane, its executed steps, launches)."""
+    budget = DEFAULT_RUN_BUDGET if budget is None else int(budget)
+    if budget < 1:
+        raise ValueError(f"fused_run_batch: budget={budget} must be >= 1")
+    n = len(states)
+    if len(views) != n or len(traces) != n:
+        raise ValueError("fused_run_batch: one view and one trace per state")
+    if any(tr.num_requests < 1 for tr in traces):
+        raise IndexError("fused_run: index is out of bounds for the trace, "
+                         "which holds no request")
+    ts = [0] * n if t is None else [int(x) for x in t]
+    steps = [0] * n
+    if n == 0:
+        return ts, steps, 0
+    lib = None
+    dev = states[0].mem.device
+    scratch = _batch_scratch(topo, n, dev)
+    launches = 0
+    active = [i for i in range(n) if ts[i] < t_end]
+    while active and launches != max_launches:
+        outs = torch.empty((len(active), 2), dtype=I32, device=dev)
+        host, keep = _batch_args(topo, views, traces, states, active, ts,
+                                 t_end, budget, scratch, outs, cycle_skip)
+        lib = lib or _batch_lib()  # built once every tensor is checked
+        lanes_dev = torch.frombuffer(bytearray(host),
+                                     dtype=torch.uint8).to(dev)
+        err = lib.fused_run_batch_launch(ctypes.byref(host),
+                                         lanes_dev.data_ptr(), len(active),
+                                         build.stream_of(outs))
+        build.check(err, "fused_run_batch")
+        build.LAUNCHES["k3batch"] += 1
+        launches += 1
+        # the one host read of the launch: every lane's (t, steps)
+        for i, (t2, k) in zip(active, outs.tolist()):
+            ts[i] = t2
+            steps[i] += k
+        del keep, lanes_dev
+        active = [i for i in active if ts[i] < t_end]
+    return ts, steps, launches

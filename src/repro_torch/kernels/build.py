@@ -26,7 +26,8 @@ from typing import Dict
 
 #: launches per kernel since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {"k1": 0, "k2": 0, "k3": 0, "k3run": 0,
-                             "k3cyc": 0, "k4": 0, "k5": 0, "k6": 0, "k7": 0}
+                             "k3cyc": 0, "k3batch": 0, "k4": 0, "k5": 0,
+                             "k6": 0, "k7": 0}
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -45,6 +46,10 @@ _ENTRY_POINTS = {
         "fused_step_launch": [_P] * 9 + [_I] * 12 + [_P],
         "fused_run_launch": [_P] * 2,
         "fused_run_placement_query": [_P],
+        "fused_run_args_bytes": [],
+        "fused_run_batch_launch": [_P, _P, _I, _P],
+        "fused_run_batch_placement_query": [_P, _I],
+        "fused_run_batch_occupancy": [_P, _I],
     },
     "decode_attention": {
         "decode_attention_launch": [_P] * 8 + [_I] * 8 + [_P],

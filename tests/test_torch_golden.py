@@ -4,7 +4,10 @@ The digests let the card run of the port (``chip_smoke.py``) be held
 against the reference without JAX on that machine. This test recomputes
 them with ``repro.core.simulate_fast`` and asserts the committed file is
 current, and holds the port's CPU ``simulate_fast`` against the
-``conv2d@20000`` digest.
+``conv2d@20000`` digest. The batch digests (each lane of the Table-2 batch
+and of the Figs 6-9 queue sweep) are recomputed with the reference's
+``simulate_batch`` / ``sweep_queue_sizes`` in ``batch_mode="lanes"``; each
+Table-2 lane equals its single-lane digest.
 
 Regenerate the file with::
 
@@ -20,7 +23,9 @@ torch = pytest.importorskip("torch")
 
 from repro.core import MemSimConfig as JaxConfig  # noqa: E402
 from repro.core import simulate_fast as jax_simulate_fast  # noqa: E402
+from repro.core import simulate_batch as jax_simulate_batch  # noqa: E402
 from repro.core import simulate_ideal as jax_simulate_ideal  # noqa: E402
+from repro.core import sweep_queue_sizes as jax_sweep_queue_sizes  # noqa: E402
 from repro.traces import BENCHMARKS as JAX_BENCHMARKS  # noqa: E402
 from repro_torch import golden  # noqa: E402
 from repro_torch.core import MemSimConfig, simulate_fast, simulate_ideal  # noqa: E402
@@ -38,6 +43,47 @@ def reference_digests():
         out[golden.case_key(name, num_cycles)] = golden.result_digest(
             res, ideal, tm["steps"])
     return out
+
+
+def batch_reference_digests():
+    out = {}
+    batch, cycles = golden.TABLE2_BATCH
+    names = sorted(JAX_BENCHMARKS)
+    traces = [JAX_BENCHMARKS[n]() for n in names]
+    tm = {}
+    results = jax_simulate_batch(
+        JaxConfig(queue_size=golden.BATCH_CAPACITY), traces, cycles,
+        queue_sizes=[golden.QUEUE_SIZE] * len(traces), batch_mode="lanes",
+        timings=tm)
+    for name, tr, res, lane in zip(names, traces, results, tm["per_lane"]):
+        ideal = np.asarray(jax_simulate_ideal(
+            JaxConfig(queue_size=golden.QUEUE_SIZE), tr).t_complete)
+        out[golden.batch_key(batch, name, cycles)] = golden.result_digest(
+            res, ideal, lane["steps"])
+    batch, cycles = golden.FIG_SWEEP
+    tm = {}
+    results = jax_sweep_queue_sizes(
+        JaxConfig(), JAX_BENCHMARKS["conv2d"](burst_gap=golden.FIG_BURST_GAP),
+        list(golden.SWEEP_F8), cycles, capacity=golden.BATCH_CAPACITY,
+        batch_mode="lanes", timings=tm)
+    for q, res, lane in zip(golden.SWEEP_F8, results, tm["per_lane"]):
+        out[golden.batch_key(batch, f"q{q}", cycles)] = golden.result_digest(
+            res, None, lane["steps"])
+    return out
+
+
+def test_batch_golden_file_is_current():
+    assert golden.load_batch() == batch_reference_digests()
+
+
+def test_table2_batch_lanes_equal_single_lane_digests():
+    """A lane of the batch (queue 128 on buffers of 2048) is the
+    single-lane run at queue 128, its steps included."""
+    batch, cycles = golden.TABLE2_BATCH
+    single, lanes = golden.load(), golden.load_batch()
+    for name in sorted(BENCHMARKS):
+        assert lanes[golden.batch_key(batch, name, cycles)] == \
+            single[golden.case_key(name, cycles)], name
 
 
 def test_golden_file_is_current():
@@ -59,6 +105,9 @@ def test_port_cpu_matches_conv2d_20k_digest():
 
 
 if __name__ == "__main__":
-    golden.GOLDEN_PATH.write_text(
-        json.dumps(reference_digests(), indent=1, sort_keys=True) + "\n")
-    print(f"wrote {golden.GOLDEN_PATH}")
+    for path, digests in ((golden.GOLDEN_PATH, reference_digests),
+                          (golden.BATCH_GOLDEN_PATH,
+                           batch_reference_digests)):
+        path.write_text(json.dumps(digests(), indent=1, sort_keys=True)
+                        + "\n")
+        print(f"wrote {path}")

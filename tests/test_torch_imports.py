@@ -85,3 +85,38 @@ def test_cuda_wrappers_reject_cpu_tensors():
     x = torch.zeros((1, 4, 8))
     with pytest.raises(ValueError, match="CUDA tensor"):
         selective_scan_cuda(x, x, x[..., :4], x[..., :4], torch.zeros((8, 4)))
+
+
+def test_batch_entry_points_are_exported_and_raise_without_a_card():
+    """The batched calls are exported from ``repro_torch.core`` and, like
+    the single-lane ones, default to the card."""
+    import repro_torch.core as core
+    from repro_torch.traces import trace_example
+
+    names = ("simulate_batch", "stack_traces", "sweep_queue_sizes",
+             "GRID_AXES", "lane_schedule", "grid_points", "sweep_grid")
+    assert set(names) <= set(core.__all__)
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None selects it")
+    cfg, tr = core.MemSimConfig(), trace_example(n=4)
+    for call in (lambda: core.simulate_batch(cfg, [tr], 10),
+                 lambda: core.sweep_queue_sizes(cfg, tr, [4], 10),
+                 lambda: core.sweep_grid(cfg, tr, {"tCL": [14]}, 10)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+
+
+def test_batch_wrapper_rejects_cpu_tensors():
+    """The lane-batched K3 wrapper takes states on the card only."""
+    from repro_torch.core.params import MemSimConfig, ParamSchedule
+    from repro_torch.core.simulator import ScheduleView, init_state
+    from repro_torch.kernels.bank_fsm.fused import fused_run_batch_cuda
+    from repro_torch.traces import trace_example
+
+    cfg = MemSimConfig()
+    topo = cfg.topology()
+    view = ScheduleView(topo, ParamSchedule.constant(cfg.runtime()), "cpu")
+    tr = trace_example(n=4)
+    state = init_state(topo, view, tr.num_requests, device="cpu")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fused_run_batch_cuda(topo, [view], [tr], [state], 10)

@@ -232,3 +232,33 @@ def test_cuda_header_matches_reference():
     assert int(defs["SCHED_FRFCFS"]) == jp.SCHED_FRFCFS
     assert int(defs["EVENT_INF"], 16) == jbf.EVENT_INF
     assert int(defs["SCHEDULE_INF"], 16) == jp.SCHEDULE_INF
+
+
+@pytest.mark.parametrize("case", ["dvfs", "one", "empty", "unsorted",
+                                  "nonzero_start", "bad_point"])
+def test_schedule_from_segments_matches(case):
+    """``ParamSchedule.from_segments``: the same packed schedule, or the
+    same ValueError text, as the reference's."""
+    segs = {"dvfs": [(0, {}), (150, dict(tCL=18, page_policy=1)),
+                     (300, dict(tRP=17, tREFI=900, sched_policy=1))],
+            "one": [(0, dict(tRCDRD=20))],
+            "empty": [],
+            "unsorted": [(0, {}), (50, {}), (20, {})],
+            "nonzero_start": [(5, {})],
+            "bad_point": [(0, {}), (10, dict(tREFI=10))]}[case]
+
+    def build(pkg):
+        return pkg.ParamSchedule.from_segments(
+            [(s, pkg.RuntimeParams(**kw)) for s, kw in segs])
+
+    if case in ("dvfs", "one"):
+        want = [np.asarray(x) for x in build(jp).pack()]
+        got = [x.numpy() for x in build(tp).pack()]
+        for w, g in zip(want, got):
+            np.testing.assert_array_equal(w, g)
+        return
+    with pytest.raises(ValueError) as je:
+        build(jp)
+    with pytest.raises(ValueError) as te:
+        build(tp)
+    assert str(te.value) == str(je.value)
