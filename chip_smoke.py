@@ -132,7 +132,7 @@ Phases (any failed check exits non-zero):
    shapes (lanes a channel, channels a CTA, chunk) at the prefill shape
    and the invariant's, each held against the production kernel;
 13. the lane-batched persistent K3 (``fused_run_batch_cuda``, one CTA a
-   lane; run last, after the LLM phases): against its plain version, every
+   lane; run after the LLM phases): against its plain version, every
    lane's whole ``SimState`` bit for bit (sink slots stripped), in both
    forms, on the four traces at 3000 cycles as one ragged batch (also in
    launches of 7 steps, lanes finishing at different launches), a queue
@@ -158,6 +158,36 @@ Phases (any failed check exits non-zero):
    device us per step of the longest lane, beside conv2d as a batch of one
    lane and the single-lane kernel on the same inputs, the plain version's
    time a step and the byte bound.
+
+14. windowed sessions and the closed-loop serving study (run last): (a)
+   the four traces at 100k cycles through a fused ``SimSession`` in windows
+   of 2000 (conv2d also with each window's arrivals appended before it),
+   each equal to its golden digest (all fields but steps, which may exceed
+   the monolithic run's by at most one a window), each window one
+   persistent K3 launch and nothing else, wall per window split into the
+   launch with its read and the report copy, and the device time per
+   executed step inside windows beside the monolithic run's (CUDA events
+   around each launch); (b) ``split`` sessions:
+   conv2d at 20k in windows of 1000 against its golden digest, one CUDA
+   graph captured, and conv2d at 3000 on a three-segment DVFS schedule in
+   windows of 250 and 1000 against the fused ``simulate_fast``, one capture
+   a segment whatever the windows; (c) a ``SessionBatch`` of 132 lanes (the
+   four traces x 33, queue limits 128 to 4) in windows of 2000 at 100k,
+   each window one lane-batched K3 launch, every lane equal to its
+   single-lane ``simulate_fast``, the host time of a window's launch
+   arguments (``_batch_args``) and report copy, and the device time a step
+   of the longest lane (CUDA events around each launch); (d) the serving study's closed loop (2-channel
+   DRAM and tiered CXL, loads 0.5 / 1 / 2 / 4, chat, horizon 10 000,
+   windows of 400): ``run_serving_batched`` per topology against the golden
+   serving digests (every ``ServingResult`` field and each lane's session),
+   ``run_serving`` of one lane against its batched twin, each window one
+   lane-batched launch, and each topology's wall split into launches,
+   report copies and the scheduler.
+
+``python3 chip_smoke.py --split-times CHECKOUT`` runs only the split
+backend's ``simulate_fast`` on conv2d at 20k cycles (phase 4's run) of the
+port in another checkout, printing its wall time, so that two checkouts
+compare on one card, each in its own process (A B B A).
 
 ``python3 chip_smoke.py --k3-step-times CHECKOUT`` runs only the
 single-lane persistent K3's time per step (four traces at 100k cycles,
@@ -1943,6 +1973,412 @@ def phase_batch():
             / 1e3, "plain_ms": plain_ms, "bound_ms": bound_ms, "recs": recs}
 
 
+# ------------------------------------------------- windowed sessions --
+
+#: phase 14's fused sessions: the paper's horizon in windows of 2000
+SESSION_CYCLES = 100_000
+SESSION_WINDOW = 2_000
+#: phase 14's split session: conv2d at 20k cycles in windows of 1000
+SPLIT_SESSION = (20_000, 1_000)
+#: the runtime queue limits the 132 lanes of phase 14's batch cycle through
+BATCH_SESSION_QS = (128, 64, 32, 16, 8, 4)
+
+
+class LaunchTimer:
+    """CUDA events around every K3 launch made inside the ``with`` block:
+    the start event is recorded when the kernel's wrapper asks for the
+    launch's stream (its host preparation done, the launch's argument
+    copies enqueued), the end event when it checks the launch's error
+    code, right after the launch is enqueued. ``ms()`` is the device time
+    of the launches alone, without the host's work between windows (a
+    profiler trace of a session's many launches can drop some)."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.kernels import build
+
+        self.pairs = []
+        self._saved = (build.stream_of, build.check)
+        stream_of, check = self._saved
+
+        def event():
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            return e
+
+        def timed_stream_of(t):
+            self.pairs.append([event(), None])
+            return stream_of(t)
+
+        def timed_check(err, what):
+            if self.pairs and self.pairs[-1][1] is None:
+                self.pairs[-1][1] = event()
+            return check(err, what)
+
+        build.stream_of, build.check = timed_stream_of, timed_check
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import build
+
+        build.stream_of, build.check = self._saved
+
+    def ms(self):
+        import torch
+
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.pairs)
+
+
+def drive_session(ses, cycles, window, arrivals=None):
+    """Advance ``ses`` to ``cycles`` in windows of ``window``, appending
+    before each window the arrivals of ``arrivals`` (host arrays, or None)
+    due before its end. Checks that each window launches one K3 of the
+    session's kind (``k3run`` for a SimSession, ``k3batch`` for a
+    SessionBatch) and nothing else. Returns (reports, wall s of each
+    window, launch s of each window)."""
+    import numpy as np
+    from repro_torch.core import SimSession
+    from repro_torch.kernels import build
+
+    kind = "k3run" if isinstance(ses, SimSession) else "k3batch"
+    reports, walls, runs = [], [], []
+    pos = 0
+    while ses.cycle < cycles:
+        t1 = min(ses.cycle + window, cycles)
+        payload = None
+        if arrivals is not None:
+            end = int(np.searchsorted(arrivals[0], t1, side="left"))
+            payload = tuple(x[pos:end] for x in arrivals)
+            pos = end
+        before, run0 = dict(build.LAUNCHES), ses.timings.get("run_s", 0.0)
+        t0 = time.perf_counter()
+        reports.append(ses.advance(t1 - ses.cycle, payload))
+        walls.append(time.perf_counter() - t0)
+        runs.append(ses.timings["run_s"] - run0)
+        delta = {k: build.LAUNCHES[k] - before[k] for k in before}
+        check(delta[kind] == 1 and sum(delta.values()) == 1,
+              f"a window of {type(ses).__name__} launched {delta}; built "
+              f"for one {kind} launch and nothing else")
+    return reports, walls, runs
+
+
+def report_copy_ms(states, filled, n=50):
+    """Median wall ms of one window's report copy: every lane's
+    ``report_fetch`` tensors, concatenated and copied to the host."""
+    import torch
+    from repro_torch.core.session import report_fetch
+
+    walls = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cat([x for st, k in zip(states, filled)
+                   for x in report_fetch(st, k)]).cpu()
+        walls.append(time.perf_counter() - t0)
+    return statistics.median(walls) * 1e3
+
+
+def phase_sessions(run_plain_ms, batch_plain_ms):
+    """14: windowed sessions and the closed-loop serving study on the card
+    (see the module docstring)."""
+    import numpy as np
+    import torch
+    from repro_torch import golden
+    from repro_torch.core import (
+        MemSimConfig, SessionBatch, SimSession, simulate_fast,
+        simulate_ideal)
+    from repro_torch.kernels import build
+    from repro_torch.kernels.bank_fsm.fused import (
+        _batch_args, _batch_scratch)
+    from repro_torch.serving import (
+        ServingConfig, generate_request_batch, run_serving,
+        run_serving_batched)
+    from repro_torch.traces import BENCHMARKS, conv2d
+
+    expected = golden.load()
+    cfg = MemSimConfig(queue_size=golden.QUEUE_SIZE)
+    cycles, window = SESSION_CYCLES, SESSION_WINDOW
+    n_windows = -(-cycles // window)
+    out = {}
+
+    def no_steps(d):
+        return {k: v for k, v in d.items() if k != "steps"}
+
+    # ---- (a) fused sessions on the four traces --------------------------
+    build.reset_launches()
+    walls_a, runs_a, steps_a = [], [], 0
+    cases = [(n, False) for n in sorted(BENCHMARKS)] + [("conv2d", True)]
+    for name, incremental in cases:
+        tr = BENCHMARKS[name]()
+        arrs = tuple(x.numpy() for x in tr)
+        tm = {}
+        ses = SimSession.open(cfg, capacity=tr.num_requests, timings=tm,
+                              device=DEVICE)
+        if not incremental:
+            ses.append(arrs)
+        reps, walls, runs = drive_session(ses, cycles, window,
+                                          arrs if incremental else None)
+        res = ses.result()
+        ideal = simulate_ideal(cfg, tr, device=DEVICE).t_complete.cpu(
+            ).numpy()
+        want = expected[golden.case_key(name, cycles)]
+        bad = golden.mismatches(no_steps(want),
+                                golden.result_digest(res, ideal))
+        steps = sum(r.steps for r in reps)
+        how = "appended window by window" if incremental else "appended once"
+        check(not bad, f"session {name}@{cycles} ({how}) differs from the "
+              f"golden digest in {bad}")
+        check(len(reps) == n_windows == tm["windows"] == tm["launches"]
+              and tm["captures"] == 0, f"session {name}: {len(reps)} "
+              f"windows, timings {tm}")
+        check(0 <= steps - want["steps"] <= n_windows, f"session {name}: "
+              f"{steps} steps in windows against {want['steps']} in one run")
+        walls_a += walls
+        runs_a += runs
+        steps_a += steps
+        log(f"[14] SimSession fused {name}@{cycles} ({how}), {len(reps)} "
+            f"windows of {window}: equals the golden digest (all fields but "
+            f"steps); {steps} steps ({steps - want['steps']} more than the "
+            f"monolithic run's {want['steps']}); one k3run launch a window "
+            f"and nothing else; {sum(walls):.3f} s wall, "
+            f"{np.mean(walls) * 1e3:.3f} ms a window (launch and its read "
+            f"{np.mean(runs) * 1e3:.3f}, report copy and host "
+            f"{(np.mean(walls) - np.mean(runs)) * 1e3:.3f})")
+    run_launches = build.LAUNCHES["k3run"]
+    check(run_launches == len(cases) * n_windows and all(
+        v == 0 for k, v in build.LAUNCHES.items() if k != "k3run"),
+        f"the fused sessions launched {dict(build.LAUNCHES)}")
+    # device time of the windows' launches (conv2d, appended once)
+    counted = dict(build.LAUNCHES)
+    tr = BENCHMARKS["conv2d"]()
+    ses = SimSession.open(cfg, capacity=tr.num_requests, device=DEVICE)
+    ses.append(tuple(x.numpy() for x in tr))
+    with LaunchTimer() as timer:
+        reps = ses.run_until(cycles, window)
+    dev_ms, n_k = timer.ms(), len(timer.pairs)
+    steps = sum(r.steps for r in reps)
+    nbytes = run_bytes(ses._view, ses._buf.traces[0], ses._state)
+    out["run"] = {"launches": run_launches, "ms": dev_ms / steps,
+                  "plain_ms": run_plain_ms,
+                  "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3 / steps}
+    with LaunchTimer() as timer:
+        st = {}
+        t0 = time.perf_counter()
+        simulate_fast(cfg, tr, cycles, timings=st, device=DEVICE)
+        mono_wall = time.perf_counter() - t0
+    mono_ms = timer.ms()
+    check(n_k == len(reps) and len(timer.pairs) == 1,
+          f"timed {n_k} launches for {len(reps)} windows")
+    log(f"[14] conv2d@{cycles}: {n_k} window launches {dev_ms:.3f} ms of "
+        f"device time for {steps} steps = {dev_ms / steps * 1e3:.3f} us/step "
+        f"inside windows; the monolithic simulate_fast in the same way "
+        f"{mono_ms:.3f} ms for {st['steps']} steps = "
+        f"{mono_ms / st['steps'] * 1e3:.3f} us/step in one launch, "
+        f"{mono_wall:.3f} s wall; mean per-window wall over the five "
+        f"sessions {np.mean(walls_a) * 1e3:.3f} ms (launch and read "
+        f"{np.mean(runs_a) * 1e3:.3f} ms, report copy "
+        f"{report_copy_ms([ses._state], [tr.num_requests]):.3f} ms)")
+    build.LAUNCHES.update(counted)
+
+    # ---- (b) the split backend's windows ---------------------------------
+    build.reset_launches()
+    horizon, w = SPLIT_SESSION
+    split = MemSimConfig(queue_size=golden.QUEUE_SIZE, fsm_backend="split")
+    tr = conv2d()
+    tm = {}
+    ses = SimSession.open(split, capacity=tr.num_requests, timings=tm,
+                          device=DEVICE)
+    ses.append(tuple(x.numpy() for x in tr))
+    t0 = time.perf_counter()
+    reps = ses.run_until(horizon, w)
+    wall = time.perf_counter() - t0
+    ideal = simulate_ideal(cfg, tr, device=DEVICE).t_complete.cpu().numpy()
+    want = expected[golden.case_key("conv2d", horizon)]
+    bad = golden.mismatches(no_steps(want),
+                            golden.result_digest(ses.result(), ideal))
+    check(not bad, f"split session conv2d@{horizon} differs from the golden "
+          f"digest in {bad}")
+    check(tm["captures"] == 1 and tm["launches"] == 0
+          and build.LAUNCHES["k1"] > 0 and build.LAUNCHES["k2"] > 0
+          and build.LAUNCHES["k3run"] == 0, f"split session: timings {tm}, "
+          f"launches {dict(build.LAUNCHES)}")
+    # each window skips as the fused session's window does: a replayed step
+    # reads this window's horizon, not the one it was captured with
+    fused = SimSession.open(cfg, capacity=tr.num_requests, device=DEVICE)
+    fused.append(tuple(x.numpy() for x in tr))
+    want = [r.steps for r in fused.run_until(horizon, w)]
+    check([r.steps for r in reps] == want, f"split session's steps a window "
+          f"{[r.steps for r in reps]} != the fused session's {want}")
+    log(f"[14] SimSession split conv2d@{horizon}, {len(reps)} windows of {w}: "
+        f"equals the golden digest (all fields but steps), "
+        f"{sum(r.steps for r in reps)} steps, each window's equal to the "
+        f"fused session's, {tm['captures']} CUDA graph captured (one "
+        f"schedule segment), {wall:.2f} s wall")
+    dvfs = dvfs_schedule(cfg)
+    ref = simulate_fast(cfg, tr, 3_000, params=dvfs, device=DEVICE)
+    for w in (250, 1_000):
+        tm = {}
+        ses = SimSession.open(split, capacity=tr.num_requests, params=dvfs,
+                              timings=tm, device=DEVICE)
+        ses.append(tuple(x.numpy() for x in tr))
+        ses.run_until(3_000, w)
+        bad = golden.mismatches(golden.result_digest(ref, None),
+                                golden.result_digest(ses.result(), None))
+        check(not bad and tm["captures"] == dvfs.num_segments,
+              f"split DVFS session (windows of {w}) != fused simulate_fast "
+              f"in {bad}, {tm['captures']} captures for "
+              f"{dvfs.num_segments} segments")
+        log(f"[14] SimSession split conv2d@3000 on a {dvfs.num_segments}-"
+            f"segment DVFS schedule, {tm['windows']} windows of {w}: equals "
+            f"the fused simulate_fast; {tm['captures']} captures, one a "
+            f"segment")
+
+    # ---- (c) a SessionBatch at full occupancy ----------------------------
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    names = sorted(BENCHMARKS)
+    traces = {n: BENCHMARKS[n]() for n in names}
+    lanes = [(names[i % 4], BATCH_SESSION_QS[(i // 4)
+                                             % len(BATCH_SESSION_QS)])
+             for i in range(4 * 33)]
+    capacity = max(t.num_requests for t in traces.values())
+
+    def open_batch(tm):
+        b = SessionBatch.open(cfg, len(lanes), capacity=capacity,
+                              queue_size=[q for _, q in lanes], timings=tm,
+                              device=DEVICE)
+        for i, (n, _) in enumerate(lanes):
+            b.append(i, tuple(x.numpy() for x in traces[n]))
+        return b
+
+    build.reset_launches()
+    tm = {}
+    batch = open_batch(tm)
+    reps, walls, runs = drive_session(batch, cycles, window)
+    k3batch = build.LAUNCHES["k3batch"]
+    single = {}
+    for i, (n, q) in enumerate(lanes):
+        if (n, q) not in single:
+            st = {}
+            one = simulate_fast(cfg, traces[n], cycles, queue_size=q,
+                                timings=st, device=DEVICE)
+            single[(n, q)] = (golden.result_digest(one, None), st["steps"])
+        want, want_steps = single[(n, q)]
+        got = golden.result_digest(batch.lane_result(i), None)
+        bad = golden.mismatches(no_steps(want), got)
+        steps = sum(r[i].steps for r in reps)
+        check(not bad and 0 <= steps - want_steps <= n_windows,
+              f"batch lane {i} ({n}, queue {q}) != its simulate_fast in "
+              f"{bad}; steps {steps} against {want_steps}")
+        if q == golden.QUEUE_SIZE:
+            gold = expected[golden.case_key(n, cycles)]
+            bad = golden.mismatches({k: gold[k] for k in got}, got)
+            check(not bad, f"batch lane {i} ({n}) != golden in {bad}")
+    log(f"[14] SessionBatch fused, {len(lanes)} lanes (four traces x 33, "
+        f"queue limits {BATCH_SESSION_QS}), {len(reps)} windows of {window} "
+        f"at {cycles}: one k3batch launch a window and nothing else; every "
+        f"lane equals its single-lane simulate_fast ({len(single)} distinct "
+        f"runs; the queue-128 lanes the golden digests); {sum(walls):.3f} s "
+        f"wall, {np.mean(walls) * 1e3:.3f} ms a window (launch and its read "
+        f"{np.mean(runs) * 1e3:.3f}, report copy and host "
+        f"{(np.mean(walls) - np.mean(runs)) * 1e3:.3f})")
+    # the host set-up of a window's launch at 132 lanes (hazard: rebuilt
+    # every window) and the report copy of every lane
+    ts = [batch.cycle] * len(lanes)
+    dev = torch.device(DEVICE)
+    per = []
+    for _ in range(20):
+        outs = torch.empty((len(lanes), 2), dtype=torch.int32, device=dev)
+        t0 = time.perf_counter()
+        _batch_args(batch.topo, batch._views, batch._buf.traces,
+                    batch._states, range(len(lanes)), ts, cycles + window,
+                    1 << 20, _batch_scratch(batch.topo, len(lanes), dev),
+                    outs, True)
+        per.append(time.perf_counter() - t0)
+    args_ms = statistics.median(per) * 1e3
+    copy_ms = report_copy_ms(batch._states, batch._buf.filled)
+    log(f"[14] {len(lanes)} lanes: the launch's host arguments "
+        f"(_batch_args) {args_ms:.3f} ms a window (median of 20), the report "
+        f"copy of every lane {copy_ms:.3f} ms")
+    counted = dict(build.LAUNCHES)
+    batch = open_batch({})
+    with LaunchTimer() as timer:
+        reps = batch.run_until(cycles, window)
+    dev_ms = timer.ms()
+    check(len(timer.pairs) == len(reps), f"timed {len(timer.pairs)} "
+          f"launches for {len(reps)} windows")
+    lane_steps = [sum(r[i].steps for r in reps) for i in range(len(lanes))]
+    nbytes = sum(run_bytes(v, t, s) for v, t, s in zip(
+        batch._views, batch._buf.traces, batch._states))
+    out["batch"] = {
+        "ms": dev_ms / max(lane_steps), "plain_ms": batch_plain_ms,
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3 / max(lane_steps)}
+    log(f"[14] {len(lanes)}-lane batch, {len(reps)} window launches on "
+        f"{min(len(lanes), sms)} SMs: {dev_ms:.3f} ms of device time, "
+        f"longest lane {max(lane_steps)} steps = "
+        f"{dev_ms / max(lane_steps) * 1e3:.3f} us/step inside windows, "
+        f"{sum(lane_steps) / dev_ms * 1e3:.0f} steps/s")
+    build.LAUNCHES.update(counted)
+
+    # ---- (d) the serving study's closed loop -----------------------------
+    serving = golden.load_serving()
+    scfg = ServingConfig()
+    lists = generate_request_batch(golden.serving_scenarios(),
+                                   seed=golden.SERVING_SEED,
+                                   independent_streams=False)
+    cap = golden.serving_capacity(lists, scfg)
+    serve_launches = 0
+    for name, tcfg, params in golden.serving_topologies():
+        build.reset_launches()
+        tm = {}
+        t0 = time.perf_counter()
+        results = run_serving_batched(
+            tcfg, lists, scfg, params=params,
+            window_cycles=golden.SERVING_WINDOW, capacity=cap,
+            seed=golden.SERVING_SEED, timings=tm, device=DEVICE)
+        wall = time.perf_counter() - t0
+        check(build.LAUNCHES["k3batch"] == tm["windows"] == tm["launches"]
+              and sum(build.LAUNCHES.values()) == tm["windows"],
+              f"serving {name}: launches {dict(build.LAUNCHES)}, timings "
+              f"{tm}")
+        serve_launches += tm["windows"]
+        for load, res in zip(golden.SERVING_LOADS, results):
+            key = golden.serving_key(name, load)
+            bad = golden.mismatches(serving[key],
+                                    golden.serving_digest(res, cap))
+            check(not bad, f"serving {key} differs from the golden digest "
+                  f"in {bad}")
+        lane = len(golden.SERVING_LOADS) - 1
+        seq = run_serving(tcfg, lists[lane], scfg, params=params,
+                          window_cycles=golden.SERVING_WINDOW, capacity=cap,
+                          seed=golden.SERVING_SEED, device=DEVICE)
+        got = golden.serving_digest(seq, cap)
+        want = serving[golden.serving_key(name, golden.SERVING_LOADS[lane])]
+        bad = [k for k in golden.mismatches(want, got) if k != "session"]
+        bad += [f for f in golden.RECORDS
+                if want["session"][f] != got["session"][f]]
+        check(not bad, f"serving {name}: run_serving of load "
+              f"{golden.SERVING_LOADS[lane]} != its batched lane in {bad}")
+        copy_ms = report_copy_ms(results[0].session._batch._states,
+                                 results[0].session._batch._buf.filled)
+        host = wall - tm["run_s"] - copy_ms * tm["windows"] / 1e3
+        log(f"[14] serving {name} ({len(lists)} loads "
+            f"{golden.SERVING_LOADS} as one run_serving_batched, windows of "
+            f"{golden.SERVING_WINDOW}): every ServingResult field and lane "
+            f"session equal the golden digests; the sequential run_serving "
+            f"of load {golden.SERVING_LOADS[lane]} equals its lane; "
+            f"{tm['windows']} windows (one k3batch launch each), "
+            f"{wall:.3f} s wall = launches and their reads "
+            f"{tm['run_s']:.3f} s + report copies ~"
+            f"{copy_ms * tm['windows'] / 1e3:.3f} s + scheduler and host "
+            f"~{host:.3f} s; tokens/kcycle "
+            + ", ".join(f"{r.tokens_per_kcycle:.3f}" for r in results))
+        out[f"serving_{name}"] = {"wall_s": wall, "windows": tm["windows"],
+                                  "run_s": tm["run_s"]}
+    out["batch"]["launches"] = k3batch + serve_launches
+    return out
+
+
 # ------------------------------------------------------- LLM serve slice --
 
 FLASH_SHAPES = [  # b, hq, s, d, hkv
@@ -2830,6 +3266,25 @@ def k3_step_times():
             + ", ".join(f"{x:.4f}" for x in per) + " us/step")
 
 
+def split_times():
+    """The split backend's ``simulate_fast`` on conv2d at 20k cycles (phase
+    4's run) of the port imported from ``sys.path``, its wall seconds and
+    steps: run once per checkout, each in its own process, to compare two
+    checkouts on one card (A B B A)."""
+    from repro_torch.core import MemSimConfig, simulate_fast
+    from repro_torch.kernels import build
+    from repro_torch.traces import conv2d
+
+    build.load()
+    cfg = MemSimConfig(queue_size=128, fsm_backend="split")
+    tm = {}
+    t0 = time.perf_counter()
+    simulate_fast(cfg, conv2d(), 20_000, timings=tm, device=DEVICE)
+    log(f"split times {build.CSRC.parents[2]}: simulate_fast split "
+        f"conv2d@20000 {time.perf_counter() - t0:.3f} s wall, "
+        f"{tm['steps']} steps")
+
+
 def main():
     try:
         import torch
@@ -2840,8 +3295,12 @@ def main():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false)", file=sys.stderr)
         return 2
-    # --k3-step-times CHECKOUT: only k3_step_times, of that checkout's port
-    step_times = sys.argv[1:2] == ["--k3-step-times"] and len(sys.argv) == 3
+    # --k3-step-times / --split-times CHECKOUT: only that timing, of that
+    # checkout's port
+    only = {"--k3-step-times": k3_step_times,
+            "--split-times": split_times}.get(
+                sys.argv[1] if len(sys.argv) == 3 else None)
+    step_times = only is not None
     root = Path(sys.argv[2]).resolve() if step_times else ROOT
     sys.path.insert(0, str(root / "src"))
     try:
@@ -2851,7 +3310,7 @@ def main():
               file=sys.stderr)
         return 2
     if step_times:
-        k3_step_times()
+        only()
         return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     t_start = time.perf_counter()
@@ -2873,6 +3332,7 @@ def main():
         k4_launches, k4_err = phase_addr_map()
         hybrid_times = phase_hybrid_times()
         batch = phase_batch()
+        sessions = phase_sessions(run_plain_ms, batch["plain_ms"])
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2918,6 +3378,18 @@ def main():
         "ms": batch["ms"], "plain_ms": batch["plain_ms"],
         "bound_ms": batch["bound_ms"], "bound_by": "bytes",
         "library_ms": None})
+    # the session path: fused SimSession windows (one persistent K3 launch
+    # each) and SessionBatch windows (one lane-batched launch each), per
+    # executed step inside windows
+    for key, name in (("run", "fused_run_session"),
+                      ("batch", "fused_run_batch_session")):
+        rec = sessions[key]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src + "fused.cu",
+            "replaces": ref + "fused.py:397", "launches": rec["launches"],
+            "max_abs_err": 0, "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": "bytes",
+            "library_ms": None})
     ref = "src/repro/kernels/"
     ms, plain_ms, bound_ms, bound_by = hybrid_times["k4"]
     kernels.append({

@@ -20,6 +20,8 @@ from repro_torch.core.engine import (
     sweep_grid,
     sweep_queue_sizes,
 )
+from repro_torch.core.session import SimSession, WindowReport
+from repro_torch.core.session_batch import SessionBatch, SessionLane
 from repro_torch.core.ideal import ideal_latencies, simulate_ideal
 from repro_torch.core import stats
 
@@ -41,6 +43,10 @@ __all__ = [
     "lane_schedule",
     "grid_points",
     "sweep_grid",
+    "SimSession",
+    "WindowReport",
+    "SessionBatch",
+    "SessionLane",
     "simulate_ideal",
     "ideal_latencies",
     "stats",

@@ -85,12 +85,12 @@ def _cap(b: torch.Tensor, x) -> torch.Tensor:
 
 
 def _event_bound(topo, view: ScheduleView, trace: Trace, state: SimState,
-                 nxt, horizon: int, seg: Optional[int] = None
+                 nxt, horizon, seg: Optional[int] = None
                  ) -> torch.Tensor:
     """Number of provably inert cycles starting at ``nxt`` (0-d tensor),
-    without the global-queue pre-gate of :func:`_next_event`. ``nxt`` is a
-    host int or a 0-d device tensor; ``seg`` its schedule segment (resolved
-    from a host ``nxt`` when omitted)."""
+    without the global-queue pre-gate of :func:`_next_event`. ``nxt`` and
+    ``horizon`` are host ints or 0-d device tensors; ``seg`` the schedule
+    segment of ``nxt`` (resolved from a host ``nxt`` when omitted)."""
     if seg is None:
         seg = view.segment_at(nxt)
     bank = state.bank
@@ -127,7 +127,7 @@ def _event_bound(topo, view: ScheduleView, trace: Trace, state: SimState,
 
 
 def _next_event(topo, view: ScheduleView, trace: Trace, state: SimState,
-                nxt, horizon: int, seg: Optional[int] = None
+                nxt, horizon, seg: Optional[int] = None
                 ) -> torch.Tensor:
     """Distance to the event horizon from cycle ``nxt``: 0 whenever the
     global request or response queue holds work (both sides computed and
@@ -159,13 +159,14 @@ def _apply_skip(topo, view: ScheduleView, state: SimState, delta,
     return state._replace(bank=bank, counters=counters)
 
 
-def _skip_step(topo, view: ScheduleView, trace: Trace, horizon: int,
+def _skip_step(topo, view: ScheduleView, trace: Trace, horizon,
                seg: int, seg_next: int, state: SimState, cycle
                ) -> Tuple[SimState, torch.Tensor]:
     """One executed cycle of the event-horizon engine at ``cycle`` (segment
     ``seg``; ``seg_next`` is the segment of ``cycle + 1``) on the split or
     plain backend: the clock edge, the distance ``delta`` to the next
-    event, and the skip over it."""
+    event (capped at ``horizon``, a host int or a 0-d device tensor), and
+    the skip over it."""
     state = cycle_step(topo, view, trace, state, cycle, seg)
     delta = _next_event(topo, view, trace, state, cycle + 1, horizon,
                         seg_next)
@@ -276,32 +277,35 @@ def fused_cycles(topo, view: ScheduleView, trace: Trace, state: SimState,
     return steps, launches
 
 
-def _run_skip_core(topo, view: ScheduleView, trace: Trace, num_cycles: int,
-                   state: SimState) -> Tuple[SimState, int, int]:
-    """Event-driven loop: execute one cycle per event, then jump the clock
-    to the next event horizon. Returns (final state, executed steps, K3
-    launches).
+def _skip_loop(topo, view: ScheduleView, trace: Trace, state: SimState,
+               t: int, t_end: int, graphs=None) -> Tuple[SimState, int]:
+    """The split and plain backends' event-horizon loop from clock ``t`` to
+    exactly ``t_end``: execute one cycle per event, then jump the clock to
+    the next event horizon, capped at ``t_end``. Returns (final state,
+    executed steps).
 
-    The fused backend runs :func:`fused_run` launches until the horizon,
-    reading ``(t, steps)`` once per launch. The others read ``delta`` on
-    the host once per executed cycle; on the card such a cycle is a
-    CUDA-graph replay of :func:`_skip_step` (one graph per schedule
-    segment; the last cycle before a boundary, whose bound is taken under
-    the next segment, runs eagerly)."""
-    if topo.fsm_backend == "fused":
-        return (state, *fused_cycles(topo, view, trace, state, 0, num_cycles,
-                                     cycle_skip=True))
-    graphs = graphs_lib.graphs_for(state)
-    t, steps = 0, 0
-    while t < num_cycles:
+    The host reads ``delta`` once per executed cycle. With ``graphs`` (a
+    :class:`~repro_torch.core.graphs.StepGraphs` of a state on the card)
+    such a cycle is a CUDA-graph replay of :func:`_skip_step`, one graph
+    per schedule segment, and the horizon is ``graphs.horizon``, a 0-d
+    device tensor filled here: a graph captured in one window replays in
+    the next with that window's horizon. The last cycle before a segment
+    boundary, whose bound is taken under the next segment, runs eagerly,
+    as every cycle does without ``graphs``."""
+    if graphs is not None:
+        graphs.horizon.fill_(t_end)
+    steps = 0
+    while t < t_end:
         seg, seg_next = view.segment_at(t), view.segment_at(t + 1)
-        fn = functools.partial(_skip_step, topo, view, trace, num_cycles,
-                               seg, seg_next)
         replayed = graphs is not None and seg == seg_next
         if replayed:
-            delta = graphs.step(seg, t, fn)
+            delta = graphs.step(seg, t, functools.partial(
+                _skip_step, topo, view, trace, graphs.horizon, seg,
+                seg_next))
         else:
-            state, delta = fn(graphs.state if graphs else state, t)
+            state, delta = _skip_step(topo, view, trace, t_end, seg,
+                                      seg_next,
+                                      graphs.state if graphs else state, t)
             if graphs is not None:
                 graphs.adopt(state)
         d = int(delta)  # the one host synchronisation per executed cycle
@@ -309,7 +313,78 @@ def _run_skip_core(topo, view: ScheduleView, trace: Trace, num_cycles: int,
         steps += 1
         if replayed:
             graphs.advanced_to(t)
-    return (graphs.state if graphs is not None else state), steps, 0
+    return (graphs.state if graphs is not None else state), steps
+
+
+def _run_skip_core(topo, view: ScheduleView, trace: Trace, num_cycles: int,
+                   state: SimState) -> Tuple[SimState, int, int]:
+    """Event-driven loop from cycle 0 to ``num_cycles``. Returns (final
+    state, executed steps, K3 launches).
+
+    The fused backend runs :func:`fused_run` launches until the horizon,
+    reading ``(t, steps)`` once per launch; the others run
+    :func:`_skip_loop`, replaying its cycles from CUDA graphs on the
+    card."""
+    if topo.fsm_backend == "fused":
+        return (state, *fused_cycles(topo, view, trace, state, 0, num_cycles,
+                                     cycle_skip=True))
+    final, steps = _skip_loop(topo, view, trace, state, 0, num_cycles,
+                              graphs_lib.graphs_for(state))
+    return final, steps, 0
+
+
+def run_window(topo, view: ScheduleView, trace: Trace, state: SimState,
+               t0: int, t1: int, graphs=None) -> Tuple[int, int]:
+    """Advance a carried ``state`` from clock ``t0`` to exactly ``t1``, in
+    place: the engine half of :class:`repro_torch.core.session.SimSession`
+    (the reference's ``_run_window_core``). Returns (executed steps, K3
+    launches).
+
+    The fused backend runs :func:`fused_cycles` with the horizon ``t1``:
+    on the card one launch of the persistent K3 (more only where a
+    schedule's slice ends a launch early), on the CPU its plain version.
+    The split and plain backends run :func:`_skip_loop`; ``graphs`` (the
+    ``StepGraphs`` of ``state``, kept by the caller across windows) replays
+    its cycles on the card, ``None`` runs them eagerly.
+
+    A window boundary only caps the skip, and executing an inert cycle is
+    bit-identical to skipping it, so any partition of a run into windows
+    ends in the monolithic run's state; only the executed-step count
+    differs."""
+    if t1 <= t0:
+        return 0, 0
+    if topo.fsm_backend == "fused":
+        return fused_cycles(topo, view, trace, state, t0, t1,
+                            cycle_skip=True)
+    if graphs is not None and graphs.state is not state:
+        raise ValueError("run_window: graphs belong to another state")
+    final, steps = _skip_loop(topo, view, trace, state, t0, t1, graphs)
+    if final is not state:
+        graphs_lib.copy_into(state, final)
+    return steps, 0
+
+
+def run_window_batch(topo, views, traces, states, t0: int, t1: int,
+                     graphs=None) -> Tuple[List[int], int]:
+    """:func:`run_window` over L lanes of one topology and capacities (each
+    its own view, trace and state; ``graphs`` one ``StepGraphs`` or
+    ``None`` a lane), every lane from ``t0`` to ``t1``, in place. The fused
+    backend runs every lane in launches of the lane-batched persistent K3
+    (:func:`fused_run_batch`: one launch a window on the card, unless a
+    schedule slice ends one early); the split and plain backends run the
+    lanes one after another. Returns (each lane's executed steps, K3
+    launches)."""
+    n = len(states)
+    if t1 <= t0:
+        return [0] * n, 0
+    if topo.fsm_backend == "fused":
+        _, steps, launches = fused_run_batch(topo, views, traces, states, t1,
+                                             t=[t0] * n)
+        return steps, launches
+    graphs = [None] * n if graphs is None else graphs
+    steps = [run_window(topo, v, tr, st, t0, t1, g)[0]
+             for v, tr, st, g in zip(views, traces, states, graphs)]
+    return steps, 0
 
 
 def _run_scan_core(topo, view: ScheduleView, trace: Trace, num_cycles: int,

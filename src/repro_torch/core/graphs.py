@@ -12,7 +12,10 @@ launch on the host.
 A graph is captured per schedule segment: the step bakes in what the host
 resolves per segment (the active parameters, the FR-FCFS branch, the
 segment's counter slot). The cycle number is read on the device from
-``StepGraphs.cycle``, which the graph itself advances by ``1 + delta``.
+``StepGraphs.cycle``, which the graph itself advances by ``1 + delta``,
+and the event-horizon step's horizon from ``StepGraphs.horizon``, which
+the host fills before each run or window, so one capture serves every
+window of a session.
 The live :class:`SimState` tensors are the graph's static inputs: the step
 updates the large buffers in place and the graph copies every other new
 register back into them, so after a replay ``StepGraphs.state`` is the
@@ -77,8 +80,14 @@ class StepGraphs:
     def __init__(self, state):
         self.state = state
         self.cycle = torch.zeros((), dtype=I32, device=state.mem.device)
+        self.horizon = torch.zeros((), dtype=I32, device=state.mem.device)
         self._device_t: Optional[int] = 0
         self._graphs: Dict[object, tuple] = {}
+
+    @property
+    def captures(self) -> int:
+        """Graphs captured so far (one per key)."""
+        return len(self._graphs)
 
     def adopt(self, new_state) -> None:
         """Make ``new_state`` (from an eager step) the live state."""

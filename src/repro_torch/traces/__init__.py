@@ -1,5 +1,5 @@
-"""Trace generation: the paper's four microbenchmarks and DRAMSim3 trace
-files."""
+"""Trace generation: the paper's four microbenchmarks, LLM workload
+streams and DRAMSim3 trace files."""
 
 from repro_torch.traces.microbench import (
     BENCHMARKS,
@@ -10,6 +10,7 @@ from repro_torch.traces.microbench import (
     vector_similarity,
 )
 from repro_torch.traces.io import load_trace, save_session_trace, save_trace
+from repro_torch.traces import llm_workload
 
 __all__ = [
     "BENCHMARKS",
@@ -21,4 +22,5 @@ __all__ = [
     "load_trace",
     "save_session_trace",
     "save_trace",
+    "llm_workload",
 ]

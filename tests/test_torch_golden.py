@@ -7,7 +7,9 @@ current, and holds the port's CPU ``simulate_fast`` against the
 ``conv2d@20000`` digest. The batch digests (each lane of the Table-2 batch
 and of the Figs 6-9 queue sweep) are recomputed with the reference's
 ``simulate_batch`` / ``sweep_queue_sizes`` in ``batch_mode="lanes"``; each
-Table-2 lane equals its single-lane digest.
+Table-2 lane equals its single-lane digest. The serving digests (the
+closed-loop serving study's eight scenarios) are recomputed with the
+reference's ``run_serving_batched``, one batch a topology.
 
 Regenerate the file with::
 
@@ -26,6 +28,13 @@ from repro.core import simulate_fast as jax_simulate_fast  # noqa: E402
 from repro.core import simulate_batch as jax_simulate_batch  # noqa: E402
 from repro.core import simulate_ideal as jax_simulate_ideal  # noqa: E402
 from repro.core import sweep_queue_sizes as jax_sweep_queue_sizes  # noqa: E402
+from repro.perfmodel.effective_bw import \
+    cxl_tier_point as jax_cxl_tier_point  # noqa: E402
+from repro.serving import ServingConfig as JaxServingConfig  # noqa: E402
+from repro.serving import \
+    generate_request_batch as jax_generate_request_batch  # noqa: E402
+from repro.serving import \
+    run_serving_batched as jax_run_serving_batched  # noqa: E402
 from repro.traces import BENCHMARKS as JAX_BENCHMARKS  # noqa: E402
 from repro_torch import golden  # noqa: E402
 from repro_torch.core import MemSimConfig, simulate_fast, simulate_ideal  # noqa: E402
@@ -72,6 +81,35 @@ def batch_reference_digests():
     return out
 
 
+def serving_reference_digests():
+    serving = JaxServingConfig()
+    lists = jax_generate_request_batch(golden.serving_scenarios(),
+                                       seed=golden.SERVING_SEED,
+                                       independent_streams=False)
+    capacity = golden.serving_capacity(lists, serving)
+    cxl = JaxConfig(channels=2, tiers=2, cxl_channels=1)
+    topologies = {
+        "dram": (JaxConfig(channels=2), None),
+        "cxl": (cxl, jax_cxl_tier_point(cxl, cxl.tier_interleave_log2,
+                                        cxl.tier_cxl_frac_log2,
+                                        **golden.SERVING_CXL))}
+    out = {}
+    for name in golden.SERVING_TOPOLOGIES:
+        cfg, params = topologies[name]
+        results = jax_run_serving_batched(
+            cfg, lists, serving, params=params,
+            window_cycles=golden.SERVING_WINDOW, capacity=capacity,
+            seed=golden.SERVING_SEED)
+        for load, res in zip(golden.SERVING_LOADS, results):
+            out[golden.serving_key(name, load)] = golden.serving_digest(
+                res, capacity)
+    return out
+
+
+def test_serving_golden_file_is_current():
+    assert golden.load_serving() == serving_reference_digests()
+
+
 def test_batch_golden_file_is_current():
     assert golden.load_batch() == batch_reference_digests()
 
@@ -107,7 +145,9 @@ def test_port_cpu_matches_conv2d_20k_digest():
 if __name__ == "__main__":
     for path, digests in ((golden.GOLDEN_PATH, reference_digests),
                           (golden.BATCH_GOLDEN_PATH,
-                           batch_reference_digests)):
+                           batch_reference_digests),
+                          (golden.SERVING_GOLDEN_PATH,
+                           serving_reference_digests)):
         path.write_text(json.dumps(digests(), indent=1, sort_keys=True)
                         + "\n")
         print(f"wrote {path}")

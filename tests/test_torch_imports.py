@@ -120,3 +120,31 @@ def test_batch_wrapper_rejects_cpu_tensors():
     state = init_state(topo, view, tr.num_requests, device="cpu")
     with pytest.raises(ValueError, match="CUDA tensor"):
         fused_run_batch_cuda(topo, [view], [tr], [state], 10)
+
+
+def test_session_and_serving_entry_points_are_exported_and_raise_without_a_card():
+    """The windowed sessions and the closed-loop serving drivers are
+    exported as the reference exports them and, like every entry point,
+    default to the card."""
+    import repro_torch.core as core
+    import repro_torch.serving as serving
+    from repro_torch.traces import llm_workload
+
+    assert {"SimSession", "WindowReport", "SessionBatch",
+            "SessionLane"} <= set(core.__all__)
+    assert {"ContinuousBatchScheduler", "KVPager", "PageState", "Request",
+            "ServingConfig", "ServingResult", "generate_request_batch",
+            "generate_requests", "observe_batch", "plan_window_batch",
+            "run_serving", "run_serving_batched",
+            "spawn_seeds"} == set(serving.__all__)
+    assert callable(llm_workload.decode_serving_trace)
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None selects it")
+    cfg = core.MemSimConfig()
+    reqs = serving.generate_requests(horizon=2_000, seed=1)
+    for call in (lambda: core.SimSession.open(cfg),
+                 lambda: core.SessionBatch.open(cfg, 2),
+                 lambda: serving.run_serving(cfg, reqs),
+                 lambda: serving.run_serving_batched(cfg, [reqs])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
