@@ -88,8 +88,9 @@ Phases (any failed check exits non-zero):
    256, 128, 2) and the prefill shape and for K5 at the served shape and
    S = 4096; and K5 gives 0 at kv_len = 0;
 8. the LLM serve path at full width: qwen3-14b (40 layers, d_model 5120,
-   unreduced), random weights from ``torch.Generator().manual_seed(0)``
-   on the host, each matrix cast to bfloat16 and moved to the card; a prefill
+   unreduced), random weights drawn on the card from
+   ``torch.Generator(device="cuda").manual_seed(0)``, each matrix in
+   float32 and cast to bfloat16 before the next is drawn; a prefill
    of 2 x 1024 tokens (K6 launches = 40), then ``serve_loop`` with 8
    requests through 4 slots (K5 launches = 40 x steps), then the serving
    invariant: 128 teacher-forced decode steps with the kernels and with
@@ -111,7 +112,7 @@ Phases (any failed check exits non-zero):
    whether K7 staged it with bulk copies or plain loads, and each dtype
    must take both;
 11. the hybrid serve path: qwen3-14b's weights freed, jamba-v0.1 at full
-   width with its depth cut to one period of 8 layers (7 Mamba, 1
+   width (its weights drawn on the card as in 8) with its depth cut to one period of 8 layers (7 Mamba, 1
    attention; 4 dense and 4 MoE FFNs); a prefill of 2 x 1024 tokens (K7
    launches = 7, K6 = 1), ``serve_loop`` with 8 requests through 4 slots
    (K5 launches = steps), the decode-vs-prefill invariant over 2 x 128
@@ -159,7 +160,7 @@ Phases (any failed check exits non-zero):
    lane and the single-lane kernel on the same inputs, the plain version's
    time a step and the byte bound.
 
-14. windowed sessions and the closed-loop serving study (run last): (a)
+14. windowed sessions and the closed-loop serving study: (a)
    the four traces at 100k cycles through a fused ``SimSession`` in windows
    of 2000 (conv2d also with each window's arrivals appended before it),
    each equal to its golden digest (all fields but steps, which may exceed
@@ -182,12 +183,39 @@ Phases (any failed check exits non-zero):
    serving digests (every ``ServingResult`` field and each lane's session),
    ``run_serving`` of one lane against its batched twin, each window one
    lane-batched launch, and each topology's wall split into launches,
-   report copies and the scheduler.
+   report copies and the scheduler;
+15. the multi-topology sweep and the effective-bandwidth studies (run
+   last): (a) ``sweep_topologies`` on conv2d at 100k cycles over channels
+   [1, 2] x ranks [1, 2] x banks a group [2, 4] x tCL [14, 18] x queue
+   [16, 64, 128] (8 topologies, 48 lanes; each topology's launch
+   enqueued on a CUDA stream of its own), every lane equal to its
+   single-lane ``simulate_fast``, one lane-batched K3 launch a topology and
+   nothing else, each launch's device time (CUDA events on its stream) and
+   the first start to the last end, which must stay under the spread of
+   the starts plus 1.25 times the longest topology's launch alone (the
+   launches overlapped); the sweep's wall with the default workers and
+   with ``max_workers=1`` (one topology after another), each topology's
+   lanes alone in one launch (device time, steps), and the slowest
+   topology's byte bound and plain version on its own lanes;
+   (b) the small grid of ``golden.TOPO_GRID`` against its JAX digests, and
+   a ``split`` x ``fused`` backend axis at 2000 cycles, each split lane
+   equal to its fused twin; (c) every study of
+   ``golden/jax_perfmodel_reference.json`` (``decode_efficiency`` and
+   ``train_efficiency`` on the per-cycle ``simulate``, ``llm_grid_study``,
+   ``topo_llm_grid_study``, ``dvfs_llm_study``, ``cxl_tier_study`` with
+   its per-cycle bit check, ``serving_study``) at the file's arguments,
+   every row equal to the reference's, ``bit_identical`` true on every
+   ``cxl_tier_study`` lane, each study's wall and launches.
 
 ``python3 chip_smoke.py --split-times CHECKOUT`` runs only the split
 backend's ``simulate_fast`` on conv2d at 20k cycles (phase 4's run) of the
 port in another checkout, printing its wall time, so that two checkouts
 compare on one card, each in its own process (A B B A).
+
+``python3 chip_smoke.py --topology-sweep CHECKOUT`` runs only phase
+15(a)'s sweep, twice, in a fresh process of the port in another checkout
+(no form of the lane-batched K3 loaded before the first), printing each
+sweep's wall, launch starts and device times.
 
 ``python3 chip_smoke.py --k3-step-times CHECKOUT`` runs only the
 single-lane persistent K3's time per step (four traces at 100k cycles,
@@ -2379,6 +2407,273 @@ def phase_sessions(run_plain_ms, batch_plain_ms):
     return out
 
 
+# ------------------------------------------- topology sweeps and studies --
+
+#: phase 15(a): 8 topologies (channels x ranks x banks a group) x 6 runtime
+#: lanes (tCL x queue depth) on conv2d at the paper's horizon
+TOPO_SWEEP_GRID = {"channels": [1, 2], "ranks": [1, 2],
+                   "banks_per_group": [2, 4], "tCL": [14, 18],
+                   "queue_size": [16, 64, 128]}
+TOPO_SWEEP_CYCLES = 100_000
+#: phase 15(b): a backend axis, each split lane against its fused twin
+BACKEND_GRID = {"fsm_backend": ["split", "fused"], "ranks": [1, 2],
+                "tCL": [14, 18]}
+BACKEND_CYCLES = 2_000
+#: phase 15(a): the sweep's first start to last end is held under the
+#: spread of its launches' starts plus this many times its longest
+#: topology's launch alone
+OVERLAP_SLACK = 1.25
+
+
+def timed_sweep(cfg, trace):
+    """One ``sweep_topologies`` of phase 15(a)'s grid with the default
+    workers: (the sweep, its timings, its wall seconds, each launch's
+    (start, end) in ms after the sweep's entry, by CUDA events on its
+    topology's stream, in launch order)."""
+    import torch
+    from repro_torch.core import sweep_topologies
+
+    tm = {}
+    torch.cuda.synchronize()
+    ref = torch.cuda.Event(enable_timing=True)
+    ref.record()
+    with LaunchTimer() as timer:
+        t0 = time.perf_counter()
+        sweep = sweep_topologies(cfg, trace, TOPO_SWEEP_GRID,
+                                 TOPO_SWEEP_CYCLES, timings=tm,
+                                 device=DEVICE)
+        wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    spans = sorted((ref.elapsed_time(s), ref.elapsed_time(e))
+                   for s, e in timer.pairs)
+    return sweep, tm, wall, spans
+
+
+def spans_text(spans):
+    """A sweep's launches: device ms, starts, first start to last end."""
+    dev_ms = [e - s for s, e in spans]
+    return ("launches' device ms " + ", ".join(f"{d:.3f}" for d in dev_ms)
+            + f" (sum {sum(dev_ms):.3f}), started at "
+            + ", ".join(f"{s:.1f}" for s, _ in spans)
+            + " ms; first start to last end "
+            f"{max(e for _, e in spans) - min(s for s, _ in spans):.3f} ms")
+
+
+def same_lane(a, b):
+    """The fields of two SimResults that differ (empty when equal)."""
+    import numpy as np
+
+    bad = [f for f in ("t_intended", "is_write", "t_admit", "t_dispatch",
+                       "t_start", "t_complete", "rdata")
+           if not np.array_equal(getattr(a, f), getattr(b, f))]
+    bad += [f"counter {k}" for k in sorted(set(a.counters) | set(b.counters))
+            if not np.array_equal(a.counters.get(k), b.counters.get(k))]
+    bad += [f for f in ("blocked_arrival", "blocked_dispatch", "num_cycles",
+                        "cfg") if getattr(a, f) != getattr(b, f)]
+    return bad
+
+
+def phase_topologies():
+    """15: the multi-topology sweep and the effective-bandwidth studies on
+    the card (see the module docstring)."""
+    import dataclasses
+
+    import torch
+    from repro_torch import golden
+    from repro_torch.core import (
+        MemSimConfig, simulate_fast, sweep_topologies, topo_grid_points)
+    from repro_torch.core.engine import fused_run_batch_plain
+    from repro_torch.kernels import build
+    from repro_torch.kernels.bank_fsm.fused import fused_run_batch_cuda
+    from repro_torch.perfmodel import effective_bw
+    from repro_torch.traces import BENCHMARKS
+
+    out = {}
+    cfg = MemSimConfig(queue_size=golden.QUEUE_SIZE)
+    trace = BENCHMARKS["conv2d"]()
+    cycles = TOPO_SWEEP_CYCLES
+
+    # ---- (a) 8 topologies x 6 lanes, one launch a topology ---------------
+    build.reset_launches()
+    sweep, tm, wall, spans = timed_sweep(cfg, trace)
+    counted = dict(build.LAUNCHES)
+    n_topo = len(sweep.topologies)
+    check(len(sweep) == 48 and n_topo == 8,
+          f"topology sweep: {len(sweep)} lanes, {n_topo} topologies")
+    check(tm["launches"] == n_topo == counted["k3batch"] == len(spans)
+          and sum(counted.values()) == n_topo,
+          f"topology sweep: launches {counted}, timings {tm['launches']}, "
+          f"timed {len(spans)}; built for one k3batch launch a topology and "
+          f"nothing else")
+    out["launches"] = counted["k3batch"]
+    for point, res in zip(sweep.points, sweep.results):
+        want = simulate_fast(res.cfg, trace, cycles, device=DEVICE)
+        bad = same_lane(want, res)
+        check(not bad, f"topology sweep lane {point} != its single-lane "
+              f"simulate_fast in {bad}")
+    log(f"[15] sweep_topologies on conv2d at {cycles}: {len(sweep)} lanes, "
+        f"{n_topo} topologies ({tm['topologies']}), one k3batch launch a "
+        f"topology and nothing else; every lane equals its single-lane "
+        f"simulate_fast; default workers {wall:.3f} s wall (run_s "
+        f"{tm['run_s']:.3f}); " + spans_text(spans))
+    walls = {"default": [wall], "max_workers=1": []}
+    for mw in (1, None, 1):
+        t1 = time.perf_counter()
+        again = sweep_topologies(cfg, trace, TOPO_SWEEP_GRID, cycles,
+                                 max_workers=mw, device=DEVICE)
+        walls["default" if mw is None else "max_workers=1"].append(
+            time.perf_counter() - t1)
+        bad = [i for i, (a, b) in enumerate(zip(sweep, again))
+               if same_lane(a, b)]
+        check(not bad, f"topology sweep, max_workers={mw}: lanes {bad} "
+              f"differ from the default run")
+    # each topology alone: one launch of its lanes (as simulate_batch
+    # builds them), device time by CUDA events, the bytes of its lanes
+    pts = topo_grid_points(TOPO_SWEEP_GRID)
+    alone = []
+    for gi, topo in enumerate(sweep.topologies):
+        idxs = [i for i, t in enumerate(sweep.topo_of_point) if t == gi]
+        tcfg = dataclasses.replace(
+            sweep.results[idxs[0]].cfg, queue_size=topo.queue_size)
+        axes = {"tCL": sorted({pts[i]["tCL"] for i in idxs}),
+                "queue_size": sorted({pts[i]["queue_size"] for i in idxs})}
+        t_, views, trs, states = grid_lanes(tcfg, trace, axes,
+                                            topo.queue_size)
+        torch.cuda.synchronize()
+        s, e = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        s.record()
+        _, steps, launches = fused_run_batch_cuda(t_, views, trs, states,
+                                                  cycles)
+        e.record()
+        torch.cuda.synchronize()
+        check(launches == 1, f"topology {gi} alone: {launches} launches")
+        alone.append({"banks": topo.num_banks, "ms": s.elapsed_time(e),
+                      "steps": max(steps), "cfg": tcfg, "axes": axes,
+                      "bytes": sum(run_bytes(v, tr, st) for v, tr, st
+                                   in zip(views, trs, states))})
+    # the launches overlapped: the sweep's first start to last end within
+    # the spread of its starts (the host's set-up) plus a quarter more than
+    # the longest launch alone; launches that waited for each other (one
+    # after another, or a kernel loaded while others ran) take longer
+    dev_ms = [e - s for s, e in spans]
+    span_ms = max(e for _, e in spans) - min(s for s, _ in spans)
+    stagger = spans[-1][0] - spans[0][0]
+    longest = max(a["ms"] for a in alone)
+    dearer = max(d / a["ms"] for d, a in zip(dev_ms, alone))
+    check(span_ms < stagger + OVERLAP_SLACK * longest,
+          f"topology sweep: first start to last end {span_ms:.3f} ms, over "
+          f"the starts' spread {stagger:.3f} ms + {OVERLAP_SLACK} x the "
+          f"longest launch alone {longest:.3f} ms: the launches did not "
+          f"overlap")
+    # the slowest topology alone: its time, byte bound and plain version
+    # (its fused_run_batch_plain protocol on fresh lanes, 30 steps of every
+    # lane, after 5 to warm up), each per step of its longest lane
+    slowest = max(alone, key=lambda a: a["ms"])
+    for budget in (5, 30):
+        t_, views, trs, states = grid_lanes(
+            slowest["cfg"], trace, slowest["axes"],
+            slowest["cfg"].queue_size)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fused_run_batch_plain(t_, views, trs, states, cycles, budget,
+                              max_launches=1)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3 / budget
+    out.update({
+        "ms": slowest["ms"] / slowest["steps"], "plain_ms": plain_ms,
+        "bound_ms": (slowest["bytes"] / HBM_BYTES_PER_S * 1e3
+                     / slowest["steps"]),
+        "walls": walls, "dev_ms": dev_ms, "span_ms": span_ms,
+        "alone": [(a["banks"], a["ms"], a["steps"]) for a in alone]})
+    log("[15] each topology alone, one launch of its 6 lanes (banks: device "
+        "ms, longest lane steps, us/step): "
+        + "; ".join(f"{a['banks']}: {a['ms']:.3f} ms, {a['steps']}, "
+                    f"{a['ms'] * 1e3 / a['steps']:.3f}" for a in alone)
+        + f"; sum {sum(a['ms'] for a in alone):.3f} ms, longest "
+        f"{longest:.3f} ms; in the sweep a launch at most "
+        f"{(dearer - 1) * 100:.1f}% dearer than alone; first start to last "
+        f"end {span_ms:.3f} ms < starts' spread {stagger:.3f} + "
+        f"{OVERLAP_SLACK} x {longest:.3f} ms: overlapped")
+    log(f"[15] the slowest topology ({slowest['banks']} banks) alone: "
+        f"{out['ms'] * 1e3:.3f} us/step of its longest lane; its plain "
+        f"version (fused_run_batch_plain, eager on the card) "
+        f"{plain_ms * 1e3:.1f} us wall a step of its 6 lanes; bound "
+        f"{slowest['bytes']} B at 3.35 TB/s = {out['bound_ms'] * 1e6:.3f} "
+        f"ns per step of its longest lane")
+    log(f"[15] sweep wall: default workers "
+        + ", ".join(f"{w:.3f}" for w in walls["default"])
+        + " s; max_workers=1 (one topology after another) "
+        + ", ".join(f"{w:.3f}" for w in walls["max_workers=1"]) + " s")
+
+    # ---- (b) the small golden grid; a split x fused backend axis ---------
+    build.reset_launches()
+    got = golden.topo_grid_digests(sweep_topologies, MemSimConfig,
+                                   BENCHMARKS[golden.TOPO_GRID_TRACE](),
+                                   device=DEVICE)
+    bad = golden.mismatches(golden.load_perfmodel()["topo_grid"], got)
+    check(not bad, f"small topology grid lanes {bad} differ from the JAX "
+          f"digests")
+    n_small = len(golden.TOPO_GRID["ranks"])  # its only structural axis
+    check(build.LAUNCHES["k3batch"] == n_small
+          and sum(build.LAUNCHES.values()) == n_small,
+          f"small grid launches {dict(build.LAUNCHES)}")
+    log(f"[15] small grid {golden.TOPO_GRID} on {golden.TOPO_GRID_TRACE} at "
+        f"{golden.TOPO_GRID_CYCLES}: {len(got)} lanes equal the JAX digests, "
+        f"{n_small} k3batch launches")
+    build.reset_launches()
+    tmb = {}
+    t0 = time.perf_counter()
+    both = sweep_topologies(cfg, trace, BACKEND_GRID, BACKEND_CYCLES,
+                            timings=tmb, device=DEVICE)
+    wall_b = time.perf_counter() - t0
+    half = len(both) // 2
+    check([t.fsm_backend for t in both.topologies]
+          == ["split"] * 2 + ["fused"] * 2,
+          f"backend grid topologies {both.topologies}")
+    for i in range(half):
+        bad = [f for f in same_lane(both[i], both[i + half]) if f != "cfg"]
+        check(not bad and both[i].cfg == dataclasses.replace(
+            both[i + half].cfg, fsm_backend="split"),
+              f"split lane {both.points[i]} != its fused twin in {bad}")
+    check(build.LAUNCHES["k3batch"] == 2 and build.LAUNCHES["k1"] > 0
+          and build.LAUNCHES["k2"] > 0,
+          f"backend grid launches {dict(build.LAUNCHES)}")
+    log(f"[15] split x fused grid {BACKEND_GRID} on conv2d at "
+        f"{BACKEND_CYCLES}: every split lane equals its fused twin; "
+        f"{wall_b:.3f} s wall; launches {dict(build.LAUNCHES)}")
+
+    # ---- (c) every study of the golden file ------------------------------
+    want = golden.load_perfmodel()["rows"]
+    studies = {}
+    for study in golden.perfmodel_calls():
+        build.reset_launches()
+        tms = {}
+        kw = {"device": DEVICE}
+        if study not in ("decode_efficiency", "train_efficiency"):
+            kw["timings"] = tms
+        t0 = time.perf_counter()
+        rows = golden.perfmodel_rows(effective_bw, study, **kw)
+        wall_s = time.perf_counter() - t0
+        launched = {k: v for k, v in build.LAUNCHES.items() if v}
+        check(rows == want[study], f"{study}: rows differ from the JAX "
+              f"golden rows: got {rows}, want {want[study]}")
+        if study == "cxl_tier_study":
+            check(all(r["bit_identical"] for r in rows),
+                  "cxl_tier_study: a lane is not bit-identical to its "
+                  "per-cycle simulate")
+            check(launched == {"k3batch": 1, "k3cyc": len(rows)},
+                  f"cxl_tier_study launches {launched}")
+        if study in ("llm_grid_study", "dvfs_llm_study"):
+            check(launched == {"k3batch": 1}, f"{study}: {launched}")
+        studies[study] = {"wall_s": wall_s, "launches": launched}
+        log(f"[15] {study}: {len(rows) if isinstance(rows, list) else 1} "
+            f"row(s) equal the JAX golden rows; {wall_s:.3f} s wall; "
+            f"launches {launched}")
+    out["studies"] = studies
+    return out
+
+
 # ------------------------------------------------------- LLM serve slice --
 
 FLASH_SHAPES = [  # b, hq, s, d, hkv
@@ -2506,14 +2801,15 @@ def phase_serve():
     from repro_torch.kernels import build
     from repro_torch.launch.serve import make_requests, serve_loop
     from repro_torch.launch.steps import make_decode_step, make_prefill
-    from repro_torch.models import registry
+    from repro_torch.models import lm, registry
 
     bf16 = torch.bfloat16
     cfg = get_config("qwen3-14b")
     check(cfg.n_layers == 40 and cfg.d_model == 5120,
           "qwen3-14b config is not the full-width one")
     t0 = time.perf_counter()
-    params = registry.init_params(cfg, 0, device=DEVICE, dtype=bf16)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    params = lm.init_params(cfg, gen, device=DEVICE, dtype=bf16)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
     n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
@@ -2887,7 +3183,8 @@ def phase_jamba():
         f"freed)")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = registry.init_params(cfg, 0, device=DEVICE, dtype=bf16)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    params = lm.init_params(cfg, gen, device=DEVICE, dtype=bf16)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
     n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
@@ -3285,6 +3582,29 @@ def split_times():
         f"{tm['steps']} steps")
 
 
+def topology_sweep_times():
+    """Phase 15(a)'s sweep twice in this fresh process, of the port
+    imported from ``sys.path``: its kernels built and loaded first, but no
+    form of the lane-batched K3 loaded into the card's context before the
+    first sweep. Each sweep's wall, each launch's start and device time and
+    the first start to the last end: run once per checkout, each in its
+    own process, to compare two checkouts on one card (A B B A)."""
+    import torch
+    from repro_torch import golden
+    from repro_torch.core import MemSimConfig
+    from repro_torch.kernels import build
+    from repro_torch.traces import BENCHMARKS
+
+    build.load()
+    torch.zeros(1, device=DEVICE)  # the context, before the first sweep
+    cfg = MemSimConfig(queue_size=golden.QUEUE_SIZE)
+    trace = BENCHMARKS["conv2d"]()
+    for run in ("first", "second"):
+        _, _, wall, spans = timed_sweep(cfg, trace)
+        log(f"topology sweep {build.CSRC.parents[2]}, {run} in the "
+            f"process: {wall:.3f} s wall; " + spans_text(spans))
+
+
 def main():
     try:
         import torch
@@ -3295,10 +3615,11 @@ def main():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false)", file=sys.stderr)
         return 2
-    # --k3-step-times / --split-times CHECKOUT: only that timing, of that
-    # checkout's port
+    # --k3-step-times / --split-times / --topology-sweep CHECKOUT: only
+    # that timing, of that checkout's port
     only = {"--k3-step-times": k3_step_times,
-            "--split-times": split_times}.get(
+            "--split-times": split_times,
+            "--topology-sweep": topology_sweep_times}.get(
                 sys.argv[1] if len(sys.argv) == 3 else None)
     step_times = only is not None
     root = Path(sys.argv[2]).resolve() if step_times else ROOT
@@ -3333,6 +3654,7 @@ def main():
         hybrid_times = phase_hybrid_times()
         batch = phase_batch()
         sessions = phase_sessions(run_plain_ms, batch["plain_ms"])
+        topologies = phase_topologies()
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3390,6 +3712,15 @@ def main():
             "max_abs_err": 0, "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": "bytes",
             "library_ms": None})
+    # the topology sweep: one lane-batched launch a topology, per executed
+    # step of the longest lane of the slowest topology alone
+    kernels.append({
+        "name": "fused_run_batch_topologies", "route": "cuda",
+        "source": src + "fused.cu", "replaces": ref + "fused.py:397",
+        "launches": topologies["launches"], "max_abs_err": 0,
+        "ms": topologies["ms"], "plain_ms": topologies["plain_ms"],
+        "bound_ms": topologies["bound_ms"], "bound_by": "bytes",
+        "library_ms": None})
     ref = "src/repro/kernels/"
     ms, plain_ms, bound_ms, bound_by = hybrid_times["k4"]
     kernels.append({

@@ -12,6 +12,8 @@ from repro_torch.core.params import (
 from repro_torch.core.simulator import SimResult, Trace, simulate
 from repro_torch.core.engine import (
     GRID_AXES,
+    TOPO_AXES,
+    TopoGridResult,
     grid_points,
     lane_schedule,
     simulate_batch,
@@ -19,6 +21,8 @@ from repro_torch.core.engine import (
     stack_traces,
     sweep_grid,
     sweep_queue_sizes,
+    sweep_topologies,
+    topo_grid_points,
 )
 from repro_torch.core.session import SimSession, WindowReport
 from repro_torch.core.session_batch import SessionBatch, SessionLane
@@ -43,6 +47,10 @@ __all__ = [
     "lane_schedule",
     "grid_points",
     "sweep_grid",
+    "TOPO_AXES",
+    "topo_grid_points",
+    "TopoGridResult",
+    "sweep_topologies",
     "SimSession",
     "WindowReport",
     "SessionBatch",

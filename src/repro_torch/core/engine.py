@@ -1,6 +1,8 @@
 """Event-horizon engine: PyTorch counterpart of ``repro.core.engine``, the
-single lane and batches of independent lanes of one topology
-(``simulate_batch``, ``sweep_queue_sizes``, ``sweep_grid``).
+single lane, batches of independent lanes of one topology
+(``simulate_batch``, ``sweep_queue_sizes``, ``sweep_grid``) and grids over
+hardware shapes (``sweep_topologies``: one batch a topology, the
+topologies' launches overlapped on CUDA streams).
 
 After every executed cycle the engine computes the distance to the next
 event — a min over per-bank bounds (WAIT expiries, blocked bids turning
@@ -35,6 +37,7 @@ import functools
 import itertools
 import os
 import time
+from contextlib import nullcontext
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -53,6 +56,7 @@ from repro_torch.core.params import (
     RuntimeParams,
     S_IDLE,
     S_SREF,
+    Topology,
     as_schedule,
     runtime_constraint_violations,
 )
@@ -70,8 +74,8 @@ from repro_torch.core.simulator import (
 )
 from repro_torch.kernels import build
 from repro_torch.kernels.bank_fsm.fused import (
-    DEFAULT_RUN_BUDGET, fused_run_batch_cuda, fused_run_cuda,
-    fused_step_plain)
+    DEFAULT_RUN_BUDGET, FusedRunBatch, fused_run_cuda, fused_step_plain,
+    preload_batch_forms)
 
 _INF = 0x3FFFFFFF
 _PAD_T = 0x3FFFFFFF  # arrival time for padded trace slots: never due
@@ -248,20 +252,29 @@ def fused_run_batch_plain(topo, views, traces, states, t_end: int,
 
 def fused_run_batch(topo, views, traces, states, t_end: int,
                     budget: Optional[int] = None, cycle_skip: bool = True,
-                    t=None, max_launches: Optional[int] = None
-                    ) -> Tuple[List[int], List[int], int]:
+                    t=None, max_launches: Optional[int] = None,
+                    start_only: bool = False):
     """Every lane (its own view, trace and state, one topology and
     capacities) from its clock to the horizon ``t_end``, in place: launches
     of the lane-batched persistent K3 for states on the card, its plain
     version for states on the CPU. Returns (the clock of each lane, its
-    executed steps, launches)."""
+    executed steps, launches). With ``start_only`` the first launch is
+    enqueued on the card's current stream and the function that finishes
+    the protocol (and returns that triple) is returned at once."""
     on_card = {s.mem.is_cuda for s in states}
     if len(on_card) > 1:
         raise ValueError("fused_run_batch: lanes on the card and on the CPU")
-    run = fused_run_batch_cuda if on_card == {True} else \
-        fused_run_batch_plain
-    return run(topo, views, traces, states, t_end, budget, cycle_skip, t,
-               max_launches)
+    if on_card != {True}:
+        finish = functools.partial(fused_run_batch_plain, topo, views,
+                                   traces, states, t_end, budget, cycle_skip,
+                                   t, max_launches)
+    else:
+        run = FusedRunBatch(topo, views, traces, states, t_end, budget,
+                            cycle_skip, t, max_launches)
+        if start_only and run.active and max_launches != 0:
+            run.launch()
+        finish = run.finish
+    return finish if start_only else finish()
 
 
 def fused_cycles(topo, view: ScheduleView, trace: Trace, state: SimState,
@@ -587,7 +600,22 @@ def simulate_batch(cfg: MemSimConfig,
     backends) and ``per_lane`` (``{lane, device, steps}`` a lane).
     ``device=None`` runs on the CUDA card and raises without one.
     """
-    dev = resolve_device(device)
+    return _start_batch(cfg, traces, num_cycles, queue_sizes=queue_sizes,
+                        resp_queue_sizes=resp_queue_sizes, params=params,
+                        lane_cfgs=lane_cfgs, cycle_skip=cycle_skip,
+                        batch_mode=batch_mode,
+                        dev=resolve_device(device))(timings)
+
+
+def _start_batch(cfg: MemSimConfig, traces, num_cycles: int, *,
+                 queue_sizes, resp_queue_sizes, params, lane_cfgs,
+                 cycle_skip: bool, batch_mode: str, dev: torch.device):
+    """:func:`simulate_batch` split at its first launch: validates the
+    lanes and sets them up on ``dev``; on the fused backend the first
+    launch is enqueued on the card's current stream
+    (:func:`fused_run_batch` with ``start_only``). Returns
+    ``finish(timings=None)``, which runs the rest and returns the
+    results."""
     cfg.validate()
     topo = cfg.topology()
     if batch_mode not in ("auto", "vmap", "lanes"):
@@ -603,7 +631,7 @@ def simulate_batch(cfg: MemSimConfig,
         trace_list = list(traces)
     lanes = len(trace_list)
     if lanes == 0:
-        return []
+        return lambda timings=None: []
 
     def _broadcast(vals, default, name, cap):
         if vals is None:
@@ -648,43 +676,49 @@ def simulate_batch(cfg: MemSimConfig,
               for v, q, r in zip(views, qs, rs)]
     t_set = time.perf_counter()
     if topo.fsm_backend == "fused":
-        _, lane_steps, launches = fused_run_batch(topo, views, trs, states,
-                                                  num_cycles,
-                                                  cycle_skip=cycle_skip)
-        finals = states
-    else:
-        runner = _run_skip_core if cycle_skip else _run_scan_core
-        finals, lane_steps, launches = [], [], 0
-        for v, tr, st in zip(views, trs, states):
-            final, k, _ = runner(topo, v, tr, num_cycles, st)
-            finals.append(final)
-            lane_steps.append(int(k))
-    t_lanes = time.perf_counter()
+        fused_finish = fused_run_batch(topo, views, trs, states,
+                                       num_cycles, cycle_skip=cycle_skip,
+                                       start_only=True)
 
-    results = []
-    for i in range(lanes):
-        if lane_cfgs is not None:
-            lane_cfg = lane_cfgs[i]
+    def finish(timings: Optional[dict] = None) -> List[SimResult]:
+        if topo.fsm_backend == "fused":
+            _, lane_steps, launches = fused_finish()
+            finals = states
         else:
-            lane_cfg = dataclasses.replace(scheds[i].apply_to(cfg),
-                                           queue_size=qs[i],
-                                           resp_queue_size=rs[i])
-        results.append(state_to_result(lane_cfg, trace_list[i], finals[i],
-                                       num_cycles))
-    t2 = time.perf_counter()
-    if timings is not None:
-        timings["compile_s"] = timings.get("compile_s", 0.0) + (t1 - t0)
-        timings["run_s"] = timings.get("run_s", 0.0) + (t2 - t1)
-        timings["setup_s"] = t_set - t1
-        timings["lanes_s"] = t_lanes - t_set
-        timings["results_s"] = t2 - t_lanes
-        timings["steps"] = max(lane_steps)
-        timings["steps_total"] = sum(lane_steps)
-        timings["launches"] = int(launches)
-        timings.setdefault("per_lane", []).extend(
-            {"lane": i, "device": str(dev), "steps": int(k)}
-            for i, k in enumerate(lane_steps))
-    return results
+            runner = _run_skip_core if cycle_skip else _run_scan_core
+            finals, lane_steps, launches = [], [], 0
+            for v, tr, st in zip(views, trs, states):
+                final, k, _ = runner(topo, v, tr, num_cycles, st)
+                finals.append(final)
+                lane_steps.append(int(k))
+        t_lanes = time.perf_counter()
+
+        results = []
+        for i in range(lanes):
+            if lane_cfgs is not None:
+                lane_cfg = lane_cfgs[i]
+            else:
+                lane_cfg = dataclasses.replace(scheds[i].apply_to(cfg),
+                                               queue_size=qs[i],
+                                               resp_queue_size=rs[i])
+            results.append(state_to_result(lane_cfg, trace_list[i],
+                                           finals[i], num_cycles))
+        t2 = time.perf_counter()
+        if timings is not None:
+            timings["compile_s"] = timings.get("compile_s", 0.0) + (t1 - t0)
+            timings["run_s"] = timings.get("run_s", 0.0) + (t2 - t1)
+            timings["setup_s"] = t_set - t1
+            timings["lanes_s"] = t_lanes - t_set
+            timings["results_s"] = t2 - t_lanes
+            timings["steps"] = max(lane_steps)
+            timings["steps_total"] = sum(lane_steps)
+            timings["launches"] = int(launches)
+            timings.setdefault("per_lane", []).extend(
+                {"lane": i, "device": str(dev), "steps": int(k)}
+                for i, k in enumerate(lane_steps))
+        return results
+
+    return finish
 
 
 def sweep_queue_sizes(cfg: MemSimConfig, trace: Trace,
@@ -747,6 +781,27 @@ def _stream_threshold() -> int:
     return max(1, v)
 
 
+def _refuse_streaming(entry: str, n_points: int, stream: Optional[bool],
+                      checkpoint_dir: Optional[str],
+                      chunk_lanes: Optional[int],
+                      memory_budget_bytes: Optional[int]) -> None:
+    """Raise ``NotImplementedError`` where the reference's ``entry`` would
+    run its streaming executor (``stream=True``, a ``checkpoint_dir``, or
+    at least ``MEMSIM_STREAM_THRESHOLD`` points unless ``stream=False``)
+    or is given one of its options: the executor is not ported."""
+    if stream is None:
+        stream = (checkpoint_dir is not None
+                  or n_points >= _stream_threshold())
+    if stream or checkpoint_dir is not None or chunk_lanes is not None \
+            or memory_budget_bytes is not None:
+        raise NotImplementedError(
+            f"{entry}: {n_points} points on the streaming executor (stream, "
+            f"checkpoint_dir, chunk_lanes, memory_budget_bytes, or >= "
+            f"MEMSIM_STREAM_THRESHOLD = {_stream_threshold()} points) are "
+            f"not ported; see ROADMAP.md §1, streaming and persistence "
+            f"(item 4)")
+
+
 def grid_points(grid: Mapping[str, Sequence]) -> List[Dict]:
     """Expand an axis dict into the Cartesian product of override dicts,
     last axis fastest (``itertools.product`` order)."""
@@ -794,17 +849,8 @@ def sweep_grid(cfg: MemSimConfig, trace: Trace,
     ``NotImplementedError``. ``resume`` only applies to it.
     """
     points = grid_points(grid)
-    if stream is None:
-        stream = (checkpoint_dir is not None
-                  or len(points) >= _stream_threshold())
-    if stream or checkpoint_dir is not None or chunk_lanes is not None \
-            or memory_budget_bytes is not None:
-        raise NotImplementedError(
-            f"sweep_grid: {len(points)} points on the streaming executor "
-            f"(stream, checkpoint_dir, chunk_lanes, memory_budget_bytes, or "
-            f">= MEMSIM_STREAM_THRESHOLD = {_stream_threshold()} points) "
-            f"are not ported; see ROADMAP.md §1, item 4 (streaming and "
-            f"persistence)")
+    _refuse_streaming("sweep_grid", len(points), stream, checkpoint_dir,
+                      chunk_lanes, memory_budget_bytes)
     # per-point full configs, validated as config construction would; the
     # "schedule" axis resolves against each lane's config
     lane_cfgs = [dataclasses.replace(
@@ -827,3 +873,271 @@ def sweep_grid(cfg: MemSimConfig, trace: Trace,
                           cycle_skip=cycle_skip, shard=shard,
                           batch_mode=batch_mode, timings=timings,
                           device=device)
+
+
+# --------------------------------------------------------------------------
+# multi-topology sweeps: one lane-batched launch a hardware shape
+
+#: structural grid axes of :func:`sweep_topologies` on top of the runtime
+#: :data:`GRID_AXES`: every shape-determining :class:`Topology` field.
+#: ``queue_size`` / ``resp_queue_size`` stay runtime depths against a
+#: grid-wide capacity, so a depth value never makes a topology of its own.
+TOPO_AXES = tuple(f.name for f in dataclasses.fields(Topology)
+                  if f.name not in ("queue_size", "resp_queue_size"))
+
+
+def topo_grid_points(grid: Mapping[str, Sequence]) -> List[Dict]:
+    """Expand a mixed (topology x runtime) axis dict into the Cartesian
+    product of override dicts, last axis fastest (:func:`grid_points`
+    order). Valid axes are :data:`TOPO_AXES` (structural: channels, ranks,
+    bankgroups, banks_per_group, column_bits, tiers, cxl_channels,
+    mem_words, fsm_backend) plus every runtime axis of :data:`GRID_AXES`."""
+    keys = list(grid)
+    for k in keys:
+        if k not in TOPO_AXES and k not in GRID_AXES:
+            raise ValueError(
+                f"unknown grid axis {k!r}; valid: {TOPO_AXES + GRID_AXES}")
+        if len(grid[k]) == 0:
+            raise ValueError(f"grid axis {k!r} is empty")
+    return [dict(zip(keys, vals))
+            for vals in itertools.product(*(grid[k] for k in keys))]
+
+
+@dataclasses.dataclass
+class TopoGridResult:
+    """Merged result table of a multi-topology sweep, keyed by the full
+    config point.
+
+    ``points[i]`` is the axis override dict of ``results[i]`` (grid
+    order); ``topologies[topo_of_point[i]]`` its hardware shape; each
+    result's ``cfg`` labels its exact grid point. ``timings`` is the
+    sweep's own record (see :func:`sweep_topologies`)."""
+
+    points: List[Dict]
+    results: List[SimResult]
+    topologies: List[Topology]
+    topo_of_point: List[int]
+    timings: Dict
+
+    def __len__(self) -> int:
+        return len(self.results)
+
+    def __iter__(self):
+        return iter(self.results)
+
+    def __getitem__(self, i: int) -> SimResult:
+        return self.results[i]
+
+    def table(self) -> List[Dict]:
+        """One row per grid point: ``{point, topology, result}``."""
+        return [{"point": dict(p), "topology": self.topologies[ti],
+                 "result": r}
+                for p, ti, r in zip(self.points, self.topo_of_point,
+                                    self.results)]
+
+    def result_at(self, **axes) -> SimResult:
+        """The unique grid point matching every given axis value."""
+        hits = [i for i, p in enumerate(self.points)
+                if all(p.get(k) == v for k, v in axes.items())]
+        if len(hits) != 1:
+            raise KeyError(
+                f"{axes} matches {len(hits)} grid points (need exactly 1)")
+        return self.results[hits[0]]
+
+
+def sweep_topologies(cfg: MemSimConfig,
+                     trace: Union[Trace, Sequence[Trace]],
+                     grid: Mapping[str, Sequence],
+                     num_cycles: int = 100_000,
+                     *, capacity: Optional[int] = None,
+                     resp_capacity: Optional[int] = None,
+                     cycle_skip: bool = True,
+                     max_workers: Optional[int] = None,
+                     stream: Optional[bool] = None,
+                     chunk_lanes: Optional[int] = None,
+                     memory_budget_bytes: Optional[int] = None,
+                     checkpoint_dir: Optional[str] = None,
+                     resume: bool = True,
+                     timings: Optional[dict] = None,
+                     device=None) -> TopoGridResult:
+    """Run a full (topology x runtime-params x policy x depth) grid, one
+    :func:`simulate_batch` a distinct hardware shape.
+
+    1. Expand the grid (:func:`topo_grid_points`), validate each point's
+       config, set every lane's queue depths against the grid-wide
+       ``capacity`` / ``resp_capacity`` (defaults: the largest swept
+       depth), so a depth never splits a group, pad the schedules to one
+       grid-wide segment count, and group the points by their
+       :class:`Topology`.
+    2. Each ``fused`` topology runs its lanes through the lane-batched
+       persistent K3 (:func:`fused_run_batch`): one launch a topology on
+       the card unless the run budget relaunches it. Each topology gets a
+       CUDA stream of its own; the calling thread sets up a topology's
+       lanes on its stream, enqueues its launch and goes on to the next
+       topology's set-up without waiting, so the launches run concurrently
+       on the SMs while the host works, and reads each topology's
+       ``(t, steps)`` and results afterwards. Every form of the kernel is
+       loaded before the first launch, so no lazy load waits for running
+       launches. ``max_workers`` bounds the
+       topologies in flight at once (default: all of them; 1 runs them
+       one after another). On the CPU their plain versions run.
+    3. ``split`` and ``plain`` topologies run after every fused launch has
+       been read, through the single-lane loops (their CUDA-graph
+       captures then overlap no launch).
+    4. The per-lane results merge into one :class:`TopoGridResult` in grid
+       order.
+
+    Every lane is bit-exact vs a :func:`simulate_fast` run of its point.
+    ``trace`` is one Trace broadcast to every point, or one Trace a point.
+
+    ``timings`` (optional dict; also the result's ``timings``): ``compiles``
+    (kernel libraries this call built, 0 when the build is warm),
+    ``compile_s`` and ``compile_s_wall`` (seconds in the build),
+    ``run_s`` (wall of every topology's run), ``steps`` (the most any lane
+    executed), ``topologies``, ``launches`` (lane-batched K3 launches) and
+    ``per_topology`` (``{topology, lanes, compile_s, run_s, steps, device,
+    launches}`` a topology). ``device=None`` runs on the CUDA card and
+    raises without one.
+
+    The reference's streaming executor is not ported (ROADMAP.md §1,
+    streaming and persistence): ``stream=True``, a ``checkpoint_dir``,
+    ``chunk_lanes``, ``memory_budget_bytes``, or at least
+    ``MEMSIM_STREAM_THRESHOLD`` points (unless ``stream=False``) raise
+    ``NotImplementedError``. ``resume`` only applies to it.
+    """
+    points = topo_grid_points(grid)
+    _refuse_streaming("sweep_topologies", len(points), stream,
+                      checkpoint_dir, chunk_lanes, memory_budget_bytes)
+    dev = resolve_device(device)
+    lane_cfgs = [dataclasses.replace(
+        cfg, **{k: v for k, v in ov.items() if k != "schedule"}).validate()
+        for ov in points]
+    n_points = len(points)
+    if isinstance(trace, Trace):
+        trace_list = [trace] * n_points
+    else:
+        trace_list = list(trace)
+        if len(trace_list) != n_points:
+            raise ValueError(
+                f"got {len(trace_list)} traces for {n_points} grid points")
+
+    qs = [c.queue_size for c in lane_cfgs]
+    rs = [c.resp_queue_size for c in lane_cfgs]
+    cap = max(qs) if capacity is None else capacity
+    rcap = max(rs) if resp_capacity is None else resp_capacity
+    if cap < max(qs):
+        raise ValueError("capacity below largest swept queue size")
+    if rcap < max(rs):
+        raise ValueError("resp_capacity below largest swept resp queue size")
+    scheds = [_sched_i32(lane_schedule(c, ov.get("schedule")))
+              for c, ov in zip(lane_cfgs, points)]
+    s_max = max(sc.num_segments for sc in scheds)
+    scheds = [sc.pad_to(s_max) for sc in scheds]
+
+    topologies: List[Topology] = []
+    topo_of_point: List[int] = []
+    for c in lane_cfgs:
+        t = dataclasses.replace(c, queue_size=cap,
+                                resp_queue_size=rcap).topology()
+        if t not in topologies:
+            topologies.append(t)
+        topo_of_point.append(topologies.index(t))
+    groups = [[i for i, ti in enumerate(topo_of_point) if ti == gi]
+              for gi in range(len(topologies))]
+
+    built0 = build.build_count()
+    t_c0 = time.perf_counter()
+    if dev.type == "cuda" and any(t.fsm_backend != "plain"
+                                  for t in topologies):
+        build.load()
+        if any(t.fsm_backend == "fused" for t in topologies):
+            preload_batch_forms()
+    compile_s = time.perf_counter() - t_c0
+
+    def on_stream(gi: int):
+        s = streams.get(gi)
+        return torch.cuda.stream(s) if s is not None else nullcontext()
+
+    def start(gi: int):
+        """Set up topology ``gi``'s lanes and, fused on the card, enqueue
+        its first launch on its stream."""
+        idxs = groups[gi]
+        gcfg = dataclasses.replace(lane_cfgs[idxs[0]], queue_size=cap,
+                                   resp_queue_size=rcap)
+        t0 = time.perf_counter()
+        with on_stream(gi):
+            done = _start_batch(
+                gcfg, [trace_list[i] for i in idxs], num_cycles,
+                queue_sizes=[qs[i] for i in idxs],
+                resp_queue_sizes=[rs[i] for i in idxs],
+                params=[scheds[i] for i in idxs],
+                lane_cfgs=[lane_cfgs[i] for i in idxs],
+                cycle_skip=cycle_skip, batch_mode="lanes", dev=dev)
+        return gi, done, t0
+
+    def finish(started) -> None:
+        gi, done, t0 = started
+        tm = {}
+        with on_stream(gi):
+            res = done(tm)
+        outs[gi] = (res, tm, time.perf_counter() - t0)
+
+    fused = [gi for gi, t in enumerate(topologies)
+             if t.fsm_backend == "fused"]
+    if max_workers is None:
+        max_workers = max(1, len(fused))
+    streams = {}
+    if dev.type == "cuda":
+        here = torch.cuda.current_stream(dev)
+        for gi in fused:
+            streams[gi] = torch.cuda.Stream(device=dev)
+            # a trace the caller put on the card may still be in flight
+            streams[gi].wait_stream(here)
+    outs: Dict[int, tuple] = {}
+    t_r0 = time.perf_counter()
+    in_flight: List[tuple] = []
+    for gi in fused:
+        in_flight.append(start(gi))
+        if len(in_flight) >= max_workers:
+            finish(in_flight.pop(0))
+    for started in in_flight:
+        finish(started)
+    # split and plain topologies after every fused launch has been read:
+    # their CUDA-graph captures then overlap no launch
+    for gi in range(len(topologies)):
+        if gi not in outs:
+            finish(start(gi))
+    run_wall = time.perf_counter() - t_r0
+
+    results: List[Optional[SimResult]] = [None] * n_points
+    for gi, (res, _, _) in outs.items():
+        for i, r in zip(groups[gi], res):
+            results[i] = r
+    per = [{"topology": dataclasses.asdict(topologies[gi]),
+            "lanes": len(groups[gi]),
+            "compile_s": outs[gi][1]["compile_s"],
+            "run_s": outs[gi][2],
+            "steps": outs[gi][1]["steps"],
+            "device": str(dev),
+            "launches": outs[gi][1]["launches"]}
+           for gi in range(len(topologies))]
+    own = {
+        "compiles": build.build_count() - built0,
+        "compile_s": compile_s,
+        "compile_s_wall": compile_s,
+        "run_s": run_wall,
+        "steps": max(p["steps"] for p in per),
+        "topologies": len(topologies),
+        "launches": sum(p["launches"] for p in per),
+        "per_topology": per,
+    }
+    if timings is not None:
+        for k in ("compiles", "topologies", "launches"):
+            timings[k] = timings.get(k, 0) + own[k]
+        for k in ("compile_s", "compile_s_wall", "run_s"):
+            timings[k] = timings.get(k, 0.0) + own[k]
+        timings["steps"] = max(timings.get("steps", 0), own["steps"])
+        timings.setdefault("per_topology", []).extend(per)
+    return TopoGridResult(points=points, results=results,
+                          topologies=topologies,
+                          topo_of_point=topo_of_point, timings=own)

@@ -1133,6 +1133,12 @@ struct Form {
     kern<<<L, threads, bytes, st>>>(lanes_dev, dev);
     return (int)cudaGetLastError();
   }
+  // loads the batched kernel of this form into the context
+  static int load_batch() {
+    cudaFuncAttributes attr;
+    return (int)cudaFuncGetAttributes(
+        &attr, fused_run_batch_kernel<kThreads, K, kSkip>);
+  }
 };
 
 // f(Form<..>{}) of a lane of B banks, k a thread: 32 threads up to 32
@@ -1268,6 +1274,23 @@ extern "C" int fused_run_batch_launch(const void* lanes_host,
   if (lead < 0 || lanes_dev == nullptr) return (int)cudaErrorInvalidValue;
   return batch_form(h[lead], static_cast<const FusedRunArgs*>(lanes_dev), L,
                     nullptr, static_cast<cudaStream_t>(stream));
+}
+
+// Loads every form of the batched kernel into the context. The runtime
+// loads a kernel lazily, at its first use, and a load may wait until the
+// card is idle: a form first launched while other launches run (the
+// topologies of a sweep, each on its own stream) would start only after
+// they end. Returns a cudaError_t.
+extern "C" int fused_run_batch_preload() {
+  for (const bool skip : {true, false})
+    for (const int B : {32, 2 * 32, 2 * LANE_THREADS}) {
+      const int err =
+          with_form(B, banks_per_thread(B), skip, [](auto form) {
+            return decltype(form)::load_batch();
+          });
+      if (err != 0) return err;
+    }
+  return 0;
 }
 
 // Returns a cudaError_t.

@@ -23,11 +23,21 @@ reference's ``perfmodel.effective_bw.serving_study`` at its defaults
 (:data:`SERVING_LOADS` of the :data:`SERVING_MIXTURE` mixture, Poisson
 arrivals, horizon :data:`SERVING_HORIZON`, windows of
 :data:`SERVING_WINDOW`, seed :data:`SERVING_SEED`, the study's capacity
-rule :func:`serving_capacity`) on its two topologies
+rule ``perfmodel.effective_bw.serving_capacity``) on its two topologies
 (:func:`serving_topologies`: 2-channel DRAM and a 2-channel tiered CXL
 device), each topology's loads run as lanes of one
 ``run_serving_batched``: for each scenario every ``ServingResult`` field
 and the digest of its lane's session result (:func:`serving_digest`).
+
+``jax_perfmodel_reference.json`` holds the reference's
+``perfmodel.effective_bw`` studies at the arguments of
+:func:`perfmodel_calls` (qwen3-14b's streams, :data:`PERF_LLM`): every
+row of ``decode_efficiency``, ``train_efficiency``, ``llm_grid_study``,
+``topo_llm_grid_study``, ``dvfs_llm_study``, ``cxl_tier_study`` and
+``serving_study`` in :func:`canonical` form, and the digest of each lane
+of the small ``sweep_topologies`` grid :data:`TOPO_GRID`.
+:func:`perfmodel_reference` makes it from either package, so the card
+runs the same calls the file was made with.
 """
 
 from __future__ import annotations
@@ -39,6 +49,11 @@ from pathlib import Path
 from typing import Dict, Optional
 
 import numpy as np
+
+from repro_torch.perfmodel.effective_bw import (  # noqa: F401
+    cxl_tier_point,
+    serving_capacity,
+)
 
 GOLDEN_PATH = Path(__file__).resolve().parent / "jax_reference.json"
 BATCH_GOLDEN_PATH = GOLDEN_PATH.with_name("jax_batch_reference.json")
@@ -121,48 +136,6 @@ def serving_scenarios() -> list:
             for load in SERVING_LOADS]
 
 
-def serving_capacity(request_lists, serving) -> int:
-    """The study's session capacity: the most arrivals any scenario can
-    emit, plus 64, rounded up to a power of two (``serving`` a
-    ``ServingConfig`` of either package)."""
-
-    def emissions(reqs):
-        return sum((-(-r.prompt_tokens // serving.prefill_tokens_per_step))
-                   * serving.weight_reads_per_token
-                   + r.prompt_tokens * 32
-                   + r.decode_tokens * (serving.weight_reads_per_token
-                                        + serving.kv_reads_per_token + 32)
-                   for r in reqs)
-
-    need = max((emissions(r) for r in request_lists), default=1) + 64
-    return 1 << max(need - 1, 1).bit_length()
-
-
-def cxl_tier_point(cfg, interleave_log2: int, cxl_frac_log2: int, *,
-                   latency_adder: int = 30, link_ccd_scale: int = 2,
-                   refi_scale: int = 1):
-    """The port's twin of the reference's
-    ``perfmodel.effective_bw.cxl_tier_point``: a tier-stacked parameter
-    point whose tier 0 is ``cfg``'s DRAM timing and tier 1 the CXL
-    expander's (a link-latency adder on the access path, the
-    column-to-column gaps stretched by ``link_ccd_scale``, refresh
-    ``tREFI / refi_scale``)."""
-    from repro_torch.core.params import tiered_params
-
-    dram = cfg.runtime()._replace(tier_interleave_log2=interleave_log2,
-                                  tier_cxl_frac_log2=cxl_frac_log2)
-    cxl = dram._replace(
-        tCL=dram.tCL + latency_adder,
-        tRCDRD=dram.tRCDRD + latency_adder,
-        tRCDWR=dram.tRCDWR + latency_adder,
-        tCCDL=dram.tCCDL * link_ccd_scale,
-        tWTR=dram.tWTR * link_ccd_scale,
-        tRTW=dram.tRTW * link_ccd_scale,
-        tREFI=max(dram.tREFI // max(refi_scale, 1), dram.tRFC + 1),
-    )
-    return tiered_params(dram, cxl)
-
-
 def serving_topologies() -> list:
     """The study's ``(name, MemSimConfig, params)`` topologies in the port:
     2-channel DRAM, and the 2-channel tiered device with one CXL channel
@@ -197,6 +170,105 @@ def serving_digest(res, capacity: int) -> Dict:
     }
 
 
+PERFMODEL_GOLDEN_PATH = GOLDEN_PATH.with_name("jax_perfmodel_reference.json")
+#: the LLM streams of the studies: qwen3-14b, its 29.54 GB of bfloat16
+#: weights on one device, 0.5 GB of KV cache and 0.3 GB of activations a
+#: step (positional: arch, params, KV and activation bytes per device)
+PERF_LLM = ("qwen3-14b", 29.54e9, 0.5e9, 0.3e9)
+#: the runtime grid of ``llm_grid_study``: 3 streams x 4 points
+PERF_GRID = {"page_policy": ["closed", "open"], "tREFI": [3600, 7200]}
+#: the hardware-shape grid of ``topo_llm_grid_study``: 2 streams x 8
+#: points, 4 topologies
+PERF_TOPO_GRID = {"channels": [1, 2], "banks_per_group": [2, 4],
+                  "tCL": [14, 18]}
+#: the small ``sweep_topologies`` grid whose lanes the file digests: 3
+#: topologies x 4 runtime lanes on :data:`TOPO_GRID_TRACE` at
+#: :data:`TOPO_GRID_CYCLES`, capacity the largest depth
+TOPO_GRID = {"ranks": [1, 2, 4], "tCL": [14, 18], "queue_size": [32, 128]}
+TOPO_GRID_TRACE = "conv2d"
+TOPO_GRID_CYCLES = 20_000
+
+
+def perfmodel_calls() -> Dict[str, list]:
+    """``{study: [positional args, keyword args]}`` of every study the
+    perfmodel file holds, each a function of ``perfmodel.effective_bw``
+    of the same name, at its defaults but for the LLM streams' bytes and
+    the grids."""
+    arch, params, kv, act = PERF_LLM
+    return {
+        "decode_efficiency": [[arch, params, kv], {}],
+        "train_efficiency": [[arch, params, act], {}],
+        "llm_grid_study": [[arch, params, kv, act, PERF_GRID], {}],
+        "topo_llm_grid_study": [[arch, params, kv, act, PERF_TOPO_GRID],
+                                {}],
+        "dvfs_llm_study": [[arch, params, kv, act], {}],
+        "cxl_tier_study": [[], {}],
+        "serving_study": [[], {}],
+    }
+
+
+def perfmodel_args() -> Dict:
+    """Every argument the perfmodel file was made with (JSON form)."""
+    return canonical({"studies": perfmodel_calls(),
+                      "topo_grid": {"grid": TOPO_GRID,
+                                    "trace": TOPO_GRID_TRACE,
+                                    "num_cycles": TOPO_GRID_CYCLES}})
+
+
+def canonical(x):
+    """``x`` in the JSON form the golden files hold: dataclasses as dicts,
+    tuples as lists, numpy scalars as Python numbers, and NaN as the
+    string ``"nan"`` (so two rows compare equal with ``==``)."""
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        x = dataclasses.asdict(x)
+    if isinstance(x, dict):
+        return {str(k): canonical(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [canonical(v) for v in x]
+    if isinstance(x, np.generic):
+        x = x.item()
+    if isinstance(x, float) and x != x:
+        return "nan"
+    return x
+
+
+def perfmodel_rows(effective_bw, study: str, **kw):
+    """The rows of ``study`` (a key of :func:`perfmodel_calls`) run through
+    ``effective_bw``, the ``perfmodel.effective_bw`` module of either
+    package, in :func:`canonical` form; ``kw`` (the port's ``device`` and
+    ``timings``) go to the study."""
+    args, kwargs = perfmodel_calls()[study]
+    return canonical(getattr(effective_bw, study)(*args, **kwargs, **kw))
+
+
+def topo_lane_key(point: Dict) -> str:
+    return ",".join(f"{k}={v}" for k, v in point.items())
+
+
+def topo_grid_digests(sweep_topologies, config, trace, **kw) -> Dict:
+    """``{lane key: result_digest}`` of the small grid (:data:`TOPO_GRID`)
+    run by ``sweep_topologies`` of either package, ``config`` its
+    ``MemSimConfig`` class, over ``trace`` (that package's
+    :data:`TOPO_GRID_TRACE`); ``kw`` (the port's ``device``, ``timings``)
+    go to the sweep."""
+    sweep = sweep_topologies(config(), trace, TOPO_GRID, TOPO_GRID_CYCLES,
+                             **kw)
+    return {topo_lane_key(p): result_digest(r, None)
+            for p, r in zip(sweep.points, sweep.results)}
+
+
+def perfmodel_reference(core, effective_bw, benchmarks) -> Dict:
+    """The perfmodel file's contents from one package: its ``core``,
+    ``perfmodel.effective_bw`` and ``traces.BENCHMARKS``: the arguments,
+    every study's rows and the small grid's lane digests."""
+    return {"args": perfmodel_args(),
+            "rows": {s: perfmodel_rows(effective_bw, s)
+                     for s in perfmodel_calls()},
+            "topo_grid": topo_grid_digests(core.sweep_topologies,
+                                           core.MemSimConfig,
+                                           benchmarks[TOPO_GRID_TRACE]())}
+
+
 def load() -> Dict[str, Dict]:
     return json.loads(GOLDEN_PATH.read_text())
 
@@ -207,6 +279,10 @@ def load_batch() -> Dict[str, Dict]:
 
 def load_serving() -> Dict[str, Dict]:
     return json.loads(SERVING_GOLDEN_PATH.read_text())
+
+
+def load_perfmodel() -> Dict:
+    return json.loads(PERFMODEL_GOLDEN_PATH.read_text())
 
 
 def mismatches(expected: Dict, got: Dict) -> list:

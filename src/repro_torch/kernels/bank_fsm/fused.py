@@ -622,6 +622,91 @@ def fused_run_batch_occupancy(topo: Topology, views, traces, states,
     return per_sm
 
 
+def preload_batch_forms() -> None:
+    """Load every form of the lane-batched K3 into the card's context
+    before launches that run concurrently: the runtime loads a kernel at
+    its first use, and a load may wait until the card is idle, so a form
+    first launched while other launches run would start after they end."""
+    build.check(_batch_lib().fused_run_batch_preload(),
+                "fused_run_batch preload")
+
+
+class FusedRunBatch:
+    """The launch protocol of the lane-batched persistent K3 on the card
+    (:func:`fused_run_batch_cuda`), one launch at a time: L lanes of one
+    topology and capacities, each from its clock (``t[i]``, default 0) to
+    the horizon ``t_end``, in place. ``launch`` enqueues a launch of every
+    lane that has not reached the horizon on the current stream and
+    returns at once (the launch's arguments, scratch and ``(t, steps)``
+    rows are kept until it is read); ``read`` waits for it, with the one
+    host read of the launch, and advances each lane's clock and steps;
+    ``finish`` reads a pending launch and relaunches the lanes left,
+    compacted, until every lane has reached the horizon or
+    ``max_launches`` have run. A launch runs a lane for at most ``budget``
+    steps and to the end of its schedule slice."""
+
+    def __init__(self, topo: Topology, views, traces, states, t_end: int,
+                 budget: Optional[int] = None, cycle_skip: bool = True,
+                 t=None, max_launches: Optional[int] = None):
+        budget = DEFAULT_RUN_BUDGET if budget is None else int(budget)
+        if budget < 1:
+            raise ValueError(f"fused_run_batch: budget={budget} must be >= 1")
+        n = len(states)
+        if len(views) != n or len(traces) != n:
+            raise ValueError(
+                "fused_run_batch: one view and one trace per state")
+        if any(tr.num_requests < 1 for tr in traces):
+            raise IndexError("fused_run: index is out of bounds for the "
+                             "trace, which holds no request")
+        self.lanes = (topo, views, traces, states)
+        self.t_end, self.budget, self.cycle_skip = t_end, budget, cycle_skip
+        self.max_launches = max_launches
+        self.ts = [0] * n if t is None else [int(x) for x in t]
+        self.steps = [0] * n
+        self.launches = 0
+        self.active = [i for i in range(n) if self.ts[i] < t_end]
+        self.scratch = (_batch_scratch(topo, n, states[0].mem.device)
+                        if n else [])
+        self._pending = None
+
+    def launch(self) -> None:
+        topo, views, traces, states = self.lanes
+        dev = states[0].mem.device
+        outs = torch.empty((len(self.active), 2), dtype=I32, device=dev)
+        host, keep = _batch_args(topo, views, traces, states, self.active,
+                                 self.ts, self.t_end, self.budget,
+                                 self.scratch, outs, self.cycle_skip)
+        lib = _batch_lib()  # built once every tensor is checked
+        lanes_dev = torch.frombuffer(bytearray(host),
+                                     dtype=torch.uint8).to(dev)
+        err = lib.fused_run_batch_launch(ctypes.byref(host),
+                                         lanes_dev.data_ptr(),
+                                         len(self.active),
+                                         build.stream_of(outs))
+        build.check(err, "fused_run_batch")
+        build.LAUNCHES["k3batch"] += 1
+        self.launches += 1
+        self._pending = (outs, keep, lanes_dev)
+
+    def read(self) -> None:
+        outs = self._pending[0]
+        # the one host read of the launch: every lane's (t, steps)
+        for i, (t2, k) in zip(self.active, outs.tolist()):
+            self.ts[i] = t2
+            self.steps[i] += k
+        self._pending = None
+        self.active = [i for i in self.active if self.ts[i] < self.t_end]
+
+    def finish(self) -> Tuple[list, list, int]:
+        """Returns (the clock of each lane, its executed steps, launches)."""
+        if self._pending is not None:
+            self.read()
+        while self.active and self.launches != self.max_launches:
+            self.launch()
+            self.read()
+        return self.ts, self.steps, self.launches
+
+
 def fused_run_batch_cuda(topo: Topology, views, traces, states, t_end: int,
                          budget: Optional[int] = None,
                          cycle_skip: bool = True, t=None,
@@ -629,50 +714,15 @@ def fused_run_batch_cuda(topo: Topology, views, traces, states, t_end: int,
                          ) -> Tuple[list, list, int]:
     """Run L lanes of one topology and capacities on the card, each from
     its clock (``t[i]``, default 0) to the horizon ``t_end``, in place, by
-    launches of the lane-batched persistent K3: one CTA a lane, each lane
-    with its own ``ScheduleView``, trace, ``SimState``, scratch and
-    ``(t, steps)`` row. A launch runs every lane that has not reached the
-    horizon for at most ``budget`` steps (and to the end of its schedule
-    slice); the host reads every lane's ``(t, steps)`` in one copy and
-    relaunches the lanes left, compacted. ``cycle_skip=False`` is the
-    per-cycle form; ``max_launches`` stops the protocol after that many
-    launches. Launches count under ``"k3batch"``. Returns (the clock of
-    each lane, its executed steps, launches)."""
-    budget = DEFAULT_RUN_BUDGET if budget is None else int(budget)
-    if budget < 1:
-        raise ValueError(f"fused_run_batch: budget={budget} must be >= 1")
-    n = len(states)
-    if len(views) != n or len(traces) != n:
-        raise ValueError("fused_run_batch: one view and one trace per state")
-    if any(tr.num_requests < 1 for tr in traces):
-        raise IndexError("fused_run: index is out of bounds for the trace, "
-                         "which holds no request")
-    ts = [0] * n if t is None else [int(x) for x in t]
-    steps = [0] * n
-    if n == 0:
-        return ts, steps, 0
-    lib = None
-    dev = states[0].mem.device
-    scratch = _batch_scratch(topo, n, dev)
-    launches = 0
-    active = [i for i in range(n) if ts[i] < t_end]
-    while active and launches != max_launches:
-        outs = torch.empty((len(active), 2), dtype=I32, device=dev)
-        host, keep = _batch_args(topo, views, traces, states, active, ts,
-                                 t_end, budget, scratch, outs, cycle_skip)
-        lib = lib or _batch_lib()  # built once every tensor is checked
-        lanes_dev = torch.frombuffer(bytearray(host),
-                                     dtype=torch.uint8).to(dev)
-        err = lib.fused_run_batch_launch(ctypes.byref(host),
-                                         lanes_dev.data_ptr(), len(active),
-                                         build.stream_of(outs))
-        build.check(err, "fused_run_batch")
-        build.LAUNCHES["k3batch"] += 1
-        launches += 1
-        # the one host read of the launch: every lane's (t, steps)
-        for i, (t2, k) in zip(active, outs.tolist()):
-            ts[i] = t2
-            steps[i] += k
-        del keep, lanes_dev
-        active = [i for i in active if ts[i] < t_end]
-    return ts, steps, launches
+    launches of the lane-batched persistent K3 (:class:`FusedRunBatch`):
+    one CTA a lane, each lane with its own ``ScheduleView``, trace,
+    ``SimState``, scratch and ``(t, steps)`` row. A launch runs every lane
+    that has not reached the horizon for at most ``budget`` steps (and to
+    the end of its schedule slice); the host reads every lane's
+    ``(t, steps)`` in one copy and relaunches the lanes left, compacted.
+    ``cycle_skip=False`` is the per-cycle form; ``max_launches`` stops the
+    protocol after that many launches. Launches count under
+    ``"k3batch"``. Returns (the clock of each lane, its executed steps,
+    launches)."""
+    return FusedRunBatch(topo, views, traces, states, t_end, budget,
+                         cycle_skip, t, max_launches).finish()

@@ -50,6 +50,7 @@ _ENTRY_POINTS = {
         "fused_run_batch_launch": [_P, _P, _I, _P],
         "fused_run_batch_placement_query": [_P, _I],
         "fused_run_batch_occupancy": [_P, _I],
+        "fused_run_batch_preload": [],
     },
     "decode_attention": {
         "decode_attention_launch": [_P] * 8 + [_I] * 8 + [_P],
@@ -71,6 +72,7 @@ _ENTRY_POINTS = {
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _build_seconds = [0.0]
+_build_count = [0]
 
 
 def reset_launches() -> None:
@@ -105,6 +107,12 @@ def build_seconds() -> float:
     return _build_seconds[0]
 
 
+def build_count() -> int:
+    """Kernel libraries this process compiled (0 when every library was
+    already on disk)."""
+    return _build_count[0]
+
+
 def load() -> Dict[str, ctypes.CDLL]:
     """The loaded kernel libraries, building them first if needed."""
     with _lock:
@@ -134,6 +142,7 @@ def load() -> Dict[str, ctypes.CDLL]:
             os.replace(procs[name][1], out_dir / f"lib{name}.so")
         if procs:
             _build_seconds[0] += time.perf_counter() - t0
+            _build_count[0] += len(procs)
         libs = {}
         for name, fns in _ENTRY_POINTS.items():
             lib = ctypes.CDLL(str(out_dir / f"lib{name}.so"))

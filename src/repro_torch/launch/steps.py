@@ -3,7 +3,7 @@
 Each factory resolves its device once (``device=None`` is the CUDA card
 and raises without one; pass ``device="cpu"`` for the CPU) and returns a
 function that moves its token and position inputs there. The training step
-is not ported yet (ROADMAP item 9).
+is not ported yet (ROADMAP.md §1, LLM model stack).
 """
 
 from __future__ import annotations

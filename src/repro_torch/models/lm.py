@@ -8,7 +8,8 @@ Supported here: GQA attention (``attn_type="gqa"``) and Mamba mixers,
 dense SwiGLU, MoE or no FFN. That covers qwen3-14b, qwen2-72b, minicpm-2b,
 starcoder2-7b, llava-next-34b (through ``embeds``), phi3.5-moe and jamba.
 MLA, the mLSTM/sLSTM mixers, encoder-decoder models and the training loss
-raise ``NotImplementedError``; they are queued in ROADMAP item 9.
+raise ``NotImplementedError``; they are queued in ROADMAP.md §1, LLM model
+stack.
 
 Parameters: ``{"embed": {"table"}, "final_norm": {"scale"},
 "lm_head" (untied only), "layers": [block, ...]}`` with each block
@@ -47,7 +48,7 @@ from repro_torch.models.layers import (
 Params = Dict[str, Any]
 Caches = List[Dict[str, torch.Tensor]]
 
-_ROADMAP = "queued in ROADMAP item 9 (LLM model stack)"
+_ROADMAP = "queued in ROADMAP.md §1, LLM model stack"
 MIXERS = ("attn", "mamba")
 
 

@@ -3,9 +3,9 @@
 Decoder-only configs whose layers ``models.lm`` ports (GQA attention and
 Mamba mixers, dense and MoE FFNs: the dense-GQA models, phi3.5-moe and
 jamba); the others (MLA, xLSTM, encoder-decoder) raise
-``NotImplementedError`` (queued in ROADMAP item 9). The entry points run on
-the CUDA card unless given ``device="cpu"``, and raise when there is no
-card.
+``NotImplementedError`` (queued in ROADMAP.md §1, LLM model stack). The
+entry points run on the CUDA card unless given ``device="cpu"``, and raise
+when there is no card.
 """
 
 from __future__ import annotations

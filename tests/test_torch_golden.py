@@ -9,7 +9,10 @@ and of the Figs 6-9 queue sweep) are recomputed with the reference's
 ``simulate_batch`` / ``sweep_queue_sizes`` in ``batch_mode="lanes"``; each
 Table-2 lane equals its single-lane digest. The serving digests (the
 closed-loop serving study's eight scenarios) are recomputed with the
-reference's ``run_serving_batched``, one batch a topology.
+reference's ``run_serving_batched``, one batch a topology. Of the
+perfmodel file (every study's rows and the small ``sweep_topologies``
+grid's lane digests) the test recomputes ``decode_efficiency`` and the
+grid, and holds the rest to the arguments the file records.
 
 Regenerate the file with::
 
@@ -36,6 +39,8 @@ from repro.serving import \
 from repro.serving import \
     run_serving_batched as jax_run_serving_batched  # noqa: E402
 from repro.traces import BENCHMARKS as JAX_BENCHMARKS  # noqa: E402
+import repro.core as jax_core  # noqa: E402
+from repro.perfmodel import effective_bw as jax_effective_bw  # noqa: E402
 from repro_torch import golden  # noqa: E402
 from repro_torch.core import MemSimConfig, simulate_fast, simulate_ideal  # noqa: E402
 from repro_torch.traces import BENCHMARKS  # noqa: E402
@@ -110,6 +115,22 @@ def test_serving_golden_file_is_current():
     assert golden.load_serving() == serving_reference_digests()
 
 
+def test_perfmodel_golden_file_is_current():
+    """The arguments the file records are the generator's; the reference's
+    ``decode_efficiency`` row and the small grid's lane digests, recomputed,
+    equal the file's; the rows of every study are there."""
+    want = golden.load_perfmodel()
+    assert want["args"] == golden.perfmodel_args()
+    assert set(want["rows"]) == set(golden.perfmodel_calls())
+    assert all(want["rows"][s] for s in want["rows"])
+    assert all(r["bit_identical"] for r in want["rows"]["cxl_tier_study"])
+    assert want["rows"]["decode_efficiency"] == golden.perfmodel_rows(
+        jax_effective_bw, "decode_efficiency")
+    assert want["topo_grid"] == golden.topo_grid_digests(
+        jax_core.sweep_topologies, JaxConfig,
+        JAX_BENCHMARKS[golden.TOPO_GRID_TRACE]())
+
+
 def test_batch_golden_file_is_current():
     assert golden.load_batch() == batch_reference_digests()
 
@@ -151,3 +172,8 @@ if __name__ == "__main__":
         path.write_text(json.dumps(digests(), indent=1, sort_keys=True)
                         + "\n")
         print(f"wrote {path}")
+    golden.PERFMODEL_GOLDEN_PATH.write_text(json.dumps(
+        golden.perfmodel_reference(jax_core, jax_effective_bw,
+                                   JAX_BENCHMARKS),
+        indent=1, sort_keys=True) + "\n")
+    print(f"wrote {golden.PERFMODEL_GOLDEN_PATH}")

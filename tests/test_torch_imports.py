@@ -44,7 +44,7 @@ def test_scan_covers_the_package():
             "decode_attention.py", "flash_attention.py", "serve.py",
             "steps.py", "qwen3_14b.py", "ssm.py", "moe.py",
             "selective_scan.py", "addr_map.py",
-            "jamba_v01_52b.py"} <= names
+            "jamba_v01_52b.py", "effective_bw.py"} <= names
 
 
 @pytest.mark.parametrize("entry", ["simulate", "simulate_fast",
@@ -146,5 +146,59 @@ def test_session_and_serving_entry_points_are_exported_and_raise_without_a_card(
                  lambda: core.SessionBatch.open(cfg, 2),
                  lambda: serving.run_serving(cfg, reqs),
                  lambda: serving.run_serving_batched(cfg, [reqs])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+
+
+def test_kernel_ops_are_exported_and_build_nothing():
+    """``repro_torch.kernels`` exports the five ops the reference's
+    ``repro.kernels`` exports; importing them compiles no kernel."""
+    import subprocess
+    import sys
+
+    import repro_torch.kernels as kernels
+
+    assert kernels.__all__ == ["bank_fsm_step", "addr_map", "attention",
+                               "decode_attention", "selective_scan"]
+    assert all(callable(getattr(kernels, n)) for n in kernels.__all__)
+    assert kernels.addr_map.__module__ == "repro_torch.kernels.addr_map.ops"
+    # in a fresh process: the import alone loads no kernel library
+    probe = ("from repro_torch.kernels import *; "
+             "from repro_torch.kernels import build; "
+             "assert build.build_count() == 0 and not build._libs")
+    subprocess.run([sys.executable, "-c", probe], check=True,
+                   cwd=ROOT / "src")
+
+
+def test_topology_sweep_and_studies_are_exported_and_raise_without_a_card():
+    """The multi-topology sweep is exported from ``repro_torch.core`` and
+    ``perfmodel.effective_bw`` has every public name of the reference's
+    module; like every entry point they default to the card."""
+    import repro_torch.core as core
+    from repro_torch.perfmodel import effective_bw
+    from repro_torch.traces import llm_workload, trace_example
+
+    assert {"TOPO_AXES", "topo_grid_points", "TopoGridResult",
+            "sweep_topologies"} <= set(core.__all__)
+    names = {"EffectiveBW", "measure", "grid_study", "topo_grid_study",
+             "topo_llm_grid_study", "dvfs_study", "dvfs_llm_study",
+             "cxl_tier_point", "cxl_tier_study", "saturation_knee",
+             "serving_row", "serving_study", "llm_grid_study",
+             "decode_efficiency", "train_efficiency"}
+    assert names <= {n for n in vars(effective_bw) if not n.startswith("_")}
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None selects it")
+    cfg, tr = core.MemSimConfig(), trace_example(n=4)
+    decode = [("decode", llm_workload.decode_step_traffic("qwen3-14b", 1e9,
+                                                          1e8))]
+    for call in (
+            lambda: core.sweep_topologies(cfg, tr, {"ranks": [1, 2]}, 10),
+            lambda: effective_bw.grid_study(decode, {"tCL": [14]},
+                                            target_requests=8),
+            lambda: effective_bw.topo_grid_study(decode, {"ranks": [1]},
+                                                 target_requests=8),
+            lambda: effective_bw.cxl_tier_study(tokens=2, chunks=2),
+            lambda: effective_bw.decode_efficiency("qwen3-14b", 1e9, 1e8,
+                                                   target_requests=8)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()

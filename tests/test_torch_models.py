@@ -325,18 +325,18 @@ def test_unported_families_raise(arch):
     (MLA, xLSTM, encoder-decoder); phi3.5-moe and jamba (MoE and Mamba,
     ported) build and decode, and only the training loss raises."""
     cfg = ARCHS[arch].tiny()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §1, LLM model stack"):
         tlm.lm_loss(cfg, None, None, None)
     if arch in ("phi3.5-moe-42b-a6.6b", "jamba-v0.1-52b"):
         assert len(tregistry.init_params(cfg, 0, device="cpu")["layers"]) \
             == len(tregistry.init_caches(cfg, 1, 8, device="cpu"))
         assert tregistry.decode_entry(cfg) is tlm.decode_step
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §1, LLM model stack"):
         tregistry.init_params(cfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §1, LLM model stack"):
         tregistry.init_caches(cfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §1, LLM model stack"):
         tregistry.decode_entry(cfg)
 
 
