@@ -184,8 +184,7 @@ Phases (any failed check exits non-zero):
    ``run_serving`` of one lane against its batched twin, each window one
    lane-batched launch, and each topology's wall split into launches,
    report copies and the scheduler;
-15. the multi-topology sweep and the effective-bandwidth studies (run
-   last): (a) ``sweep_topologies`` on conv2d at 100k cycles over channels
+15. the multi-topology sweep and the effective-bandwidth studies: (a) ``sweep_topologies`` on conv2d at 100k cycles over channels
    [1, 2] x ranks [1, 2] x banks a group [2, 4] x tCL [14, 18] x queue
    [16, 64, 128] (8 topologies, 48 lanes; each topology's launch
    enqueued on a CUDA stream of its own), every lane equal to its
@@ -206,6 +205,27 @@ Phases (any failed check exits non-zero):
    its per-cycle bit check, ``serving_study``) at the file's arguments,
    every row equal to the reference's, ``bit_identical`` true on every
    ``cxl_tier_study`` lane, each study's wall and launches.
+16. streaming and persistence (run last): (a) ``sweep_grid`` of 4096
+   points on conv2d at 100k cycles (tCL x tRCDRD x tRCDWR x tRP x queue
+   [16, 32, 64, 128] x page policy x scheduler policy, capacity 128) with
+   no streaming option, so it streams by the default threshold: 16 chunks
+   of 256, one lane-batched K3 launch a chunk and nothing else, every
+   lane equal to the same grid's ``stream=False`` run; the wall split
+   into the chunks' set-up, the waits for their launches and the result
+   copies, each chunk's device time (CUDA events on its stream), the peak
+   of allocated device memory against ``peak_chunk_bytes``, and the
+   slowest chunk's time a step of its longest lane beside its lanes' byte
+   bound and its plain protocol (2 steps of every lane); (a') phase
+   15(a)'s grid streamed under a ``memory_budget_bytes`` of 4-lane
+   chunks, every lane equal to ``sweep_topologies``'; (b) a child process
+   streaming the 256 points of (a)'s tCL x tRCDRD x tRP x queue axes in
+   chunks of 32 into a checkpoint, SIGKILLed before chunk 4 commits
+   (chunks 0-3 left), a second child resuming it (4 chunks restored, 4
+   launches) and a third restoring all 8 with no launch, each equal to
+   (a)'s lanes; (c) two fresh children over one empty
+   ``MEMSIM_EXEC_CACHE_DIR``: the first builds every kernel library
+   (its nvcc seconds printed), the second builds none (0 compiles, a hit
+   a library, no error) and gives the same ``t_complete``.
 
 ``python3 chip_smoke.py --split-times CHECKOUT`` runs only the split
 backend's ``simulate_fast`` on conv2d at 20k cycles (phase 4's run) of the
@@ -385,7 +405,7 @@ def phase_device():
     build.load()
     log(f"[1] kernels built and loaded in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {build.build_seconds():.1f} s) from {build.CSRC}")
-    out_dir = build.BUILD_ROOT / build.source_hash()
+    out_dir = build.build_dir()
     prod = k7_production()
     for name, keep in (("fused", None), ("flash_attention", None),
                        ("decode_attention", "Li128E"),
@@ -2674,6 +2694,364 @@ def phase_topologies():
     return out
 
 
+# ---------------------------------------------- streaming and persistence --
+
+#: phase 16(a): 4096 points of conv2d at 100k on the Table-1 device, so
+#: ``sweep_grid`` streams by the default threshold (16 chunks of 256)
+STREAM_GRID = {"tCL": [14, 16, 18, 20], "tRCDRD": [12, 14, 16, 18],
+               "tRCDWR": [12, 14, 16, 18], "tRP": [12, 14, 16, 18],
+               "queue_size": [16, 32, 64, 128],
+               "page_policy": ["closed", "open"],
+               "sched_policy": ["fcfs", "frfcfs"]}
+STREAM_CYCLES = 100_000
+#: 16(b): its tCL x tRCDRD x tRP x queue axes (256 points, the other axes
+#: at the config's values), in chunks of 32, killed before chunk 4 commits
+KILL_GRID = {k: STREAM_GRID[k] for k in ("tCL", "tRCDRD", "tRP",
+                                         "queue_size")}
+KILL_CHUNK = 32
+KILL_AT = 4
+#: 16(c): the warm re-invoke's sweep (4 points of conv2d at 20k)
+CACHE_GRID = {"tCL": [14, 18], "queue_size": [16, 128]}
+CACHE_CYCLES = 20_000
+#: plain protocol steps of every lane of 16(a)'s slowest chunk, timed
+#: after one warm-up step of its first 8 lanes
+STREAM_PLAIN_STEPS = 2
+#: the parts of a streamed sweep's wall that its timings name
+STREAM_SPLIT = ("plan_s", "compile_s", "prep_s", "run_s", "results_s",
+                "merge_s")
+CHILD = ("import sys, chip_smoke; "
+         "sys.exit(chip_smoke.stream_child(sys.argv[1:]))")
+
+
+def table_digest(results):
+    """SHA-256 of every lane's records, counters (sorted) and blocked
+    totals, in grid order."""
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha256()
+    for r in results:
+        for f in ("t_admit", "t_dispatch", "t_start", "t_complete",
+                  "rdata"):
+            h.update(np.ascontiguousarray(
+                np.asarray(getattr(r, f), np.int32)).tobytes())
+        for k in sorted(r.counters):
+            h.update(np.ascontiguousarray(
+                np.asarray(r.counters[k], np.int64)).tobytes())
+        h.update(np.int64(r.blocked_arrival).tobytes())
+        h.update(np.int64(r.blocked_dispatch).tobytes())
+    return h.hexdigest()
+
+
+def stream_child(args):
+    """One streamed ``sweep_grid`` of conv2d on the card in this fresh
+    process (phase 16(b) and (c)): ``mode`` (``kill``: SIGKILL from the
+    pre-commit hook at chunk ``kill_at``), a checkpoint directory (``-``
+    for none), the grid as JSON, cycles, chunk lanes, ``kill_at``. Prints
+    ``RESULT`` and a JSON object."""
+    import hashlib
+    import os
+    import signal
+
+    import numpy as np
+    from repro_torch import golden
+    from repro_torch.core import MemSimConfig, aot_cache_stats, sweep_grid
+    from repro_torch.core import sweep_stream
+    from repro_torch.kernels import build
+    from repro_torch.traces import BENCHMARKS
+
+    mode, ckdir, grid = args[0], args[1], json.loads(args[2])
+    cycles, chunk, kill_at = int(args[3]), int(args[4]), int(args[5])
+    if mode == "kill":
+        def hook(ci):
+            if ci >= kill_at:
+                os.kill(os.getpid(), signal.SIGKILL)
+        sweep_stream._pre_commit_hook = hook
+    build.reset_launches()
+    tm = {}
+    t0 = time.perf_counter()
+    res = sweep_grid(MemSimConfig(queue_size=golden.QUEUE_SIZE),
+                     BENCHMARKS["conv2d"](), grid, cycles, stream=True,
+                     chunk_lanes=chunk,
+                     checkpoint_dir=None if ckdir == "-" else ckdir,
+                     timings=tm, device=DEVICE)
+    wall = time.perf_counter() - t0
+    tc = hashlib.sha256(b"".join(
+        np.ascontiguousarray(r.t_complete, np.int32).tobytes()
+        for r in res)).hexdigest()
+    print("RESULT " + json.dumps({
+        "digest": table_digest(res), "tc": tc, "wall_s": wall,
+        "chunks": tm["chunks"], "chunks_resumed": tm["chunks_resumed"],
+        "launches": tm["launches"], "k3batch": build.LAUNCHES["k3batch"],
+        "compiles": tm["compiles"], "compile_s": tm["compile_s"],
+        "build_s": build.build_seconds(), "libraries": len(build._libs),
+        "run_s": tm["run_s"], "prep_s": tm["prep_s"],
+        "checkpoint_s": tm["checkpoint_s"], "cache": aot_cache_stats()}))
+    return 0
+
+
+def run_child(label, mode, ckdir, grid, cycles, chunk, kill_at=-1,
+              cache_dir=None):
+    """``stream_child`` in a fresh process of this checkout's port (at most
+    300 s). Returns (its exit code, its RESULT object or None, wall s)."""
+    import os
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src"), str(ROOT), env.get("PYTHONPATH", "")])
+    env.pop("MEMSIM_EXEC_CACHE_DIR", None)
+    if cache_dir is not None:
+        env["MEMSIM_EXEC_CACHE_DIR"] = str(cache_dir)
+    t0 = time.perf_counter()
+    try:
+        p = subprocess.run(
+            [sys.executable, "-c", CHILD, mode, str(ckdir), json.dumps(grid),
+             str(cycles), str(chunk), str(kill_at)],
+            env=env, cwd=ROOT, capture_output=True, text=True, timeout=300)
+    except subprocess.TimeoutExpired:
+        raise CheckFailed(f"{label}: the child did not end within 300 s")
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in p.stdout.splitlines() if ln.startswith("RESULT ")]
+    out = json.loads(lines[-1][len("RESULT "):]) if lines else None
+    if mode != "kill":
+        check(p.returncode == 0 and out is not None,
+              f"{label}: child exit {p.returncode}\n{p.stderr[-3000:]}")
+    return p.returncode, out, wall
+
+
+def phase_stream():
+    """16: streaming and persistence on the card (see the module
+    docstring). Returns the streamed K3's record for the kernels line."""
+    import dataclasses
+    import gc
+    import shutil
+    import signal
+    import tempfile
+
+    import torch
+    from repro_torch import golden
+    from repro_torch.checkpoint.store import SweepCheckpoint
+    from repro_torch.core import MemSimConfig, sweep_grid, sweep_topologies
+    from repro_torch.core.engine import (
+        _sched_i32, fused_run_batch_plain, grid_points)
+    from repro_torch.core.sweep_stream import lane_footprint_bytes
+    from repro_torch.kernels import build
+    from repro_torch.kernels.bank_fsm.fused import fused_run_batch_cuda
+    from repro_torch.traces import BENCHMARKS
+
+    t_phase = time.perf_counter()
+    cfg = MemSimConfig(queue_size=golden.QUEUE_SIZE)
+    trace = BENCHMARKS["conv2d"]()
+    out = {}
+
+    # ---- (a) 4096 points, no streaming option: 16 chunks of 256 --------
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    tm = {}
+    with LaunchTimer() as timer:
+        t0 = time.perf_counter()
+        streamed = sweep_grid(cfg, trace, STREAM_GRID, STREAM_CYCLES,
+                              timings=tm, device=DEVICE)
+        wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    counted = dict(build.LAUNCHES)
+    dev_ms = [s.elapsed_time(e) for s, e in timer.pairs]
+    per = tm["per_chunk"]
+    check(len(streamed) == 4096 and tm.get("streamed") is True
+          and tm["chunks"] == 16 and tm["chunk_lanes"] == 256
+          and tm["chunks_resumed"] == 0,
+          f"16(a): {len(streamed)} lanes, timings "
+          f"{ {k: v for k, v in tm.items() if k != 'per_chunk'} }")
+    check(counted["k3batch"] == 16 == tm["launches"] == len(dev_ms)
+          and sum(counted.values()) == 16,
+          f"16(a): launches {counted}, timings {tm['launches']}, timed "
+          f"{len(dev_ms)}; built for one k3batch launch a chunk")
+    # a leak of chunks' device state would hold many chunks at once
+    check(peak < 3 * tm["peak_chunk_bytes"],
+          f"16(a): peak {peak} B allocated over 3 x peak_chunk_bytes "
+          f"{tm['peak_chunk_bytes']}: chunks' device state is not freed")
+    log(f"[16] (a) sweep_grid of {len(streamed)} points on conv2d at "
+        f"{STREAM_CYCLES}, no streaming option: streamed in {tm['chunks']} "
+        f"chunks of {tm['chunk_lanes']}, {counted['k3batch']} k3batch "
+        f"launches and nothing else; {wall:.3f} s wall = plan "
+        f"{tm['plan_s']:.3f} + compile {tm['compile_s']:.3f} + prep "
+        f"{tm['prep_s']:.3f} + run {tm['run_s']:.3f} + results "
+        f"{tm['results_s']:.3f} + merge {tm['merge_s']:.3f} + other "
+        f"{wall - sum(tm[k] for k in STREAM_SPLIT):.3f} s; a chunk's prep {min(c['prep_s'] for c in per):.3f}-"
+        f"{max(c['prep_s'] for c in per):.3f} s, wait "
+        f"{min(c['run_s'] for c in per):.3f}-{max(c['run_s'] for c in per):.3f}"
+        f" s, results {min(c['results_s'] for c in per):.3f}-"
+        f"{max(c['results_s'] for c in per):.3f} s, longest lane "
+        f"{min(c['steps'] for c in per)}-{max(c['steps'] for c in per)} "
+        f"steps; device ms a chunk (CUDA events on its stream) "
+        + ", ".join(f"{d:.1f}" for d in dev_ms)
+        + f" (sum {sum(dev_ms):.1f}); peak allocated {peak} B against "
+        f"peak_chunk_bytes {tm['peak_chunk_bytes']} ({tm['lane_bytes']} B "
+        f"a lane reckoned, {peak / (2 * tm['chunk_lanes']):.0f} B a lane "
+        f"of two chunks allocated: x"
+        f"{peak / tm['peak_chunk_bytes']:.3f})")
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    tmm = {}
+    t0 = time.perf_counter()
+    mat = sweep_grid(cfg, trace, STREAM_GRID, STREAM_CYCLES, stream=False,
+                     timings=tmm, device=DEVICE)
+    wall_mat = time.perf_counter() - t0
+    peak_mat = torch.cuda.max_memory_allocated() - base
+    check("streamed" not in tmm, "16(a): stream=False streamed")
+    bad = [i for i, (a, b) in enumerate(zip(mat, streamed))
+           if same_lane(a, b)]
+    check(len(mat) == 4096 and not bad,
+          f"16(a): streamed lanes {bad[:8]} differ from stream=False")
+    log(f"[16] (a) every streamed lane equals the stream=False run's; "
+        f"stream=False: {wall_mat:.3f} s wall (set-up {tmm['setup_s']:.3f} "
+        f"/ lanes {tmm['lanes_s']:.3f} / results {tmm['results_s']:.3f}), "
+        f"{tmm['launches']} launch(es), peak allocated {peak_mat} B")
+    del mat
+    gc.collect()
+    # the slowest chunk: its time a step of its longest lane, its lanes'
+    # byte bound (fresh lanes rerun to the horizon) and its plain protocol
+    # (STREAM_PLAIN_STEPS steps of every lane after a warm-up)
+    slow = max(range(len(dev_ms)), key=lambda i: dev_ms[i])
+    ci = per[slow]["chunk"]
+    pts = grid_points(STREAM_GRID)[ci * 256:(ci + 1) * 256]
+    cfgs = [dataclasses.replace(cfg, **p) for p in pts]
+    lanes_args = (cfg, [trace] * len(pts), [c.queue_size for c in cfgs],
+                  [_sched_i32(c.runtime()) for c in cfgs])
+    topo, views, trs, states = batch_lanes(*lanes_args)
+    _, steps, _ = fused_run_batch_cuda(topo, views, trs, states,
+                                       STREAM_CYCLES)
+    torch.cuda.synchronize()
+    check(max(steps) == per[slow]["steps"],
+          f"16(a): chunk {ci} rerun alone: {max(steps)} steps, in the "
+          f"sweep {per[slow]['steps']}")
+    nbytes = sum(run_bytes(v, tr, st) for v, tr, st
+                 in zip(views, trs, states))
+    del topo, views, trs, states
+    topo, views, trs, states = batch_lanes(*lanes_args)
+    fused_run_batch_plain(topo, views[:8], trs[:8], states[:8],
+                          STREAM_CYCLES, 1, max_launches=1)
+    topo, views, trs, states = batch_lanes(*lanes_args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fused_run_batch_plain(topo, views, trs, states, STREAM_CYCLES,
+                          STREAM_PLAIN_STEPS, max_launches=1)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3 / STREAM_PLAIN_STEPS
+    del topo, views, trs, states
+    out.update({"launches": counted["k3batch"],
+                "ms": dev_ms[slow] / per[slow]["steps"],
+                "plain_ms": plain_ms,
+                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3
+                / per[slow]["steps"]})
+    log(f"[16] (a) the slowest chunk ({ci}): {dev_ms[slow]:.3f} ms, "
+        f"{per[slow]['steps']} steps of its longest lane = "
+        f"{out['ms'] * 1e3:.3f} us/step; its 256 lanes' bytes {nbytes} B "
+        f"at 3.35 TB/s = {out['bound_ms'] * 1e6:.3f} ns a step of its "
+        f"longest lane; its plain protocol {plain_ms * 1e3:.1f} us wall a "
+        f"step of its 256 lanes ({STREAM_PLAIN_STEPS} steps of every lane, "
+        f"after one step of 8 to warm up)")
+
+    # ---- (a') phase 15(a)'s grid under a budget of 4-lane chunks --------
+    t_b = time.perf_counter()
+    want = sweep_topologies(cfg, trace, TOPO_SWEEP_GRID, TOPO_SWEEP_CYCLES,
+                            stream=False, device=DEVICE)
+    lane_b = max(lane_footprint_bytes(t, trace.num_requests, 1)
+                 for t in want.topologies)
+    budget = 9 * lane_b
+    build.reset_launches()
+    tmt = {}
+    got = sweep_topologies(cfg, trace, TOPO_SWEEP_GRID, TOPO_SWEEP_CYCLES,
+                           stream=True, memory_budget_bytes=budget,
+                           timings=tmt, device=DEVICE)
+    check(tmt["chunk_lanes"] == 4 and tmt["chunks"] == 16
+          and tmt["launches"] == build.LAUNCHES["k3batch"] == 16,
+          f"16(a'): chunk_lanes {tmt['chunk_lanes']}, chunks "
+          f"{tmt['chunks']}, launches {tmt['launches']} / "
+          f"{dict(build.LAUNCHES)}")
+    check((got.points, got.topologies, got.topo_of_point)
+          == (want.points, want.topologies, want.topo_of_point),
+          "16(a'): points or topologies differ from sweep_topologies'")
+    bad = [i for i, (a, b) in enumerate(zip(want, got)) if same_lane(a, b)]
+    check(not bad, f"16(a'): lanes {bad} differ from sweep_topologies'")
+    log(f"[16] (a') phase 15(a)'s grid streamed under "
+        f"memory_budget_bytes={budget} (9 x {lane_b} B): chunk_lanes 4, "
+        f"{tmt['chunks']} chunks over {tmt['topologies']} topologies, "
+        f"{tmt['launches']} launches; every lane equals sweep_topologies'; "
+        f"{time.perf_counter() - t_b:.3f} s for both sweeps (streamed: "
+        f"prep {tmt['prep_s']:.3f}, run {tmt['run_s']:.3f}, results "
+        f"{tmt['results_s']:.3f} s)")
+
+    # ---- (b) SIGKILL at chunk 4 in a child, resume, restore ------------
+    tmp_root = ROOT / "build" / "repro_torch"
+    tmp_root.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="phase16_", dir=tmp_root))
+    try:
+        ckdir = tmp / "ck"
+        keep = [i for i, p in enumerate(grid_points(STREAM_GRID))
+                if p["tRCDWR"] == cfg.tRCDWR and p["page_policy"] ==
+                cfg.page_policy and p["sched_policy"] == cfg.sched_policy]
+        want_digest = table_digest([streamed[i] for i in keep])
+        check(len(keep) == 256, f"16(b): {len(keep)} lanes of (a)")
+        rc, _, w_kill = run_child("16(b) kill", "kill", ckdir, KILL_GRID,
+                                  STREAM_CYCLES, KILL_CHUNK, KILL_AT)
+        done = SweepCheckpoint(str(ckdir)).done_chunks()
+        check(rc == -signal.SIGKILL and done == list(range(KILL_AT)),
+              f"16(b): the child exited {rc} (want -SIGKILL) with chunks "
+              f"{done} committed (want 0-{KILL_AT - 1})")
+        _, res, w_res = run_child("16(b) resume", "resume", ckdir, KILL_GRID,
+                                  STREAM_CYCLES, KILL_CHUNK)
+        check(res["chunks"] == 8 and res["chunks_resumed"] == KILL_AT
+              and res["launches"] == res["k3batch"] == 8 - KILL_AT
+              and res["digest"] == want_digest,
+              f"16(b) resume: {res}; want 8 chunks, {KILL_AT} resumed, "
+              f"{8 - KILL_AT} launches, the digest of (a)'s lanes")
+        _, again, w_again = run_child("16(b) restore", "resume", ckdir,
+                                      KILL_GRID, STREAM_CYCLES, KILL_CHUNK)
+        check(again["chunks_resumed"] == 8 and again["launches"] == 0
+              and again["k3batch"] == 0 and again["digest"] == want_digest,
+              f"16(b) restore: {again}")
+        log(f"[16] (b) {len(keep)} points in chunks of {KILL_CHUNK}: a child "
+            f"SIGKILLed before chunk {KILL_AT} commits ({w_kill:.1f} s) "
+            f"leaves chunks {done}; the resume ({w_res:.1f} s: "
+            f"{res['chunks_resumed']} restored, {res['launches']} launches, "
+            f"run {res['run_s']:.3f} s, checkpoint {res['checkpoint_s']:.3f}"
+            f" s) and a third invocation ({w_again:.1f} s: 8 restored, 0 "
+            f"launches) equal (a)'s lanes, digest {want_digest[:16]}")
+
+        # ---- (c) a warm re-invoke over one exec cache directory --------
+        cache = tmp / "exec_cache"
+        n_libs = len(build._ENTRY_POINTS)
+        _, cold, w_cold = run_child("16(c) cold", "cold", "-", CACHE_GRID,
+                                    CACHE_CYCLES, 2, cache_dir=cache)
+        _, warm, w_warm = run_child("16(c) warm", "warm", "-", CACHE_GRID,
+                                    CACHE_CYCLES, 2, cache_dir=cache)
+        cd, wd = cold["cache"]["disk"], warm["cache"]["disk"]
+        check(cold["compiles"] >= 1 and cd["writes"] >= 1,
+              f"16(c) cold: {cold}")
+        check(warm["compiles"] == 0 and wd["hits"] >= n_libs
+              and wd["errors"] == 0 and warm["tc"] == cold["tc"],
+              f"16(c) warm: {warm}; cold {cold}")
+        out["cold_nvcc_s"] = cold["build_s"]
+        log(f"[16] (c) MEMSIM_EXEC_CACHE_DIR, two fresh processes: cold "
+            f"{w_cold:.1f} s wall, {cold['compiles']} libraries built by "
+            f"nvcc in {cold['build_s']:.1f} s (writes {cd['writes']}, "
+            f"misses {cd['misses']}); warm {w_warm:.1f} s wall, compiles 0, "
+            f"hits {wd['hits']} of {n_libs} libraries, errors "
+            f"{wd['errors']}, load {wd['load_s']} s, compile_s "
+            f"{warm['compile_s']:.3f}; t_complete digests equal")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[16] phase 16 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 # ------------------------------------------------------- LLM serve slice --
 
 FLASH_SHAPES = [  # b, hq, s, d, hkv
@@ -3655,6 +4033,7 @@ def main():
         batch = phase_batch()
         sessions = phase_sessions(run_plain_ms, batch["plain_ms"])
         topologies = phase_topologies()
+        stream = phase_stream()
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3720,6 +4099,15 @@ def main():
         "launches": topologies["launches"], "max_abs_err": 0,
         "ms": topologies["ms"], "plain_ms": topologies["plain_ms"],
         "bound_ms": topologies["bound_ms"], "bound_by": "bytes",
+        "library_ms": None})
+    # the streaming sweep: one lane-batched launch a chunk, per executed
+    # step of the longest lane of 16(a)'s slowest chunk
+    kernels.append({
+        "name": "fused_run_batch_stream", "route": "cuda",
+        "source": src + "fused.cu", "replaces": ref + "fused.py:397",
+        "launches": stream["launches"], "max_abs_err": 0,
+        "ms": stream["ms"], "plain_ms": stream["plain_ms"],
+        "bound_ms": stream["bound_ms"], "bound_by": "bytes",
         "library_ms": None})
     ref = "src/repro/kernels/"
     ms, plain_ms, bound_ms, bound_by = hybrid_times["k4"]

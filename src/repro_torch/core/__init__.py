@@ -14,6 +14,7 @@ from repro_torch.core.engine import (
     GRID_AXES,
     TOPO_AXES,
     TopoGridResult,
+    aot_cache_stats,
     grid_points,
     lane_schedule,
     simulate_batch,
@@ -24,6 +25,7 @@ from repro_torch.core.engine import (
     sweep_topologies,
     topo_grid_points,
 )
+from repro_torch.core.sweep_stream import stream_sweep
 from repro_torch.core.session import SimSession, WindowReport
 from repro_torch.core.session_batch import SessionBatch, SessionLane
 from repro_torch.core.ideal import ideal_latencies, simulate_ideal
@@ -51,6 +53,8 @@ __all__ = [
     "topo_grid_points",
     "TopoGridResult",
     "sweep_topologies",
+    "stream_sweep",
+    "aot_cache_stats",
     "SimSession",
     "WindowReport",
     "SessionBatch",

@@ -2,7 +2,8 @@
 single lane, batches of independent lanes of one topology
 (``simulate_batch``, ``sweep_queue_sizes``, ``sweep_grid``) and grids over
 hardware shapes (``sweep_topologies``: one batch a topology, the
-topologies' launches overlapped on CUDA streams).
+topologies' launches overlapped on CUDA streams); grids the reference
+streams go to ``core.sweep_stream.stream_sweep``.
 
 After every executed cycle the engine computes the distance to the next
 event — a min over per-bank bounds (WAIT expiries, blocked bids turning
@@ -43,6 +44,7 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.core import exec_cache
 from repro_torch.core import graphs as graphs_lib
 from repro_torch.core import power as power_lib
 from repro_torch.core.bank_fsm import cycles_until_actionable, wait_mask
@@ -614,8 +616,9 @@ def _start_batch(cfg: MemSimConfig, traces, num_cycles: int, *,
     lanes and sets them up on ``dev``; on the fused backend the first
     launch is enqueued on the card's current stream
     (:func:`fused_run_batch` with ``start_only``). Returns
-    ``finish(timings=None)``, which runs the rest and returns the
-    results."""
+    ``finish(timings=None, as_states=False)``, which runs the rest and
+    returns the results, or with ``as_states`` (the lanes' final states,
+    each lane's executed steps, launches) and no copy to the host."""
     cfg.validate()
     topo = cfg.topology()
     if batch_mode not in ("auto", "vmap", "lanes"):
@@ -631,7 +634,7 @@ def _start_batch(cfg: MemSimConfig, traces, num_cycles: int, *,
         trace_list = list(traces)
     lanes = len(trace_list)
     if lanes == 0:
-        return lambda timings=None: []
+        return lambda timings=None, as_states=False: []
 
     def _broadcast(vals, default, name, cap):
         if vals is None:
@@ -680,7 +683,7 @@ def _start_batch(cfg: MemSimConfig, traces, num_cycles: int, *,
                                        num_cycles, cycle_skip=cycle_skip,
                                        start_only=True)
 
-    def finish(timings: Optional[dict] = None) -> List[SimResult]:
+    def finish(timings: Optional[dict] = None, as_states: bool = False):
         if topo.fsm_backend == "fused":
             _, lane_steps, launches = fused_finish()
             finals = states
@@ -692,6 +695,8 @@ def _start_batch(cfg: MemSimConfig, traces, num_cycles: int, *,
                 finals.append(final)
                 lane_steps.append(int(k))
         t_lanes = time.perf_counter()
+        if as_states:
+            return finals, lane_steps, launches
 
         results = []
         for i in range(lanes):
@@ -771,8 +776,9 @@ def lane_schedule(cfg: MemSimConfig, spec) -> ParamSchedule:
 
 
 def _stream_threshold() -> int:
-    """Lane count from which the reference's :func:`sweep_grid` streams
-    (``MEMSIM_STREAM_THRESHOLD``, default 4096, read every call)."""
+    """Lane count from which :func:`sweep_grid` and
+    :func:`sweep_topologies` stream by default (``MEMSIM_STREAM_THRESHOLD``,
+    default 4096, read every call)."""
     raw = os.environ.get("MEMSIM_STREAM_THRESHOLD", "").strip()
     try:
         v = int(raw) if raw else 4096
@@ -781,25 +787,17 @@ def _stream_threshold() -> int:
     return max(1, v)
 
 
-def _refuse_streaming(entry: str, n_points: int, stream: Optional[bool],
-                      checkpoint_dir: Optional[str],
-                      chunk_lanes: Optional[int],
-                      memory_budget_bytes: Optional[int]) -> None:
-    """Raise ``NotImplementedError`` where the reference's ``entry`` would
-    run its streaming executor (``stream=True``, a ``checkpoint_dir``, or
-    at least ``MEMSIM_STREAM_THRESHOLD`` points unless ``stream=False``)
-    or is given one of its options: the executor is not ported."""
-    if stream is None:
-        stream = (checkpoint_dir is not None
-                  or n_points >= _stream_threshold())
-    if stream or checkpoint_dir is not None or chunk_lanes is not None \
-            or memory_budget_bytes is not None:
-        raise NotImplementedError(
-            f"{entry}: {n_points} points on the streaming executor (stream, "
-            f"checkpoint_dir, chunk_lanes, memory_budget_bytes, or >= "
-            f"MEMSIM_STREAM_THRESHOLD = {_stream_threshold()} points) are "
-            f"not ported; see ROADMAP.md §1, streaming and persistence "
-            f"(item 4)")
+def aot_cache_stats() -> Dict:
+    """Both layers of the kernel cache, as the reference's
+    ``aot_cache_stats``: ``"memory"``, the :func:`build.load` calls served
+    by the libraries already loaded in this process (``hits``) against
+    those that went to disk or to nvcc (``misses``), and the libraries
+    loaded (``entries``); ``"disk"``, the persistent cache's
+    :func:`exec_cache.stats`. The reference's in-process cache holds one
+    executable a program and evicts past ``MEMSIM_AOT_CACHE_SIZE``; the
+    port holds one library set a process, never evicted, so that variable
+    has no counterpart."""
+    return {"memory": build.memory_stats(), "disk": exec_cache.stats()}
 
 
 def grid_points(grid: Mapping[str, Sequence]) -> List[Dict]:
@@ -841,16 +839,31 @@ def sweep_grid(cfg: MemSimConfig, trace: Trace,
     ``capacity`` / ``resp_capacity`` (defaults: the largest swept depth)
     size the static queue buffers.
 
-    The reference's streaming executor is not ported (ROADMAP.md §1, item
-    4, streaming and persistence): a call it would stream (``stream=True``,
-    a ``checkpoint_dir``, or at least ``MEMSIM_STREAM_THRESHOLD`` points,
-    default 4096, unless ``stream=False``), or one that sets one of its
-    options (``chunk_lanes``, ``memory_budget_bytes``), raises
-    ``NotImplementedError``. ``resume`` only applies to it.
+    Streaming: grids of at least :func:`_stream_threshold` points (env
+    ``MEMSIM_STREAM_THRESHOLD``, default 4096), or any call that gives a
+    ``checkpoint_dir`` or sets ``stream=True``, run through the streaming
+    executor (:func:`repro_torch.core.sweep_stream.stream_sweep`): chunks
+    of ``chunk_lanes`` lanes (or as many as ``memory_budget_bytes``
+    holds), one lane-batched launch a chunk, each finished chunk
+    checkpointed to ``checkpoint_dir`` (kill/resume, ``resume``), the
+    kernels loaded from ``MEMSIM_EXEC_CACHE_DIR`` when it is set; results
+    bit-exact vs this materialising path, ``timings`` the executor's.
+    ``stream=False`` forces the materialising path.
     """
     points = grid_points(grid)
-    _refuse_streaming("sweep_grid", len(points), stream, checkpoint_dir,
-                      chunk_lanes, memory_budget_bytes)
+    if stream is None:
+        stream = (checkpoint_dir is not None
+                  or len(points) >= _stream_threshold())
+    if stream:
+        from repro_torch.core.sweep_stream import stream_sweep
+
+        return list(stream_sweep(
+            cfg, trace, grid, num_cycles, capacity=capacity,
+            resp_capacity=resp_capacity, cycle_skip=cycle_skip,
+            chunk_lanes=chunk_lanes,
+            memory_budget_bytes=memory_budget_bytes,
+            checkpoint_dir=checkpoint_dir, resume=resume, timings=timings,
+            device=device).results)
     # per-point full configs, validated as config construction would; the
     # "schedule" axis resolves against each lane's config
     lane_cfgs = [dataclasses.replace(
@@ -945,6 +958,54 @@ class TopoGridResult:
         return self.results[hits[0]]
 
 
+def _topo_lanes(cfg: MemSimConfig, trace, points: List[Dict],
+                capacity: Optional[int], resp_capacity: Optional[int]):
+    """The lanes of a (topology x runtime) grid, as both multi-topology
+    sweeps build them: ``(lane_cfgs, traces, qs, rs, cap, rcap, scheds,
+    topologies, topo_of_point, groups)``, each point's validated config,
+    its trace (one broadcast or one a point), its queue depths against the
+    grid-wide capacities ``cap`` / ``rcap``, its int32 schedule padded to
+    the grid's segment count, and the points grouped by
+    :class:`Topology`."""
+    lane_cfgs = [dataclasses.replace(
+        cfg, **{k: v for k, v in ov.items() if k != "schedule"}).validate()
+        for ov in points]
+    n_points = len(points)
+    if isinstance(trace, Trace):
+        trace_list = [trace] * n_points
+    else:
+        trace_list = list(trace)
+        if len(trace_list) != n_points:
+            raise ValueError(
+                f"got {len(trace_list)} traces for {n_points} grid points")
+
+    qs = [c.queue_size for c in lane_cfgs]
+    rs = [c.resp_queue_size for c in lane_cfgs]
+    cap = max(qs) if capacity is None else capacity
+    rcap = max(rs) if resp_capacity is None else resp_capacity
+    if cap < max(qs):
+        raise ValueError("capacity below largest swept queue size")
+    if rcap < max(rs):
+        raise ValueError("resp_capacity below largest swept resp queue size")
+    scheds = [_sched_i32(lane_schedule(c, ov.get("schedule")))
+              for c, ov in zip(lane_cfgs, points)]
+    s_max = max(sc.num_segments for sc in scheds)
+    scheds = [sc.pad_to(s_max) for sc in scheds]
+
+    topologies: List[Topology] = []
+    topo_of_point: List[int] = []
+    for c in lane_cfgs:
+        t = dataclasses.replace(c, queue_size=cap,
+                                resp_queue_size=rcap).topology()
+        if t not in topologies:
+            topologies.append(t)
+        topo_of_point.append(topologies.index(t))
+    groups = [[i for i, ti in enumerate(topo_of_point) if ti == gi]
+              for gi in range(len(topologies))]
+    return (lane_cfgs, trace_list, qs, rs, cap, rcap, scheds, topologies,
+            topo_of_point, groups)
+
+
 def sweep_topologies(cfg: MemSimConfig,
                      trace: Union[Trace, Sequence[Trace]],
                      grid: Mapping[str, Sequence],
@@ -999,51 +1060,33 @@ def sweep_topologies(cfg: MemSimConfig,
     launches}`` a topology). ``device=None`` runs on the CUDA card and
     raises without one.
 
-    The reference's streaming executor is not ported (ROADMAP.md §1,
-    streaming and persistence): ``stream=True``, a ``checkpoint_dir``,
-    ``chunk_lanes``, ``memory_budget_bytes``, or at least
-    ``MEMSIM_STREAM_THRESHOLD`` points (unless ``stream=False``) raise
-    ``NotImplementedError``. ``resume`` only applies to it.
+    Streaming: grids of at least :func:`_stream_threshold` points, or any
+    call that gives a ``checkpoint_dir`` or sets ``stream=True``, route
+    through :func:`repro_torch.core.sweep_stream.stream_sweep` (chunked
+    lanes under a memory budget, one launch a chunk, kill/resume
+    checkpointing, the kernels from ``MEMSIM_EXEC_CACHE_DIR``), bit-exact
+    vs this materialising path. ``stream=False`` forces the materialising
+    path.
     """
     points = topo_grid_points(grid)
-    _refuse_streaming("sweep_topologies", len(points), stream,
-                      checkpoint_dir, chunk_lanes, memory_budget_bytes)
+    if stream is None:
+        stream = (checkpoint_dir is not None
+                  or len(points) >= _stream_threshold())
+    if stream:
+        from repro_torch.core.sweep_stream import stream_sweep
+
+        return stream_sweep(
+            cfg, trace, grid, num_cycles, capacity=capacity,
+            resp_capacity=resp_capacity, cycle_skip=cycle_skip,
+            max_workers=max_workers, chunk_lanes=chunk_lanes,
+            memory_budget_bytes=memory_budget_bytes,
+            checkpoint_dir=checkpoint_dir, resume=resume, timings=timings,
+            device=device)
     dev = resolve_device(device)
-    lane_cfgs = [dataclasses.replace(
-        cfg, **{k: v for k, v in ov.items() if k != "schedule"}).validate()
-        for ov in points]
+    (lane_cfgs, trace_list, qs, rs, cap, rcap, scheds, topologies,
+     topo_of_point, groups) = _topo_lanes(cfg, trace, points, capacity,
+                                          resp_capacity)
     n_points = len(points)
-    if isinstance(trace, Trace):
-        trace_list = [trace] * n_points
-    else:
-        trace_list = list(trace)
-        if len(trace_list) != n_points:
-            raise ValueError(
-                f"got {len(trace_list)} traces for {n_points} grid points")
-
-    qs = [c.queue_size for c in lane_cfgs]
-    rs = [c.resp_queue_size for c in lane_cfgs]
-    cap = max(qs) if capacity is None else capacity
-    rcap = max(rs) if resp_capacity is None else resp_capacity
-    if cap < max(qs):
-        raise ValueError("capacity below largest swept queue size")
-    if rcap < max(rs):
-        raise ValueError("resp_capacity below largest swept resp queue size")
-    scheds = [_sched_i32(lane_schedule(c, ov.get("schedule")))
-              for c, ov in zip(lane_cfgs, points)]
-    s_max = max(sc.num_segments for sc in scheds)
-    scheds = [sc.pad_to(s_max) for sc in scheds]
-
-    topologies: List[Topology] = []
-    topo_of_point: List[int] = []
-    for c in lane_cfgs:
-        t = dataclasses.replace(c, queue_size=cap,
-                                resp_queue_size=rcap).topology()
-        if t not in topologies:
-            topologies.append(t)
-        topo_of_point.append(topologies.index(t))
-    groups = [[i for i, ti in enumerate(topo_of_point) if ti == gi]
-              for gi in range(len(topologies))]
 
     built0 = build.build_count()
     t_c0 = time.perf_counter()

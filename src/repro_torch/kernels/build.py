@@ -5,8 +5,11 @@ with a plain C interface (``-gencode arch=compute_90a,code=sm_90a``, Hopper)
 and loaded with ``ctypes``. The build happens once per process, at the
 first launch, into ``build/repro_torch/<hash>/`` at the repository root,
 where ``<hash>`` is a digest of every source and header, so an edited
-source is rebuilt and an unchanged one is reused by later processes. All
-``nvcc`` processes start together. A failed build raises.
+source is rebuilt and an unchanged one is reused by later processes; with
+``MEMSIM_EXEC_CACHE_DIR`` set, into ``<cache_dir>/<key>/`` instead (the
+persistent cache of :mod:`repro_torch.core.exec_cache`). All ``nvcc``
+processes start together. A failed build raises. A library that fails to
+load is deleted and rebuilt, never served.
 
 ``LAUNCHES`` counts the launches of each kernel; a wrapper adds one where it
 launches its kernel and nowhere else.
@@ -69,10 +72,16 @@ _ENTRY_POINTS = {
     },
 }
 
+#: where ``nvcc`` is looked for when it is not on the PATH
+NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"
+
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _build_seconds = [0.0]
 _build_count = [0]
+#: :func:`load` calls served by the libraries already loaded (hits) and
+#: those that went to disk or to nvcc (misses)
+_memory = {"hits": 0, "misses": 0}
 
 
 def reset_launches() -> None:
@@ -94,9 +103,8 @@ def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
         return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
+    if os.path.exists(NVCC_DEFAULT):
+        return NVCC_DEFAULT
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built "
                        "(CUDA tensors need the CUDA toolkit)")
 
@@ -113,16 +121,67 @@ def build_count() -> int:
     return _build_count[0]
 
 
+def memory_stats() -> Dict[str, int]:
+    """:func:`load` calls served by the libraries this process has loaded
+    (``hits``) against those that went to disk or to nvcc (``misses``),
+    and the libraries loaded (``entries``)."""
+    with _lock:
+        return dict(_memory, entries=len(_libs))
+
+
+def build_dir() -> Path:
+    """Where :func:`load` builds and loads the libraries:
+    ``<cache_dir>/<key>/`` with ``MEMSIM_EXEC_CACHE_DIR`` set, else
+    ``build/repro_torch/<source hash>/``."""
+    from repro_torch.core import exec_cache
+
+    d = exec_cache.cache_dir()
+    if d is None:
+        return BUILD_ROOT / source_hash()
+    return Path(d) / exec_cache.make_key("kernels")
+
+
+def _open(path: Path, name: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    for fn, argtypes in _ENTRY_POINTS[name].items():
+        f = getattr(lib, fn)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+    return lib
+
+
 def load() -> Dict[str, ctypes.CDLL]:
-    """The loaded kernel libraries, building them first if needed."""
+    """The loaded kernel libraries, building first the ones not on disk
+    (or that fail to load: they are deleted and rebuilt)."""
+    from repro_torch.core import exec_cache
+
     with _lock:
         if _libs:
+            _memory["hits"] += 1
             return _libs
-        out_dir = BUILD_ROOT / source_hash()
+        _memory["misses"] += 1
+        cached = exec_cache.cache_dir() is not None
+        out_dir = build_dir()
         out_dir.mkdir(parents=True, exist_ok=True)
+        libs, todo = {}, []
         t0 = time.perf_counter()
-        todo = [n for n in _ENTRY_POINTS
-                if not (out_dir / f"lib{n}.so").exists()]
+        for name in _ENTRY_POINTS:
+            path = out_dir / f"lib{name}.so"
+            if not path.exists():
+                todo.append(name)
+                continue
+            try:
+                libs[name] = _open(path, name)
+            except (OSError, AttributeError):
+                path.unlink(missing_ok=True)
+                todo.append(name)
+                if cached:
+                    exec_cache.count("errors")
+        if cached:
+            exec_cache.count("hits", len(libs))
+            exec_cache.count("misses", len(todo))
+            exec_cache.count("load_s", time.perf_counter() - t0)
+        t0 = time.perf_counter()
         nvcc = _nvcc() if todo else None
         procs = {}
         for name in todo:
@@ -143,15 +202,11 @@ def load() -> Dict[str, ctypes.CDLL]:
         if procs:
             _build_seconds[0] += time.perf_counter() - t0
             _build_count[0] += len(procs)
-        libs = {}
-        for name, fns in _ENTRY_POINTS.items():
-            lib = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
-            for fn, argtypes in fns.items():
-                f = getattr(lib, fn)
-                f.argtypes = argtypes
-                f.restype = ctypes.c_int
-            libs[name] = lib
-        _libs.update(libs)
+            if cached:
+                exec_cache.count("writes", len(procs))
+        for name in todo:
+            libs[name] = _open(out_dir / f"lib{name}.so", name)
+        _libs.update((name, libs[name]) for name in _ENTRY_POINTS)
         return _libs
 
 

@@ -21,15 +21,18 @@ ONE lane-batched K3 launch (``timings["launches"] == 1``);
 one lane-batched launch a window. The rows are computed with numpy from
 the int32 records, so they equal the reference's exactly.
 
-The reference's streaming executor is not ported: the streaming options of
-:func:`grid_study` and :func:`topo_grid_study` raise
-``NotImplementedError`` (ROADMAP.md §1, streaming and persistence).
+Grids stream as the reference's do: :func:`grid_study` runs each traffic
+stream as its own streaming sweep, and :func:`topo_grid_study` passes the
+streaming options to ``sweep_topologies``, each stream checkpointing
+under ``checkpoint_dir/stream_<i>_<name>``
+(:mod:`repro_torch.core.sweep_stream`: one lane-batched launch a chunk).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import os
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -42,9 +45,10 @@ from repro_torch.core import (
     stats,
 )
 from repro_torch.core.engine import (
-    _refuse_streaming,
+    _stream_threshold,
     grid_points,
     lane_schedule,
+    sweep_grid,
     sweep_topologies,
 )
 from repro_torch.traces import llm_workload
@@ -107,6 +111,15 @@ def measure(name: str, traffic: llm_workload.WorkloadTraffic,
 _IDEAL_FIELDS = ("tRP", "tRCDRD", "tRCDWR", "tCCDL", "tCL", "tRFC", "tREFI")
 
 
+def _stream_ckpt_dir(checkpoint_dir: Optional[str], si: int,
+                     sname: str) -> Optional[str]:
+    """Per-stream checkpoint subdirectory of a grid study (each stream is
+    its own streaming sweep with its own manifest and chunks)."""
+    if checkpoint_dir is None:
+        return None
+    return os.path.join(checkpoint_dir, f"stream_{si:02d}_{sname}")
+
+
 def grid_study(streams: Sequence[Tuple[str, llm_workload.WorkloadTraffic]],
                grid: Mapping[str, Sequence],
                cfg: MemSimConfig = MemSimConfig(),
@@ -130,17 +143,17 @@ def grid_study(streams: Sequence[Tuple[str, llm_workload.WorkloadTraffic]],
     ideal reference runs once a stream and timing point. Returns one dict
     per cell: ``{stream, config, name, requests, ..., refresh_share}``.
 
-    Where the reference would stream (``stream=True``, a
-    ``checkpoint_dir``, or at least ``MEMSIM_STREAM_THRESHOLD`` lanes),
-    or given ``chunk_lanes`` / ``memory_budget_bytes``, this raises
-    ``NotImplementedError``, as ``sweep_grid`` does; ``resume`` only
-    applies there.
+    Grids stream as the reference's do: with at least
+    ``MEMSIM_STREAM_THRESHOLD`` lanes in all, a ``checkpoint_dir`` or
+    ``stream=True``, each traffic stream runs as its own streaming
+    ``sweep_grid`` (chunked under ``chunk_lanes`` /
+    ``memory_budget_bytes``, checkpointed under
+    ``checkpoint_dir/stream_<i>_<name>``, resumable after a kill), bit-exact
+    per cell vs the one-batch path.
     """
     points = grid_points(grid)
     lane_cfgs = [dataclasses.replace(cfg, **ov)
                  for _ in streams for ov in points]
-    _refuse_streaming("grid_study", len(lane_cfgs), stream, checkpoint_dir,
-                      chunk_lanes, memory_budget_bytes)
     traces, bprs = [], []
     for name, traffic in streams:
         tr, bpr = llm_workload.synthesize(traffic, target_requests, seed=seed)
@@ -148,16 +161,31 @@ def grid_study(streams: Sequence[Tuple[str, llm_workload.WorkloadTraffic]],
         bprs.append(bpr)
     horizon = max(_max_t(tr) for tr in traces) + tail_cycles
 
-    cap = max(c.queue_size for c in lane_cfgs)
-    rcap = max(c.resp_queue_size for c in lane_cfgs)
-    cfg_cap = dataclasses.replace(cfg, queue_size=cap, resp_queue_size=rcap)
-    lane_traces = [traces[si] for si in range(len(streams)) for _ in points]
-    results = simulate_batch(
-        cfg_cap, lane_traces, num_cycles=horizon,
-        queue_sizes=[c.queue_size for c in lane_cfgs],
-        resp_queue_sizes=[c.resp_queue_size for c in lane_cfgs],
-        params=[c.runtime() for c in lane_cfgs], lane_cfgs=lane_cfgs,
-        batch_mode=batch_mode, timings=timings, device=device)
+    if stream is None:
+        stream = (checkpoint_dir is not None
+                  or len(lane_cfgs) >= _stream_threshold())
+    if stream:
+        results = []
+        for si, (sname, _) in enumerate(streams):
+            results.extend(sweep_grid(
+                cfg, traces[si], grid, num_cycles=horizon, stream=True,
+                chunk_lanes=chunk_lanes,
+                memory_budget_bytes=memory_budget_bytes,
+                checkpoint_dir=_stream_ckpt_dir(checkpoint_dir, si, sname),
+                resume=resume, timings=timings, device=device))
+    else:
+        cap = max(c.queue_size for c in lane_cfgs)
+        rcap = max(c.resp_queue_size for c in lane_cfgs)
+        cfg_cap = dataclasses.replace(cfg, queue_size=cap,
+                                      resp_queue_size=rcap)
+        lane_traces = [traces[si] for si in range(len(streams))
+                       for _ in points]
+        results = simulate_batch(
+            cfg_cap, lane_traces, num_cycles=horizon,
+            queue_sizes=[c.queue_size for c in lane_cfgs],
+            resp_queue_sizes=[c.resp_queue_size for c in lane_cfgs],
+            params=[c.runtime() for c in lane_cfgs], lane_cfgs=lane_cfgs,
+            batch_mode=batch_mode, timings=timings, device=device)
 
     # the ideal reference ignores policies and queue depths, so its span is
     # cached per (stream, timing-relevant parameter subset)
@@ -208,8 +236,8 @@ def topo_grid_study(streams: Sequence[Tuple[str, llm_workload.WorkloadTraffic]],
     ``grid`` may mix structural axes (``channels``, ``banks_per_group``,
     ...) with runtime axes. Returns one dict per cell: ``{stream, config,
     num_banks, name, ..., refresh_share}``. The streaming options pass
-    straight through to ``sweep_topologies`` (which raises
-    ``NotImplementedError`` on them).
+    straight through to ``sweep_topologies``, each stream checkpointing
+    under its own ``checkpoint_dir/stream_<i>_<name>``.
     """
     rows = []
     ideal_spans: Dict[tuple, int] = {}
@@ -220,7 +248,8 @@ def topo_grid_study(streams: Sequence[Tuple[str, llm_workload.WorkloadTraffic]],
         sweep = sweep_topologies(cfg, tr, grid, num_cycles=horizon,
                                  stream=stream, chunk_lanes=chunk_lanes,
                                  memory_budget_bytes=memory_budget_bytes,
-                                 checkpoint_dir=checkpoint_dir,
+                                 checkpoint_dir=_stream_ckpt_dir(
+                                     checkpoint_dir, si, sname),
                                  resume=resume, timings=timings,
                                  device=device)
         for point, res in zip(sweep.points, sweep.results):

@@ -12,7 +12,7 @@ constant and DVFS lanes with an FR-FCFS segment; the per-cycle form
 1 / 7 / none leaving the same states; ``sweep_queue_sizes``; a
 ``sweep_grid`` with a ``"schedule"`` axis that composes with a timing
 axis; ``grid_points`` order; the reference's ``ValueError`` texts; and
-``NotImplementedError`` where the reference would stream.
+the calls the reference streams, streamed and equal to ``stream=False``.
 """
 
 import dataclasses
@@ -378,16 +378,34 @@ def test_bad_inputs_raise_the_reference_value_errors(case):
                                 dict(threshold=2)],
                          ids=["stream", "checkpoint_dir", "chunk_lanes",
                               "memory_budget_bytes", "threshold"])
-def test_streaming_calls_raise_not_implemented(kw, monkeypatch):
-    """What the reference hands to its streaming executor is not ported:
-    it raises, and runs nothing else in its place."""
+def test_streaming_calls_raise_not_implemented(kw, monkeypatch, tmp_path):
+    """What the reference hands to its streaming executor now streams
+    (``stream=True``, a ``checkpoint_dir``, or at least
+    ``MEMSIM_STREAM_THRESHOLD`` points; ``chunk_lanes`` or
+    ``memory_budget_bytes`` alone do not, as in the reference), and every
+    such call equals the ``stream=False`` result, lane by lane."""
+    kw = dict(kw)
     if "threshold" in kw:
         monkeypatch.setenv("MEMSIM_STREAM_THRESHOLD", str(kw.pop("threshold")))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        sweep_grid(MemSimConfig(), port_trace(_burst_trace()),
-                   {"queue_size": [4, 8]}, 10, device="cpu", **kw)
-    if not kw:  # below the threshold, or stream=False, it runs
-        monkeypatch.setenv("MEMSIM_STREAM_THRESHOLD", "3")
-        assert len(sweep_grid(MemSimConfig(), port_trace(_burst_trace()),
-                              {"queue_size": [4, 8]}, 10,
-                              device="cpu")) == 2
+    if "checkpoint_dir" in kw:
+        kw["checkpoint_dir"] = str(tmp_path / kw["checkpoint_dir"])
+    streams = bool(kw.get("stream") or kw.get("checkpoint_dir")
+                   or not kw)
+    tr = port_trace(_burst_trace())
+    tm = {}
+    got = sweep_grid(MemSimConfig(), tr, {"queue_size": [4, 8]}, 10,
+                     timings=tm, device="cpu", **kw)
+    want = sweep_grid(MemSimConfig(), tr, {"queue_size": [4, 8]}, 10,
+                      stream=False, device="cpu")
+    assert tm.get("streamed", False) is streams
+    if streams:
+        assert tm["launches"] == tm["chunks"] - tm["chunks_resumed"]
+    assert len(got) == len(want) == 2
+    for a, b in zip(want, got):
+        assert a.cfg == b.cfg
+        for f in FIELDS:
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+        for k in a.counters:
+            np.testing.assert_array_equal(a.counters[k], b.counters[k])
+        assert (a.blocked_arrival, a.blocked_dispatch) == \
+            (b.blocked_arrival, b.blocked_dispatch)

@@ -44,7 +44,34 @@ def test_scan_covers_the_package():
             "decode_attention.py", "flash_attention.py", "serve.py",
             "steps.py", "qwen3_14b.py", "ssm.py", "moe.py",
             "selective_scan.py", "addr_map.py",
-            "jamba_v01_52b.py", "effective_bw.py"} <= names
+            "jamba_v01_52b.py", "effective_bw.py", "sweep_stream.py",
+            "exec_cache.py", "store.py"} <= names
+    paths = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"src/repro_torch/core/sweep_stream.py",
+            "src/repro_torch/core/exec_cache.py",
+            "src/repro_torch/checkpoint/store.py"} <= paths
+
+
+def test_streaming_entry_points_are_exported_and_raise_without_a_card():
+    """``repro_torch.core`` exports the two names it lacked against
+    ``repro.core`` (``stream_sweep``, ``aot_cache_stats``); the streaming
+    sweep, like every entry point, defaults to the card, and a sweep the
+    threshold routes to it raises there too, before any work."""
+    import repro_torch.core as core
+    from repro_torch.traces import trace_example
+
+    assert {"stream_sweep", "aot_cache_stats"} <= set(core.__all__)
+    assert set(core.aot_cache_stats()) == {"memory", "disk"}
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None selects it")
+    cfg, tr = core.MemSimConfig(), trace_example(n=4)
+    for call in (lambda: core.stream_sweep(cfg, tr, {"tCL": [14]}, 10),
+                 lambda: core.sweep_grid(cfg, tr, {"tCL": [14]}, 10,
+                                         stream=True),
+                 lambda: core.sweep_topologies(cfg, tr, {"ranks": [1]}, 10,
+                                               stream=True)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
 
 
 @pytest.mark.parametrize("entry", ["simulate", "simulate_fast",

@@ -12,11 +12,14 @@ result with completions and an all-blocked one); ``_row_from_result`` on a
 (``bit_check=False``) and ``serving_study`` at a tiny size (at most 24
 requests a stream and 200 tail cycles; the serving loop at two loads of
 one request each, in windows of 400), each one lane-batched launch (one
-a topology for the topology study) on the port's side. ``measure`` (the per-cycle simulate
+a topology for the topology study) on the port's side; their streaming
+options, streamed where the reference streams and equal to
+``stream=False``. ``measure`` (the per-cycle simulate
 over 200 000 cycles) is held on the card (``chip_smoke.py`` phase 15)
 against the reference's rows in ``golden/jax_perfmodel_reference.json``.
 """
 
+import functools
 from types import SimpleNamespace
 
 import numpy as np
@@ -188,9 +191,25 @@ def test_serving_capacity_rule_has_one_home():
                                 dict(chunk_lanes=2),
                                 dict(memory_budget_bytes=1 << 20)])
 @pytest.mark.parametrize("study", ["grid_study", "topo_grid_study"])
-def test_streaming_options_raise(study, kw):
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md §1.*streaming and persistence"):
-        getattr(teb, study)(streams(llm_workload, ("decode",)),
-                            {"tCL": [14]}, target_requests=8,
-                            tail_cycles=10, device="cpu", **kw)
+def test_streaming_options_raise(study, kw, tmp_path):
+    """The streaming options route as the reference's do (``stream=True``
+    or a ``checkpoint_dir`` stream, each traffic stream checkpointing in
+    its own ``stream_<i>_<name>`` directory; ``chunk_lanes`` or
+    ``memory_budget_bytes`` alone do not), and the rows equal the
+    ``stream=False`` ones."""
+    kw = dict(kw)
+    if "checkpoint_dir" in kw:
+        kw["checkpoint_dir"] = str(tmp_path / kw["checkpoint_dir"])
+    call = functools.partial(getattr(teb, study),
+                             streams(llm_workload, ("decode",)),
+                             {"tCL": [14]}, target_requests=8,
+                             tail_cycles=10, device="cpu")
+    tm = {}
+    got = call(timings=tm, **kw)
+    want = call(stream=False)
+    assert_rows(want, got, study)
+    assert tm.get("streamed", False) is bool(
+        kw.get("stream") or kw.get("checkpoint_dir"))
+    if "checkpoint_dir" in kw:
+        assert (tmp_path / "ckpt" / "stream_00_decode"
+                / "manifest.json").exists()

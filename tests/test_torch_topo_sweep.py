@@ -12,8 +12,8 @@ grid (``ranks`` [1, 2, 4] x ``tCL`` [14, 18]); a queue-depth axis that
 adds lanes, not topologies; one
 trace a point and the count error; ``table``, ``result_at`` and its
 ``KeyError``; a ``split`` x ``fused`` backend axis; ``TOPO_AXES`` and
-``topo_grid_points`` with the reference's order and errors; and
-``NotImplementedError`` where the reference would stream.
+``topo_grid_points`` with the reference's order and errors; and the
+calls the reference streams, streamed and equal to ``stream=False``.
 """
 
 import dataclasses
@@ -247,19 +247,39 @@ def test_split_and_fused_backend_axis():
                                 dict(checkpoint_dir="ckpt"),
                                 dict(chunk_lanes=2),
                                 dict(memory_budget_bytes=1 << 20)])
-def test_streaming_options_raise(kw):
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md §1, streaming and persistence"):
-        sweep_topologies(MemSimConfig(), port_trace(jax_trace(n=20)), GRID,
-                         100, device="cpu", **kw)
+def test_streaming_options_raise(kw, tmp_path):
+    """The streaming options route as the reference's do (``stream=True``
+    or a ``checkpoint_dir`` stream; ``chunk_lanes`` or
+    ``memory_budget_bytes`` alone do not), and the sweep equals the
+    ``stream=False`` one."""
+    kw = dict(kw)
+    if "checkpoint_dir" in kw:
+        kw["checkpoint_dir"] = str(tmp_path / kw["checkpoint_dir"])
+    tr = port_trace(jax_trace(n=20))
+    got = sweep_topologies(MemSimConfig(**SMALL), tr, GRID, 100,
+                           device="cpu", **kw)
+    want = sweep_topologies(MemSimConfig(**SMALL), tr, GRID, 100,
+                            stream=False, device="cpu")
+    assert got.timings.get("streamed", False) is bool(
+        kw.get("stream") or kw.get("checkpoint_dir"))
+    assert (got.points, got.topologies, got.topo_of_point) == \
+        (want.points, want.topologies, want.topo_of_point)
+    for i, (a, b) in enumerate(zip(want, got)):
+        assert_lane_same(a, b, f"point {i}")
+        assert a.cfg == b.cfg
 
 
 def test_stream_threshold_raises(monkeypatch):
+    """At ``MEMSIM_STREAM_THRESHOLD`` points the sweep streams, and equals
+    the materialising path that ``stream=False`` forces."""
     monkeypatch.setenv("MEMSIM_STREAM_THRESHOLD", "1")
     tr = port_trace(jax_trace(n=4))
-    with pytest.raises(NotImplementedError, match=">= MEMSIM_STREAM"):
-        sweep_topologies(MemSimConfig(), tr, {"ranks": [1]}, 100,
-                         device="cpu")
+    got = sweep_topologies(MemSimConfig(**SMALL), tr, {"ranks": [1]}, 100,
+                           device="cpu")
+    assert got.timings["streamed"] is True and got.timings["chunks"] == 1
     # stream=False forces the materializing path
-    assert len(sweep_topologies(MemSimConfig(**SMALL), tr, {"ranks": [1]},
-                                100, stream=False, device="cpu")) == 1
+    want = sweep_topologies(MemSimConfig(**SMALL), tr, {"ranks": [1]}, 100,
+                            stream=False, device="cpu")
+    assert "streamed" not in want.timings and len(want) == 1
+    assert_lane_same(want[0], got[0], "threshold")
+    assert want[0].cfg == got[0].cfg
