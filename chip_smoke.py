@@ -205,7 +205,7 @@ Phases (any failed check exits non-zero):
    its per-cycle bit check, ``serving_study``) at the file's arguments,
    every row equal to the reference's, ``bit_identical`` true on every
    ``cxl_tier_study`` lane, each study's wall and launches.
-16. streaming and persistence (run last): (a) ``sweep_grid`` of 4096
+16. streaming and persistence: (a) ``sweep_grid`` of 4096
    points on conv2d at 100k cycles (tCL x tRCDRD x tRCDWR x tRP x queue
    [16, 32, 64, 128] x page policy x scheduler policy, capacity 128) with
    no streaming option, so it streams by the default threshold: 16 chunks
@@ -226,6 +226,28 @@ Phases (any failed check exits non-zero):
    ``MEMSIM_EXEC_CACHE_DIR``: the first builds every kernel library
    (its nvcc seconds printed), the second builds none (0 compiles, a hit
    a library, no error) and gives the same ``t_complete``.
+17. training (run last): (a) K6's backward (``flash_attention_bwd_cuda``,
+   ``csrc/flash_attention_bwd.cu``) against autograd through its plain
+   version in float32: causal at minicpm-2b's B 4, H 36/36, S 1024, D 64
+   in bf16 and float32, qwen3-14b's B 1, H 40/8, D 128 in bf16, and ragged
+   small cases (S 77-256, D 16-128, GQA, causal and not): dq, dk
+   and dv within 1e-4 (float32) / 2e-2 (bf16) x max |plain|, K6's lse
+   within 1e-5 of ``logsumexp``, K6's output bit-identical with and
+   without the lse pointer; the backward's device time at minicpm's bf16
+   shape beside its plain version, the bound (10 S^2 D B Hq / 2 flops at
+   989 TFLOP/s against its bytes) and SDPA's forward + backward; K5, K7
+   and K6's plain launch raise for inputs that require grad; (b)
+   minicpm-2b at its published width and depth (40 layers, 2.72 B
+   parameters, float32 masters drawn on the card): step 0's loss and
+   gradient norm with K6's plain backward against K6's kernels (1e-3 and
+   1e-2 relative), every parameter's gradient finite and not zero, then 5
+   steps of ``make_train_step`` in bf16 (B 4 x S 1024, WSD) with 80 K6
+   and 40 K6-backward launches a step, the median wall of steps 2-5,
+   tokens/s, peak allocated memory, and a sixth step under the profiler
+   (device busy share, largest kernels); (c) the training CLI's
+   fault-tolerance drill on the card in child processes (tiny minicpm, 8
+   steps: a crash at step 5, a resumed run, an uninterrupted run), the
+   resumed losses equal the uninterrupted ones (rtol 1e-6).
 
 ``python3 chip_smoke.py --split-times CHECKOUT`` runs only the split
 backend's ``simulate_fast`` on conv2d at 20k cycles (phase 4's run) of the
@@ -3907,6 +3929,393 @@ def k7_sweep(gen):
             + "; ".join(cells))
 
 
+# ----------------------------------------------- training slice (minicpm) --
+
+K6_BWD_SHAPES = [  # label, b, hq, hkv, s, d, dtype, causal
+    ("minicpm", 4, 36, 36, 1024, 64, "bfloat16", True),
+    ("minicpm_f32", 4, 36, 36, 1024, 64, "float32", True),
+    ("qwen3", 1, 40, 8, 1024, 128, "bfloat16", True)] + [
+    # ragged S, every D, GQA groups, not causal
+    (f"small{i}", *shape, name, causal)
+    for i, shape in enumerate([(2, 8, 2, 200, 16), (1, 4, 2, 130, 32),
+                               (1, 10, 2, 256, 128), (1, 4, 4, 77, 64)])
+    for name in ("float32", "bfloat16") for causal in (True, False)]
+K6_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # x max |plain|
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 5
+
+
+def events_ms(fn, n=5, warm=1):
+    """Mean device time of one call of ``fn`` (CUDA events around ``n``
+    calls after ``warm``), for work a CUDA graph cannot hold (autograd).
+    Launch counters are restored."""
+    import torch
+    from repro_torch.kernels import build
+
+    counted = dict(build.LAUNCHES)
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    s, e = (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+    s.record()
+    for _ in range(n):
+        fn()
+    e.record()
+    torch.cuda.synchronize()
+    build.LAUNCHES.update(counted)
+    return s.elapsed_time(e) / n
+
+
+def phase_attention_backward():
+    """17(a): K6's forward with its log-sum-exp and K6's backward against
+    their plain versions on the card; the wrappers without a backward
+    refuse inputs that require grad; the backward's times."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention.decode_attention import (
+        decode_attention_cuda)
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.ref import gqa_attention_ref
+    from repro_torch.kernels.selective_scan.selective_scan import (
+        selective_scan_cuda)
+
+    gen = torch.Generator().manual_seed(17)
+    err_abs, out, worst = 0.0, {}, {}
+    for label, b, hq, hkv, s, d, name, causal in K6_BWD_SHAPES:
+        dt = getattr(torch, name)
+        q, k, v, do = (randn(gen, (b, h, s, d), dt)
+                       for h in (hq, hkv, hkv, hq))
+        with torch.no_grad():
+            o_plain = flash_attention_cuda(q, k, v, causal)
+            lse = torch.empty((b, hq, s), dtype=torch.float32, device=DEVICE)
+            o = flash_attention_cuda(q, k, v, causal, lse=lse)
+        check(torch.equal(o, o_plain), f"K6 with lse != K6 without at "
+              f"{label}: the forward is not bit-identical")
+        g = hq // hkv
+        logits = torch.einsum("bhgsd,bhtd->bhgst",
+                              q.float().reshape(b, hkv, g, s, d),
+                              k.float()) / d ** 0.5
+        if causal:
+            logits = logits.masked_fill(~torch.ones(
+                (s, s), dtype=torch.bool, device=DEVICE).tril(),
+                float("-inf"))
+        lse_err = float((lse - torch.logsumexp(logits, -1).reshape(
+            b, hq, s)).abs().max())
+        del logits
+        check(lse_err <= 1e-5, f"K6's lse at {label} is off logsumexp by "
+              f"{lse_err} (> 1e-5)")
+        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal)
+        ref = [t.float().requires_grad_() for t in (q, k, v)]
+        want = torch.autograd.grad(gqa_attention_ref(*ref, causal), ref,
+                                   do.float())
+        errs = []
+        for nm, got, w in zip("qkv", (dq, dk, dv), want):
+            e = float_err(got.float(), w)
+            scale = float(w.abs().max())
+            check(e <= K6_BWD_TOL[name] * scale, f"K6 backward d{nm} != "
+                  f"plain at {label} {name} causal={causal}: max abs err "
+                  f"{e} > {K6_BWD_TOL[name]} x {scale}")
+            errs.append(e / scale)
+            err_abs = max(err_abs, e)
+        del ref, want, dq, dk, dv
+        worst[name] = max(worst.get(name, 0.0), *errs)
+        if label.startswith("small"):
+            continue
+        log(f"[17] K6 backward {label} (B={b} Hq={hq} Hkv={hkv} S={s} "
+            f"D={d} {name}, causal): max |err| / max |plain| dq "
+            f"{errs[0]:.3g}, dk {errs[1]:.3g}, dv {errs[2]:.3g} (gate "
+            f"{K6_BWD_TOL[name]}); lse off logsumexp by {lse_err:.3g}; the "
+            f"forward bit-identical with and without lse")
+        if label != "minicpm":
+            continue
+        # times at minicpm-2b's training shape, bf16
+        ms = device_ms(lambda: flash_attention_bwd_cuda(q, k, v, o, lse, do,
+                                                        True),
+                       per_graph=2, replays=5)
+        fwd_ms = device_ms(lambda: flash_attention_cuda(q, k, v, True,
+                                                        lse=lse),
+                           per_graph=10, replays=5)
+        ref = [t.float().requires_grad_() for t in (q, k, v)]
+        ref_out = gqa_attention_ref(*ref, True)
+        plain_ms = events_ms(lambda: torch.autograd.grad(
+            ref_out, ref, do.float(), retain_graph=True), n=3)
+        del ref, ref_out
+        lib_in = [t.detach().requires_grad_() for t in (q, k, v)]
+
+        def sdpa_fwd_bwd():
+            y = F.scaled_dot_product_attention(*lib_in, is_causal=True)
+            torch.autograd.grad(y, lib_in, do)
+
+        lib_ms = events_ms(sdpa_fwd_bwd, n=10, warm=3)
+        lib_fwd_ms = events_ms(lambda: F.scaled_dot_product_attention(
+            *lib_in, is_causal=True), n=10, warm=3)
+        flops = 10 * s * s * d * b * hq / 2
+        nbytes = (4 * b * hq * s * d + 4 * b * hkv * s * d) * 2 \
+            + 4 * b * hq * s
+        t_ops = flops / BF16_FLOPS_PER_S * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        bound = max(t_ops, t_bytes)
+        by = "operations" if t_ops >= t_bytes else "bytes"
+        out = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+               "bound_by": by, "library_ms": lib_ms}
+        log(f"[17] K6 backward at minicpm B={b} Hq={hq} S={s} D={d} bf16: "
+            f"device {ms * 1e3:.1f} us/launch (3 kernels; plain autograd "
+            f"{plain_ms * 1e3:.1f} us in float32); K6 forward with lse "
+            f"{fwd_ms * 1e3:.1f} us, forward + backward "
+            f"{(fwd_ms + ms) * 1e3:.1f} us against sdpa's forward + backward "
+            f"{lib_ms * 1e3:.1f} us (its forward {lib_fwd_ms * 1e3:.1f}, "
+            f"backward ~{(lib_ms - lib_fwd_ms) * 1e3:.1f}); bound "
+            f"{bound * 1e3:.2f} us ({flops / 1e9:.2f} GFLOP at 989 TFLOP/s "
+            f"= {t_ops * 1e3:.2f} us, {nbytes} B at 3.35 TB/s = "
+            f"{t_bytes * 1e3:.2f} us; {by}; {bound / ms:.1%} of it)")
+        del lib_in
+    log(f"[17] K6 backward and lse on {len(K6_BWD_SHAPES)} cases (the "
+        f"three above; ragged S 200, 130, 77, D 16-128, GQA, causal and "
+        f"not, float32 and bf16): worst max |err| / max |plain| "
+        f"{worst['float32']:.3g} float32, {worst['bfloat16']:.3g} bf16")
+    # no silent detach: the wrappers without a backward refuse grad
+    x = randn(gen, (1, 32, 8192), torch.bfloat16).requires_grad_()
+    bc = randn(gen, (1, 32, 16), torch.bfloat16)
+    qd = randn(gen, (2, 8, 64), torch.bfloat16).requires_grad_()
+    kd = randn(gen, (2, 2, 128, 64), torch.bfloat16)
+    lens = torch.full((2,), 128, dtype=torch.int32, device=DEVICE)
+    qf = randn(gen, (1, 4, 64, 64), torch.bfloat16).requires_grad_()
+    for label, call in (
+            ("K5", lambda: decode_attention_cuda(qd, kd, kd, lens)),
+            ("K7", lambda: selective_scan_cuda(
+                x, x, bc, bc, torch.zeros((8192, 16), device=DEVICE))),
+            ("K6's plain launch", lambda: flash_attention_cuda(qf, qf, qf))):
+        try:
+            call()
+        except RuntimeError as e:
+            check("requires grad" in str(e), f"{label}: {e}")
+        else:
+            raise CheckFailed(f"{label} returned a detached output for an "
+                              f"input that requires grad")
+    log("[17] K5, K7 and K6's plain launch refuse inputs that require grad")
+    out["max_abs_err"] = err_abs
+    return out
+
+
+class plain_attention:
+    """Within: the LM's attention (``models.attention.flash_attention``)
+    is K6's plain version, autograd and all, on any device."""
+
+    def __enter__(self):
+        from repro_torch.kernels.flash_attention.ref import gqa_attention_ref
+        from repro_torch.models import attention
+
+        self.saved = attention.flash_attention
+        attention.flash_attention = gqa_attention_ref
+
+    def __exit__(self, *exc):
+        from repro_torch.models import attention
+
+        attention.flash_attention = self.saved
+
+
+def phase_train():
+    """17(b): minicpm-2b at its published width and depth trains on the
+    card in bf16 through ``make_train_step``; (c) the training CLI's
+    fault-tolerance drill in child processes. Returns K6 backward's
+    launches on the training path."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import build
+    from repro_torch.launch.steps import loss_and_grads, make_train_step
+    from repro_torch.models import lm, registry
+    from repro_torch.optim import adamw_init, global_norm, schedules
+
+    t_phase = time.perf_counter()
+    bf16 = torch.bfloat16
+    cfg = get_config("minicpm-2b")
+    check(cfg.n_layers == 40 and cfg.d_model == 2304 and cfg.n_heads == 36
+          and cfg.n_kv_heads == 36 and cfg.head_dim == 64
+          and cfg.d_ff == 5760 and cfg.vocab == 122753
+          and cfg.tie_embeddings and cfg.remat == "full",
+          "minicpm-2b config is not the published one")
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"[17] device memory before minicpm-2b: "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(0),
+                            device=DEVICE, dtype=torch.float32)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"[17] minicpm-2b: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}, tied: {n_params / 1e9:.4f} B parameters, float32 "
+        f"masters drawn on the card in {time.perf_counter() - t0:.1f} s; "
+        f"remat {cfg.remat}, loss chunk {cfg.loss_chunk}")
+    source = SyntheticLM(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    lfn = registry.loss_fn(cfg)
+
+    def batch_at(step):
+        return {k: torch.from_numpy(v).to(DEVICE)
+                for k, v in source.batch_at(step).items()}
+
+    # the first step's gradients with K6's plain backward, then with K6's
+    build.reset_launches()
+    with plain_attention():
+        loss_p, _, grads = loss_and_grads(lfn, params, batch_at(0), bf16)
+        gn_p = float(global_norm(grads))
+    check(build.LAUNCHES["k6"] == 0 and build.LAUNCHES["k6bwd"] == 0,
+          f"the plain step launched K6: {build.LAUNCHES}")
+    del grads
+    build.reset_launches()
+    loss_k, _, grads = loss_and_grads(lfn, params, batch_at(0), bf16)
+    gn_k = float(global_norm(grads))
+    one = dict(build.LAUNCHES)
+    bad = [i for i, g in enumerate(_leaves(grads))
+           if not bool(torch.isfinite(g).all()) or not bool((g != 0).any())]
+    check(not bad, f"{len(bad)} parameters got a gradient that is not "
+          f"finite or is zero (leaves {bad[:10]})")
+    del grads
+    loss_p, loss_k = float(loss_p), float(loss_k)
+    check(abs(loss_k - loss_p) <= 1e-3 * abs(loss_p)
+          and abs(gn_k - gn_p) <= 1e-2 * gn_p,
+          f"the kernel step (loss {loss_k}, grad norm {gn_k}) is off the "
+          f"plain-backward step (loss {loss_p}, grad norm {gn_p})")
+    check(one["k6"] == 2 * cfg.n_layers and one["k6bwd"] == cfg.n_layers,
+          f"a step launched K6 {one['k6']} and K6 backward {one['k6bwd']} "
+          f"times, want {2 * cfg.n_layers} (the forward and its recompute) "
+          f"and {cfg.n_layers}")
+    log(f"[17] step 0 with K6's plain backward: loss {loss_p:.6f}, grad norm "
+        f"{gn_p:.6f}; with K6's kernels: loss {loss_k:.6f} (rel "
+        f"{abs(loss_k - loss_p) / loss_p:.2e}, gate 1e-3), grad norm "
+        f"{gn_k:.6f} (rel {abs(gn_k - gn_p) / gn_p:.2e}, gate 1e-2); every "
+        f"one of {len(list(_leaves(params)))} parameters got a finite, "
+        f"non-zero gradient")
+
+    # five steps through make_train_step: bf16 compute, the WSD schedule
+    opt = adamw_init(params)
+    step = make_train_step(cfg, schedule=schedules.make(
+        "wsd", 1e-4, TRAIN_STEPS, warmup=1), dtype=bf16, device=DEVICE)
+    build.reset_launches()
+    walls, losses = [], []
+    for i in range(TRAIN_STEPS):
+        batch = source.batch_at(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    launches = dict(build.LAUNCHES)
+    check(all(map(lambda x: x == x and abs(x) < 1e4, losses)),
+          f"losses {losses}")
+    per_step = {k: launches[k] / TRAIN_STEPS for k in ("k6", "k6bwd")}
+    check(per_step["k6"] == 2 * cfg.n_layers
+          and per_step["k6bwd"] == cfg.n_layers
+          and launches["k5"] == launches["k7"] == 0,
+          f"the train steps launched {launches}")
+    peak = torch.cuda.max_memory_allocated()
+    ms = statistics.median(walls[1:]) * 1e3
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    # one more step under the profiler: the device's busy share
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, source.batch_at(TRAIN_STEPS))
+        float(m["loss"])
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    dev = device_rows(prof)
+    busy = (f"{sum(e.self_device_time_total for e in dev) * 1e-6 / prof_wall:.1%}"
+            f" of a traced step's {prof_wall * 1e3:.1f} ms wall"
+            if dev else "not measured (no device events recorded)")
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
+    log(f"[17] {TRAIN_STEPS} train steps, B={TRAIN_BATCH} x S={TRAIN_SEQ} "
+        f"bf16: losses {[round(x, 5) for x in losses]}; wall per step "
+        f"{[round(w * 1e3, 1) for w in walls]} ms, median of steps 2-"
+        f"{TRAIN_STEPS} {ms:.1f} ms = {tokens / ms * 1e3:.0f} tokens/s; "
+        f"device busy {busy}; peak allocated {peak / 1e9:.2f} GB; per step "
+        f"K6 {per_step['k6']:.0f} launches (forward and recompute), K6 "
+        f"backward {per_step['k6bwd']:.0f}")
+    if dev:
+        log("[17] largest device kernels in the traced step: " + "; ".join(
+            f"{e.key[:50]} {e.self_device_time_total / 1e3:.1f} ms "
+            f"x{e.count}" for e in top))
+    del params, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the fault-tolerance drill of the training CLI, in child processes
+    import os
+
+    tmp = Path(tempfile.mkdtemp(prefix="drill", dir=ROOT / "build" /
+                                "repro_torch"))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([str(ROOT / "src"),
+                                         env.get("PYTHONPATH", "")])
+    args = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+            "minicpm-2b", "--tiny", "--steps", "8", "--batch", "2", "--seq",
+            "32", "--checkpoint-every", "2", "--log-every", "1"]
+
+    def start(ckdir, *extra):
+        return subprocess.Popen(args + ["--ckpt-dir", str(ckdir), *extra],
+                                env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+
+    def finish(p):
+        try:
+            so, se = p.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.communicate()
+            raise CheckFailed("a training child did not end within 300 s")
+        return p.returncode, so, se
+
+    def losses_of(text):
+        return {ln.split()[2]: ln.split()[3] for ln in text.splitlines()
+                if ln.startswith("[train] step")}
+
+    def last_loss(d):
+        with open(d / "step_000000008" / "manifest.json") as f:
+            return json.load(f)["extra"]["loss"]
+
+    try:
+        t0 = time.perf_counter()
+        crash = start(tmp / "ckpt", "--resume", "--fail-at-step", "5")
+        whole = start(tmp / "whole")
+        rc1, so1, se1 = finish(crash)
+        rc3, so3, se3 = finish(whole)
+        rc2, so2, se2 = finish(start(tmp / "ckpt", "--resume"))
+        wall = time.perf_counter() - t0
+        check(rc1 != 0 and "injected failure at step 5" in se1,
+              f"the crashing child: exit {rc1}\n{se1[-2000:]}")
+        check(rc2 == 0 and "[train] resumed from step 6" in so2
+              and "done: 8 steps" in so2,
+              f"the resumed child: exit {rc2}\n{so2[-2000:]}{se2[-2000:]}")
+        check(rc3 == 0 and "done: 8 steps" in so3,
+              f"the uninterrupted child: exit {rc3}\n{se3[-2000:]}")
+        a, b, c = losses_of(so1), losses_of(so2), losses_of(so3)
+        check(sorted(b) == ["6", "7"] and {**a, **b} == c,
+              f"crashed {a} + resumed {b} != uninterrupted {c}")
+        la, lc = last_loss(tmp / "ckpt"), last_loss(tmp / "whole")
+        check(abs(la - lc) <= 1e-6 * abs(lc), f"the resumed run's last loss "
+              f"{la} != the uninterrupted run's {lc}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[17] drill (minicpm-2b tiny on the card, 8 steps): a child crashed "
+        f"at step 5, a resumed child restored step 6 and finished, its "
+        f"losses {b} equal the uninterrupted child's, the last one "
+        f"{la!r} to rtol 1e-6 ({wall:.1f} s for the three children)")
+    log(f"[17] phase 17 (b)-(c) {time.perf_counter() - t_phase:.1f} s")
+    return launches["k6bwd"]
+
+
 def k3_step_times():
     """The single-lane persistent K3's device time per executed step on
     the four traces at 100k cycles, three launches each (CUDA events), of
@@ -4034,6 +4443,10 @@ def main():
         sessions = phase_sessions(run_plain_ms, batch["plain_ms"])
         topologies = phase_topologies()
         stream = phase_stream()
+        t17 = time.perf_counter()
+        k6_bwd = phase_attention_backward()
+        k6_bwd["launches"] = phase_train()
+        log(f"[17] phase 17 {time.perf_counter() - t17:.1f} s")
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4128,6 +4541,16 @@ def main():
             "replaces": replaces, "launches": llm_launches[k],
             "max_abs_err": attn_errs[k], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms})
+    # K6's backward: the gradient of K6, per backward launch (its three
+    # kernels) at minicpm-2b's training shape, bf16
+    kernels.append({
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": src + "flash_attention_bwd.cu",
+        "replaces": ref + "flash_attention/flash_attention.py:76",
+        "launches": k6_bwd["launches"], "max_abs_err": k6_bwd["max_abs_err"],
+        "ms": k6_bwd["ms"], "plain_ms": k6_bwd["plain_ms"],
+        "bound_ms": k6_bwd["bound_ms"], "bound_by": k6_bwd["bound_by"],
+        "library_ms": k6_bwd["library_ms"]})
     ms, plain_ms, bound_ms, bound_by = hybrid_times["k7"]
     kernels.append({
         "name": "selective_scan", "route": "cuda",

@@ -12,9 +12,11 @@ neither JAX nor the reference package:
 * :func:`state_from_numpy` / :func:`state_to_numpy` — a flat dict of every
   :class:`SimState` leaf <-> this package's :class:`SimState`, adding and
   stripping the write-sink slots (see ``repro_torch.core.simulator``);
-* :func:`lm_params_from_numpy` — the reference's LM parameter tree (body
-  leaves stacked ``[G, ...]``) -> this package's parameters
-  (``repro_torch.models.lm``: one block per layer, in layer order);
+* :func:`lm_params_from_numpy` / :func:`lm_params_to_numpy` — the
+  reference's LM parameter tree (body leaves stacked ``[G, ...]``) <->
+  this package's parameters (``repro_torch.models.lm``: one block per
+  layer, in layer order); the same two carry gradient and AdamW-moment
+  trees, which have the parameters' structure (float32 throughout);
 * :func:`lm_caches_from_numpy` / :func:`lm_caches_to_numpy` — the
   reference's LM caches ``{"prefix": [...], "body": {slot: [G, ...]}}``
   <-> this package's per-layer cache list.
@@ -180,6 +182,40 @@ def lm_params_from_numpy(cfg, tree, device=None,
     return params
 
 
+def _np_of(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:  # numpy has no bfloat16 of its own
+        t = t.float()
+    return t.numpy()
+
+
+def _stack_layers(cfg, layers) -> Dict[str, Any]:
+    """``{"prefix": [...], "body": {slot: leaves stacked [G, ...]}}`` from
+    per-layer trees in layer order (the inverse of ``_layer_trees``)."""
+    def stack(trees):
+        if isinstance(trees[0], dict):
+            return {k: stack([t[k] for t in trees]) for k in trees[0]}
+        return np.stack([_np_of(t) for t in trees])
+
+    n_pre = len(cfg.prefix)
+    period = len(cfg.period)
+    return {"prefix": [_tree_map(_np_of, t) for t in layers[:n_pre]],
+            "body": {str(slot): stack(layers[n_pre + slot::period])
+                     for slot in range(period)}}
+
+
+def lm_params_to_numpy(cfg, params) -> Dict[str, Any]:
+    """The reference's LM parameter tree as numpy arrays (``embed``,
+    ``final_norm``, ``lm_head`` when untied, ``prefix`` and ``body``
+    stacked over groups) from this package's parameters, or from a
+    gradient or AdamW-moment tree of the same structure; bfloat16 leaves
+    come out as float32."""
+    tree = {k: _tree_map(_np_of, params[k])
+            for k in ("embed", "final_norm", "lm_head") if k in params}
+    tree.update(_stack_layers(cfg, params["layers"]))
+    return tree
+
+
 def lm_caches_from_numpy(cfg, tree, device=None) -> List[Dict[str, Any]]:
     """This package's per-layer caches from the reference's cache tree,
     every leaf keeping its dtype."""
@@ -190,24 +226,11 @@ def lm_caches_from_numpy(cfg, tree, device=None) -> List[Dict[str, Any]]:
 def lm_caches_to_numpy(cfg, caches) -> Dict[str, Any]:
     """The reference's cache tree (``{"prefix": [...], "body": {slot:
     leaves stacked [G, ...]}}``) from this package's per-layer caches."""
-    def np_of(t):
-        t = t.detach().cpu()
-        if t.dtype == torch.bfloat16:  # numpy has no bfloat16 of its own
-            t = t.float()
-        return t.numpy()
-
-    n_pre = len(cfg.prefix)
-    period = len(cfg.period)
-    body = {}
-    for slot in range(period):
-        per_group = caches[n_pre + slot::period]
-        body[str(slot)] = {k: np.stack([np_of(c[k]) for c in per_group])
-                           for k in per_group[0]}
-    return {"prefix": [_tree_map(np_of, c) for c in caches[:n_pre]],
-            "body": body}
+    return _stack_layers(cfg, caches)
 
 
 __all__ = ["SINK_FIELDS", "trace_from_numpy", "schedule_from_numpy",
            "flatten", "state_to_numpy", "state_from_numpy",
-           "lm_params_from_numpy", "lm_caches_from_numpy",
+           "lm_params_from_numpy", "lm_params_to_numpy",
+           "lm_caches_from_numpy",
            "lm_caches_to_numpy"]

@@ -47,9 +47,15 @@
 //   columns, row max and sum reduced over 16 lanes with shuffles; float32
 //   (m, l, acc) in registers, one write of the output.
 //
+// Both forms write, when given a non-null lse pointer, each row's
+// log-sum-exp of its scaled logits (natural log, float32 [B, Hq, S]) in
+// their epilogue: the one value the backward (csrc/flash_attention_bwd.cu)
+// needs to recompute P without a second pass. A null pointer writes
+// nothing and leaves the output's arithmetic unchanged.
+//
 // ABI: q [B, Hq, S, D], k/v [B, Hkv, S, D] (one dtype: float32 or bf16,
-// contiguous), out [B, Hq, S, D] in q's dtype; D in {16, 32, 64, 128};
-// dtype 0 = float32, 1 = bf16.
+// contiguous), out [B, Hq, S, D] in q's dtype, lse float32 [B, Hq, S] or
+// null; D in {16, 32, 64, 128}; dtype 0 = float32, 1 = bf16.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -93,8 +99,9 @@ constexpr size_t smem_bytes(int D) {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 2)
     fma_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, T* __restrict__ out, int Hq,
-                   int Hkv, int S, int causal, float scale) {
+                   const T* __restrict__ v, T* __restrict__ out,
+                   float* __restrict__ lse, int Hq, int Hkv, int S,
+                   int causal, float scale) {
   constexpr int DP = D + 1;
   constexpr int ND = D / 16;  // acc columns per thread
   extern __shared__ float smem[];
@@ -216,13 +223,16 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
     for (int j = 0; j < ND; ++j)
       ob[(size_t)row * D + tx + 16 * j] = from_f32<T>(acc[i][j] * inv);
+    // m and l are the row's over its 16 lanes: one lane writes
+    if (lse != nullptr && tx == 0)
+      lse[(size_t)bh * S + row] = m[i] + logf(l[i]);
   }
 }
 
 template <typename T, int D>
 cudaError_t launch_fma(const void* q, const void* k, const void* v, void* out,
-                       int B, int Hq, int Hkv, int S, int causal, float scale,
-                       cudaStream_t stream) {
+                       float* lse, int B, int Hq, int Hkv, int S, int causal,
+                       float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes(D);
   auto kern = fma_fwd_kernel<T, D>;
   // raise the dynamic shared-memory cap once per instantiation, outside
@@ -237,8 +247,8 @@ cudaError_t launch_fma(const void* q, const void* k, const void* v, void* out,
   const dim3 grid(B * Hq, (S + kBQ - 1) / kBQ);
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Hq, Hkv, S, causal,
-      scale);
+      static_cast<const T*>(v), static_cast<T*>(out), lse, Hq, Hkv, S,
+      causal, scale);
   return cudaGetLastError();
 }
 
@@ -282,8 +292,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     tc_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
                   const __grid_constant__ CUtensorMap map_k,
                   const __grid_constant__ CUtensorMap map_v,
-                  __nv_bfloat16* __restrict__ out, int Hq, int Hkv, int S,
-                  int causal, float scale_log2) {
+                  __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                  int Hq, int Hkv, int S, int causal, float scale_log2) {
   using L = Layout<D>;
   using namespace hopper;
   extern __shared__ uint8_t smem_raw[];
@@ -438,6 +448,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
     sum += __shfl_xor_sync(0xffffffffu, sum, 2);
     inv[hr] = 1.f / fmaxf(sum, 1e-30f);
+    // m is the row's max in the log2 domain, shared by the quad's lanes
+    const int row = r0 + 8 * hr;
+    if (lse != nullptr && lane % 4 == 0 && row < S)
+      lse[(size_t)bh * S + row] = (m[hr] + log2f(sum)) * 0.6931471805599453f;
   }
   __nv_bfloat16* ob = out + (size_t)bh * S * D;
 #pragma unroll
@@ -490,8 +504,8 @@ bool encode(CUtensorMap* map, const void* ptr, int heads, int S, int D,
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int Hq, int Hkv, int S, int causal, float scale,
-                   cudaStream_t stream) {
+                   float* lse, int B, int Hq, int Hkv, int S, int causal,
+                   float scale, cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
   if (!encode(&mq, q, B * Hq, S, D, kBQ) ||
       !encode(&mk, k, B * Hkv, S, D, kBN) ||
@@ -510,8 +524,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   }
   const dim3 grid(B * Hq, (S + kBQ - 1) / kBQ);
   kern<<<grid, kThreads, smem, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(out), Hq, Hkv, S, causal,
-      scale * 1.4426950408889634f);
+      mq, mk, mv, static_cast<__nv_bfloat16*>(out), lse, Hq, Hkv, S,
+      causal, scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
@@ -519,12 +533,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 
 template <typename T>
 cudaError_t launch_fma_dtype(const void* q, const void* k, const void* v,
-                             void* out, int B, int Hq, int Hkv, int S, int D,
-                             int causal, float scale, cudaStream_t stream) {
+                             void* out, float* lse, int B, int Hq, int Hkv,
+                             int S, int D, int causal, float scale,
+                             cudaStream_t stream) {
 #define K6_CASE(DD)                                                        \
   case DD:                                                                 \
-    return simt::launch_fma<T, DD>(q, k, v, out, B, Hq, Hkv, S, causal,    \
-                                  scale, stream);
+    return simt::launch_fma<T, DD>(q, k, v, out, lse, B, Hq, Hkv, S,       \
+                                  causal, scale, stream);
   switch (D) {
     K6_CASE(16)
     K6_CASE(32)
@@ -546,24 +561,27 @@ cudaError_t launch_fma_dtype(const void* q, const void* k, const void* v,
 }  // namespace
 
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out, int B, int Hq,
-                                      int Hkv, int S, int D, int causal,
-                                      int dtype, void* stream) {
+                                      const void* v, void* out, void* lse_p,
+                                      int B, int Hq, int Hkv, int S, int D,
+                                      int causal, int dtype, void* stream) {
+  float* lse = static_cast<float*>(lse_p);
   if (B < 1 || Hkv < 1 || Hq % Hkv != 0 || S < 1)
     return (int)cudaErrorInvalidValue;
   const float scale = (float)(1.0 / sqrt((double)D));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 1 && D == 128)
-    err = tc::launch<128>(q, k, v, out, B, Hq, Hkv, S, causal, scale, st);
+    err = tc::launch<128>(q, k, v, out, lse, B, Hq, Hkv, S, causal, scale,
+                          st);
   else if (dtype == 1 && D == 64)
-    err = tc::launch<64>(q, k, v, out, B, Hq, Hkv, S, causal, scale, st);
+    err = tc::launch<64>(q, k, v, out, lse, B, Hq, Hkv, S, causal, scale,
+                         st);
   else if (dtype == 1)
-    err = launch_fma_dtype<__nv_bfloat16>(q, k, v, out, B, Hq, Hkv, S, D,
-                                          causal, scale, st);
+    err = launch_fma_dtype<__nv_bfloat16>(q, k, v, out, lse, B, Hq, Hkv, S,
+                                          D, causal, scale, st);
   else if (dtype == 0)
-    err = launch_fma_dtype<float>(q, k, v, out, B, Hq, Hkv, S, D, causal,
-                                  scale, st);
+    err = launch_fma_dtype<float>(q, k, v, out, lse, B, Hq, Hkv, S, D,
+                                  causal, scale, st);
   else
     err = cudaErrorInvalidValue;
   return (int)err;

@@ -30,7 +30,7 @@ from typing import Dict
 #: launches per kernel since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {"k1": 0, "k2": 0, "k3": 0, "k3run": 0,
                              "k3cyc": 0, "k3batch": 0, "k4": 0, "k5": 0,
-                             "k6": 0, "k7": 0}
+                             "k6": 0, "k6bwd": 0, "k7": 0}
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -59,7 +59,10 @@ _ENTRY_POINTS = {
         "decode_attention_launch": [_P] * 8 + [_I] * 8 + [_P],
     },
     "flash_attention": {
-        "flash_attention_launch": [_P] * 4 + [_I] * 7 + [_P],
+        "flash_attention_launch": [_P] * 5 + [_I] * 7 + [_P],
+    },
+    "flash_attention_bwd": {
+        "flash_attention_bwd_launch": [_P] * 10 + [_I] * 7 + [_P],
     },
     "addr_map": {
         "addr_map_launch": [_P] * 6 + [_I] * 12 + [_P],
@@ -220,6 +223,22 @@ def stream_of(t) -> int:
     import torch
 
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def refuse_grad(name: str, **tensors) -> None:
+    """Raise when grad mode is on and an input requires grad: a kernel
+    whose output is filled through a raw pointer has no ``grad_fn``, so
+    its output would be silently detached from the graph."""
+    import torch
+
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in tensors.values()):
+        raise RuntimeError(
+            f"{name}: an input requires grad, and this kernel has no "
+            f"backward here; its output would be detached from the graph "
+            f"(run it under torch.no_grad(), or through an op with a "
+            f"backward)")
 
 
 def require_cuda(name: str, dtype=None, **tensors) -> None:

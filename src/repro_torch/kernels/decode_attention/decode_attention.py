@@ -5,6 +5,9 @@ tensors to the plain version in ``ref.py``), allocates the output and the
 float32 split workspace, launches the one kernel (splits and their merge)
 on PyTorch's current stream, never synchronises, and raises on a launch
 error. One call is one K5 launch in ``build.LAUNCHES["k5"]``.
+It has no backward: called while grad mode is on with an input that
+requires grad, it raises (``build.refuse_grad``) rather than return an
+output detached from the graph.
 
 The kernel's last split to finish a row merges the row, found by an int32
 counter per row that the kernel leaves at 0; the counters are kept per
@@ -87,6 +90,7 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dtype not in DTYPES:
         raise ValueError(f"decode_attention: dtype {q.dtype} not supported "
                          f"(float32 or bfloat16)")
+    build.refuse_grad("decode_attention", q=q, k=k, v=v)
     build.require_cuda("decode_attention", dtype=q.dtype, q=q, k=k, v=v)
     build.require_cuda("decode_attention", kv_len=kv_len)
     b, hq, d = q.shape

@@ -1,9 +1,13 @@
 """GQA attention entry point: dispatch on the tensors' device.
 
 A CUDA tensor launches K6 (``flash_attention.py``) or raises; a CPU tensor
-runs the plain version (``ref.py``). Both take any sequence length: the
-kernel masks a ragged last block, so the Pallas wrapper's rule that S be
-a multiple of ``min(128, S)`` does not apply.
+runs the plain version (``ref.py``), whose autograd is the plain version
+of K6's backward. On the card, while grad mode is on and an input
+requires grad, the call goes through ``FlashAttention`` (K6 with its
+log-sum-exp, then K6's backward kernels); otherwise it is K6's plain
+launch. Both take any sequence length: the kernels mask a ragged last
+block, so the Pallas wrapper's rule that S be a multiple of
+``min(128, S)`` does not apply.
 """
 
 from __future__ import annotations
@@ -11,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.flash_attention.flash_attention import (
+    FlashAttention,
     flash_attention_cuda,
 )
 from repro_torch.kernels.flash_attention.ref import gqa_attention_ref
@@ -21,5 +26,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q [B, Hq, S, D]; k, v [B, Hkv, S, D] -> [B, Hq, S, D]."""
     if not q.is_cuda:
         return gqa_attention_ref(q, k, v, causal=causal)
-    return flash_attention_cuda(q.contiguous(), k.contiguous(),
-                                v.contiguous(), causal)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal)
+    return flash_attention_cuda(q, k, v, causal)

@@ -5,6 +5,9 @@ tensors to the plain version in ``ref.py``), allocates y and h_final,
 launches one kernel on PyTorch's current stream, never synchronises, and
 raises on a launch error. One call is one K7 launch in
 ``build.LAUNCHES["k7"]``.
+It has no backward: called while grad mode is on with an input that
+requires grad, it raises (``build.refuse_grad``) rather than return an
+output detached from the graph.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ def selective_scan_cuda(x: torch.Tensor, dt: torch.Tensor, bc: torch.Tensor,
     if x.dtype not in DTYPES:
         raise ValueError(f"selective_scan: dtype {x.dtype} not supported "
                          f"(float32 or bfloat16)")
+    build.refuse_grad("selective_scan", x=x, dt=dt, bc=bc, cc=cc, a=a)
     build.require_cuda("selective_scan", dtype=x.dtype, x=x, dt=dt, bc=bc,
                        cc=cc)
     build.require_cuda("selective_scan", dtype=torch.float32, a=a)

@@ -1,24 +1,128 @@
-"""Step factories: prefill and the one-token decode step of the serve path.
+"""Step factories: the train step (forward, backward, AdamW), prefill and
+the one-token decode step of the serve path.
 
 Each factory resolves its device once (``device=None`` is the CUDA card
 and raises without one; pass ``device="cpu"`` for the CPU) and returns a
-function that moves its token and position inputs there. The training step
-is not ported yet (ROADMAP.md §1, LLM model stack).
+function that moves its token and position inputs there.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.simulator import resolve_device
-from repro_torch.models import lm
+from repro_torch.models import lm, registry
+from repro_torch.optim import adamw
+from repro_torch.optim import compression as comp_lib
+from repro_torch.optim.adamw import AdamWConfig, tree_leaves, tree_map
+
+F32 = torch.float32
 
 
 def _as_int32(x, device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.int32).to(device)
+
+
+def _batch_to(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
+    """Every array of a batch as a tensor on ``device`` (integer arrays
+    as int32, float ones as float32)."""
+    def one(v):
+        t = torch.as_tensor(v)
+        return t.to(device, F32 if t.is_floating_point() else torch.int32)
+    return {k: one(v) for k, v in batch.items()}
+
+
+def loss_and_grads(loss_fn: Callable, params: Any, batch: Dict[str, Any],
+                   dtype) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
+                                   Any]:
+    """(loss, metrics, gradients) of ``loss_fn(params', batch, dtype)``,
+    where ``params'`` is ``params`` with every float32 leaf of ndim >= 2
+    cast to ``dtype`` once (norms and vectors stay float32, as the
+    reference's train step casts). The gradients are a tree like
+    ``params``, each leaf in its parameter's dtype (a leaf the loss does
+    not reach gets zeros). ``params`` is not changed."""
+    leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    it = iter(leaves)
+    live = tree_map(lambda _: next(it), params)
+
+    def cast(x):
+        if x.dtype == F32 and x.dim() >= 2:
+            return x.to(dtype)
+        return x
+
+    loss, metrics = loss_fn(tree_map(cast, live), batch, dtype)
+    got = torch.autograd.grad(loss, leaves, allow_unused=True)
+    it = iter([torch.zeros_like(p) if g is None else g
+               for p, g in zip(leaves, got)])
+    grads = tree_map(lambda _: next(it), params)
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+
+
+def make_train_step(cfg: ArchConfig, schedule: Optional[Callable] = None,
+                    opt_cfg: AdamWConfig = AdamWConfig(),
+                    dtype=torch.bfloat16, num_microbatches: int = 1,
+                    grad_compression: bool = False,
+                    device=None) -> Callable:
+    """Returns train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics), as the reference's: the loss and its gradients in ``dtype``
+    (float32 master leaves of ndim >= 2 cast once a step), averaged over
+    ``num_microbatches`` slices of the batch (gradient accumulation),
+    error-feedback int8 compression when ``grad_compression`` (the error
+    tree in ``opt_state["err"]``), the learning rate ``schedule(count)``
+    (3e-4 without one), then AdamW, decaying the leaves the reference
+    decays (``lm.weight_decay_mask``). Metrics: ``loss``, ``ce_loss``,
+    ``aux_loss`` and ``tokens`` (of the last microbatch), ``grad_norm``,
+    ``lr``.
+
+    The parameters and optimizer state are updated IN PLACE and returned
+    (the reference donates them); the batch's arrays move to the step's
+    device. Refuses, on every device, a config ``lm.check_trainable``
+    refuses (a Mamba layer: K7 has no backward yet)."""
+    lfn = registry.loss_fn(cfg)
+    dev = resolve_device(device)
+
+    def train_step(params, opt_state, batch):
+        batch = _batch_to(batch, dev)
+        if num_microbatches == 1:
+            loss, metrics, grads = loss_and_grads(lfn, params, batch, dtype)
+        else:
+            n = num_microbatches
+            grads, lsum = None, torch.zeros((), dtype=F32, device=dev)
+            for i in range(n):
+                mb = {k: v.reshape((n, v.shape[0] // n) + v.shape[1:])[i]
+                      for k, v in batch.items()}
+                loss_i, metrics, g = loss_and_grads(lfn, params, mb, dtype)
+                if grads is None:
+                    grads = tree_map(lambda x: x.to(F32), g)
+                else:
+                    with torch.no_grad():
+                        for a, b in zip(tree_leaves(grads), tree_leaves(g)):
+                            a.add_(b)
+                del g
+                lsum = lsum + loss_i
+            inv = 1.0 / n
+            with torch.no_grad():
+                for a in tree_leaves(grads):
+                    a.mul_(inv)
+            loss = lsum * inv
+        opt_state = dict(opt_state)
+        if grad_compression:
+            grads, opt_state["err"] = comp_lib.compress_tree(
+                grads, opt_state["err"])
+        err = opt_state.pop("err", None)
+        lr = (schedule(opt_state["count"]) if schedule
+              else torch.tensor(3e-4, dtype=F32, device=dev))
+        params, new_opt, om = adamw.update(params, grads, opt_state, lr,
+                                           opt_cfg,
+                                           lm.weight_decay_mask(cfg, params))
+        if err is not None:
+            new_opt["err"] = err
+        return params, new_opt, {"loss": loss, **metrics, **om}
+
+    return train_step
 
 
 def make_prefill(cfg: ArchConfig, dtype=torch.bfloat16,

@@ -13,6 +13,7 @@ from typing import Dict
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 Params = Dict[str, torch.Tensor]
 F32 = torch.float32
@@ -107,3 +108,50 @@ def embed(p: Params, tokens: torch.Tensor,
     """The table is cast to ``dtype`` before the gather, as the reference
     casts it."""
     return p["table"].to(dtype)[tokens.long()]
+
+
+# ---- loss --------------------------------------------------------------------
+
+def _chunk_xent(xb: torch.Tensor, head: torch.Tensor, lb: torch.Tensor):
+    """(summed loss, count of labels >= 0) of one sequence chunk, its
+    logits float32."""
+    logits = (xb @ head.to(xb.dtype)).to(F32)
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, torch.clamp(lb, min=0).long()[..., None]
+                          )[..., 0]
+    valid = lb >= 0
+    loss = torch.where(valid, lse - picked, torch.zeros_like(lse))
+    return loss.sum(), valid.sum()
+
+
+def chunked_softmax_xent(x: torch.Tensor, head: torch.Tensor,
+                         labels: torch.Tensor, chunk: int = 512):
+    """Cross entropy without materialising [B, S, V]: x [B, S, d] final
+    hidden states, head [d, V], labels [B, S] (-100 = ignore). Returns
+    (mean loss over the counted labels, float32; the count, int64).
+
+    Chunks run over the sequence (a ragged tail is padded with label
+    -100), each chunk's logits [B, c, V] in float32. While grad is on,
+    each chunk is checkpointed (``torch.utils.checkpoint``, non-reentrant)
+    and its logits recomputed in the backward, as the reference's
+    ``jax.checkpoint(nothing_saveable)``: saving them across chunks would
+    hold the whole [B, S, V] the chunking avoids."""
+    b, s, d = x.shape
+    if s % chunk:
+        pad = chunk - s % chunk
+        x = F.pad(x, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-100)
+        s += pad
+    tot = torch.zeros((), dtype=F32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.int64, device=x.device)
+    grad = torch.is_grad_enabled()
+    for c0 in range(0, s, chunk):
+        xb, lb = x[:, c0:c0 + chunk], labels[:, c0:c0 + chunk]
+        if grad:
+            loss, n = torch.utils.checkpoint.checkpoint(
+                _chunk_xent, xb, head, lb, use_reentrant=False)
+        else:
+            loss, n = _chunk_xent(xb, head, lb)
+        tot = tot + loss
+        cnt = cnt + n
+    return tot / torch.clamp(cnt, min=1), cnt

@@ -7,9 +7,18 @@ over it. Each layer has a mixer and an FFN kind, ``layer_kinds(cfg)``.
 Supported here: GQA attention (``attn_type="gqa"``) and Mamba mixers,
 dense SwiGLU, MoE or no FFN. That covers qwen3-14b, qwen2-72b, minicpm-2b,
 starcoder2-7b, llava-next-34b (through ``embeds``), phi3.5-moe and jamba.
-MLA, the mLSTM/sLSTM mixers, encoder-decoder models and the training loss
-raise ``NotImplementedError``; they are queued in ROADMAP.md §1, LLM model
-stack.
+MLA, the mLSTM/sLSTM mixers and encoder-decoder models raise
+``NotImplementedError``; they are queued in ROADMAP.md §1, LLM model
+stack. The training loss (``lm_loss``) takes every supported family but
+jamba: a Mamba layer has no backward on the card yet (K7's), so
+``check_trainable`` refuses it on every device.
+
+While grad is enabled and its input or parameters require grad (not in
+serving), ``forward`` checkpoints each group of the period as
+``cfg.remat`` says (the reference's ``_remat_wrap``): ``"full"``
+recomputes the group in the backward (``torch.utils.checkpoint``,
+non-reentrant), ``"dots"`` saves the matrix products' outputs and
+recomputes the rest, ``"none"`` saves everything.
 
 Parameters: ``{"embed": {"table"}, "final_norm": {"scale"},
 "lm_head" (untied only), "layers": [block, ...]}`` with each block
@@ -26,9 +35,11 @@ d_state], "conv": [B, d_conv - 1, d_inner]}`` in the compute dtype.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint as ckpt
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_lib
@@ -36,6 +47,7 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (
     F32,
+    chunked_softmax_xent,
     embed,
     init_embedding,
     init_rmsnorm,
@@ -44,6 +56,7 @@ from repro_torch.models.layers import (
     swiglu,
     truncated_normal,
 )
+from repro_torch.optim.adamw import tree_leaves
 
 Params = Dict[str, Any]
 Caches = List[Dict[str, torch.Tensor]]
@@ -76,6 +89,35 @@ def check_supported(cfg: ArchConfig) -> None:
             raise NotImplementedError(
                 f"{cfg.name}: {cfg.attn_type} attention is not ported yet "
                 f"(ported: gqa); " + _ROADMAP)
+
+
+def check_trainable(cfg: ArchConfig) -> None:
+    """Raise ``NotImplementedError`` where ``lm_loss`` cannot train: every
+    family :func:`check_supported` refuses, and a Mamba layer, whose
+    kernel (K7) has no backward yet. Refused on every device, so that a
+    config that trains on the CPU also trains on the card."""
+    check_supported(cfg)
+    if any(m == "mamba" for m, _ in layer_kinds(cfg)):
+        raise NotImplementedError(
+            f"{cfg.name}: training a Mamba layer needs K7's backward "
+            f"(selective scan), not ported yet; " + _ROADMAP)
+
+
+def weight_decay_mask(cfg: ArchConfig, params: Params) -> Params:
+    """A tree of bools like ``params``: the leaves the reference's AdamW
+    decays. Its rule is ndim >= 2 on its own tree, whose body leaves are
+    stacked over groups ``[G, ...]``; so every leaf of a body layer is
+    decayed (norm scales and biases too), and elsewhere (the embedding,
+    the head, the final norm, the prefix layers) only matrices."""
+    def mark(tree, body):
+        if isinstance(tree, dict):
+            return {k: mark(v, body) for k, v in tree.items()}
+        return body or tree.dim() >= 2
+
+    out = {k: mark(v, False) for k, v in params.items() if k != "layers"}
+    out["layers"] = [mark(p, i >= len(cfg.prefix))
+                     for i, p in enumerate(params["layers"])]
+    return out
 
 
 # ---------------------------------------------------------------- blocks ----
@@ -225,18 +267,85 @@ def forward(cfg: ArchConfig, params: Params,
                                  device=x.device)[None].expand(b, s)
     caches: Caches = []
     aux = torch.zeros((), dtype=F32, device=x.device)
-    for p, (mixer, ffn) in zip(params["layers"], layer_kinds(cfg)):
+    kinds = layer_kinds(cfg)
+    n_pre, period = len(cfg.prefix), len(cfg.period)
+    for p, (mixer, ffn) in zip(params["layers"][:n_pre], kinds[:n_pre]):
         x, cache, a = apply_block_full(p, x, cfg, mixer, ffn, positions,
                                        collect_caches)
         aux = aux + a
         if collect_caches:
             caches.append(cache)
+
+    def group(x, g):
+        a_g = torch.zeros((), dtype=F32, device=x.device)
+        cs = []
+        for slot in range(period):
+            i = n_pre + g * period + slot
+            x, cache, a = apply_block_full(params["layers"][i], x, cfg,
+                                           *kinds[i], positions,
+                                           collect_caches)
+            a_g = a_g + a
+            cs.append(cache)
+        return x, a_g, cs
+
+    # checkpoint only a forward that builds a graph (not serving's)
+    train = torch.is_grad_enabled() and (x.requires_grad or any(
+        t.requires_grad for t in tree_leaves(params["layers"])))
+    wrapped = _remat_wrap(cfg, group) if train else group
+    for g in range(cfg.groups):
+        x, a_g, cs = wrapped(x, g)
+        aux = aux + a_g
+        if collect_caches:
+            caches.extend(cs)
     return x, caches, aux
 
 
-def lm_loss(*args, **kwargs):
-    raise NotImplementedError("lm_loss (training) is not ported yet; "
-                              + _ROADMAP)
+#: the matrix products whose outputs ``remat="dots"`` saves (the
+#: reference's ``checkpoint_policies.checkpoint_dots``)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_wrap(cfg: ArchConfig, fn):
+    """``fn`` checkpointed as ``cfg.remat`` says."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "full":
+        kw = {}
+    elif cfg.remat == "dots":
+        kw = {"context_fn": functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_dots)}
+    else:
+        raise ValueError(f"remat must be none, dots or full, got "
+                         f"{cfg.remat!r}")
+
+    def wrapped(*args):
+        return ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
+
+    return wrapped
+
+
+def lm_loss(cfg: ArchConfig, params: Params,
+            tokens: Optional[torch.Tensor], labels: torch.Tensor,
+            embeds: Optional[torch.Tensor] = None, dtype=F32,
+            aux_weight: float = 0.01
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token loss: ``forward``, the final norm, the tied or untied
+    head, ``chunked_softmax_xent`` over ``cfg.loss_chunk``, plus
+    ``aux_weight`` times the MoE aux loss. Returns (total, {"ce_loss",
+    "aux_loss", "tokens"})."""
+    check_trainable(cfg)
+    x, _, aux = forward(cfg, params, tokens, embeds, dtype=dtype)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    loss, count = chunked_softmax_xent(x, head_matrix(cfg, params), labels,
+                                       cfg.loss_chunk)
+    total = loss + aux_weight * aux
+    return total, {"ce_loss": loss, "aux_loss": aux, "tokens": count}
 
 
 # ---------------------------------------------------------------- decode ----

@@ -1,4 +1,4 @@
-"""Arch-id -> model entry points (init / decode / caches).
+"""Arch-id -> model entry points (init / loss / decode / caches).
 
 Decoder-only configs whose layers ``models.lm`` ports (GQA attention and
 Mamba mixers, dense and MoE FFNs: the dense-GQA models, phi3.5-moe and
@@ -30,6 +30,19 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None,
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     return lm.init_params(cfg, gen, device=dev, dtype=dtype)
+
+
+def loss_fn(cfg: ArchConfig) -> Callable[..., Any]:
+    """Returns loss(params, batch, dtype) -> (scalar, metrics); the batch
+    holds ``tokens`` or ``embeds``, and ``labels``. Decoder-only models;
+    an encoder-decoder config raises, as do the families ``lm_loss``
+    cannot train (``lm.check_trainable``)."""
+    lm.check_trainable(cfg)
+
+    def f(params, batch, dtype):
+        return lm.lm_loss(cfg, params, batch.get("tokens"), batch["labels"],
+                          embeds=batch.get("embeds"), dtype=dtype)
+    return f
 
 
 def decode_entry(cfg: ArchConfig) -> Callable[..., Any]:

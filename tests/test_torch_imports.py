@@ -45,11 +45,66 @@ def test_scan_covers_the_package():
             "steps.py", "qwen3_14b.py", "ssm.py", "moe.py",
             "selective_scan.py", "addr_map.py",
             "jamba_v01_52b.py", "effective_bw.py", "sweep_stream.py",
-            "exec_cache.py", "store.py"} <= names
+            "exec_cache.py", "store.py", "train.py", "pipeline.py",
+            "adamw.py", "schedules.py", "compression.py"} <= names
     paths = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert {"src/repro_torch/core/sweep_stream.py",
             "src/repro_torch/core/exec_cache.py",
-            "src/repro_torch/checkpoint/store.py"} <= paths
+            "src/repro_torch/checkpoint/store.py",
+            "src/repro_torch/launch/train.py",
+            "src/repro_torch/data/pipeline.py",
+            "src/repro_torch/optim/__init__.py",
+            "src/repro_torch/optim/adamw.py",
+            "src/repro_torch/optim/schedules.py",
+            "src/repro_torch/optim/compression.py"} <= paths
+
+
+def test_training_entry_points_are_exported_and_raise_without_a_card():
+    """``repro_torch.optim`` exports what ``repro.optim`` exports; the
+    train step and the training CLI default to the card, and raise
+    without one unless given ``device="cpu"`` (``--device cpu``)."""
+    import repro_torch.optim as optim
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import make_train_step
+
+    assert optim.__all__ == ["AdamWConfig", "adamw_init", "adamw_update",
+                             "global_norm", "schedules", "compression"]
+    cfg = ARCHS["minicpm-2b"].tiny()
+    assert callable(make_train_step(cfg, device="cpu"))
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None selects it")
+    for call in (lambda: make_train_step(cfg),
+                 lambda: train.main(["--arch", "minicpm-2b", "--tiny",
+                                     "--steps", "1"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+
+
+def test_kernel_wrappers_refuse_inputs_that_require_grad():
+    """No silent detach: K5, K7 and K6's plain launch fill their outputs
+    through raw pointers, so while grad mode is on they refuse an input
+    that requires grad (before any other check), and accept it under
+    ``torch.no_grad()`` (where they go on to refuse CPU tensors)."""
+    from repro_torch.kernels.decode_attention.decode_attention import (
+        decode_attention_cuda)
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_cuda)
+    from repro_torch.kernels.selective_scan.selective_scan import (
+        selective_scan_cuda)
+
+    q = torch.zeros((1, 2, 4, 16), requires_grad=True)
+    x = torch.zeros((1, 4, 8), requires_grad=True)
+    calls = (lambda: flash_attention_cuda(q, q, q),
+             lambda: decode_attention_cuda(q[:, :, 0], q, q,
+                                           torch.ones(1, dtype=torch.int32)),
+             lambda: selective_scan_cuda(x, x, x[..., :4], x[..., :4],
+                                         torch.zeros((8, 4))))
+    for call in calls:
+        with pytest.raises(RuntimeError, match="requires grad"):
+            call()
+        with torch.no_grad(), pytest.raises(ValueError, match="CUDA tensor"):
+            call()
 
 
 def test_streaming_entry_points_are_exported_and_raise_without_a_card():

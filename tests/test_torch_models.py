@@ -323,10 +323,21 @@ def test_init_params_shapes_and_dtypes():
 def test_unported_families_raise(arch):
     """Every entry point raises for a family whose layers are not ported
     (MLA, xLSTM, encoder-decoder); phi3.5-moe and jamba (MoE and Mamba,
-    ported) build and decode, and only the training loss raises."""
+    ported) build and decode; phi3.5-moe trains, and jamba's training
+    loss and train step raise, naming K7's backward."""
+    from repro_torch.launch.steps import make_train_step
+
     cfg = ARCHS[arch].tiny()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1, LLM model stack"):
-        tlm.lm_loss(cfg, None, None, None)
+    if arch == "phi3.5-moe-42b-a6.6b":
+        tregistry.loss_fn(cfg)
+        make_train_step(cfg, device="cpu")
+    else:
+        for call in (lambda: tlm.lm_loss(cfg, None, None, None),
+                     lambda: make_train_step(cfg, device="cpu")):
+            with pytest.raises(NotImplementedError,
+                               match="ROADMAP.md §1, LLM model stack") as e:
+                call()
+            assert arch != "jamba-v0.1-52b" or "K7's backward" in str(e.value)
     if arch in ("phi3.5-moe-42b-a6.6b", "jamba-v0.1-52b"):
         assert len(tregistry.init_params(cfg, 0, device="cpu")["layers"]) \
             == len(tregistry.init_caches(cfg, 1, 8, device="cpu"))
