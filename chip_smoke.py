@@ -10,11 +10,13 @@ Phases (any failed check exits non-zero):
 1. device: the card's name and power limit, then the build of the CUDA
    kernels from ``src/repro_torch/csrc`` (seconds printed), the registers,
    static shared memory and spills of K3's kernels (the one-bank-a-thread
-   forms and the k-banks-a-thread form), K6's kernels, K5's D = 128
-   kernels and K7's production kernels from the ``-Xptxas -v`` logs, the
-   count of ``HGMMA`` instructions in ``cuobjdump -sass`` of
+   forms and the k-banks-a-thread form), K6's kernels and its backward's,
+   K5's D = 128 kernels and K7's production kernels from the ``-Xptxas
+   -v`` logs, the count of ``HGMMA`` instructions in ``cuobjdump -sass`` of
    ``libflash_attention.so`` (non-zero: K6's bf16 path runs on the tensor
-   cores), and K7's bf16 S = 16 kernel's ``MUFU.EX2`` count (at least one
+   cores) and of each tensor-core kernel of K6's backward (at least one a
+   k step of a tile's products, and no global atomic), and K7's bf16
+   S = 16 kernel's ``MUFU.EX2`` count (at least one
    per element of a thread's chunk: exp on the SFUs) and instructions per
    ``EX2``;
 2. every kernel against its plain PyTorch version on the card, bit for bit:
@@ -233,9 +235,12 @@ Phases (any failed check exits non-zero):
    small cases (S 77-256, D 16-128, GQA, causal and not): dq, dk
    and dv within 1e-4 (float32) / 2e-2 (bf16) x max |plain|, K6's lse
    within 1e-5 of ``logsumexp``, K6's output bit-identical with and
-   without the lse pointer; the backward's device time at minicpm's bf16
-   shape beside its plain version, the bound (10 S^2 D B Hq / 2 flops at
-   989 TFLOP/s against its bytes) and SDPA's forward + backward; K5, K7
+   without the lse pointer; at minicpm's and qwen3's bf16 shapes a second
+   launch bit-identical to the first, the backward's device time (a CUDA
+   graph of launches) and each of its three kernels' (the profiler)
+   beside the bound (10 S^2 D B Hq / 2 flops at 989 TFLOP/s against its
+   bytes) and SDPA's backward (CUDA graphs of its forward + backward and
+   of its forward), at minicpm's also beside its plain version; K5, K7
    and K6's plain launch raise for inputs that require grad; (b)
    minicpm-2b at its published width and depth (40 layers, 2.72 B
    parameters, float32 masters drawn on the card): step 0's loss and
@@ -258,6 +263,10 @@ compare on one card, each in its own process (A B B A).
 15(a)'s sweep, twice, in a fresh process of the port in another checkout
 (no form of the lane-batched K3 loaded before the first), printing each
 sweep's wall, launch starts and device times.
+
+``python3 chip_smoke.py --k6-bwd-times CHECKOUT`` runs only K6's
+backward's device time a launch at minicpm-2b's and qwen3-14b's bf16
+shapes, of the port in another checkout (A B B A, as below).
 
 ``python3 chip_smoke.py --k3-step-times CHECKOUT`` runs only the
 single-lane persistent K3's time per step (four traces at 100k cycles,
@@ -430,6 +439,7 @@ def phase_device():
     out_dir = build.build_dir()
     prod = k7_production()
     for name, keep in (("fused", None), ("flash_attention", None),
+                       ("flash_attention_bwd", None),
                        ("decode_attention", "Li128E"),
                        ("selective_scan", "scan_kernel")):
         rows = ptxas_report((out_dir / f"{name}.log").read_text(), keep)
@@ -447,8 +457,36 @@ def phase_device():
           "K6's bf16 path is not on the tensor cores")
     log(f"[1] libflash_attention.so: {hgmma} HGMMA instructions in "
         f"cuobjdump -sass")
+    k6_bwd_sass(out_dir)
     k7_sass(out_dir / "libselective_scan.so", prod)
     return card
+
+
+def k6_bwd_sass(out_dir):
+    """K6's backward, tensor-core form: its dK/dV and dQ kernels at D 64
+    and 128 each hold HGMMA (every product on wgmma: two SS score products
+    and one or two RS gradient products a tile, D / 16 and 4 k steps each)
+    and no global atomic; the FFMAs left are the softmax's scale and
+    subtract, not a product's loop over D."""
+    funcs = sass_functions(out_dir / "libflash_attention_bwd.so")
+    rows = []
+    for fn in ("dkdv_kernel", "dq_kernel"):
+        for d in (64, 128):
+            name = f"tc::{fn}<{d}>"
+            ops = funcs.get(name)
+            check(ops is not None, f"{name} not in libflash_attention_bwd.so"
+                  f": {sorted(funcs)[:6]} ...")
+            want = (2 * d // 16 + (8 if fn == "dkdv_kernel" else 4))
+            n = {k: sum(op.startswith(k) for op in ops)
+                 for k in ("HGMMA", "FFMA", "RED.", "ATOMG")}
+            check(n["HGMMA"] >= want, f"{name}: {n['HGMMA']} HGMMA, fewer "
+                  f"than one a k step of a tile's products ({want})")
+            check(n["RED."] == n["ATOMG"] == 0, f"{name}: {n['RED.']} RED and "
+                  f"{n['ATOMG']} ATOMG instructions: the backward must use "
+                  f"no global atomics")
+            rows.append(f"{name} HGMMA {n['HGMMA']} (a tile's k steps "
+                        f"{want}), FFMA {n['FFMA']}, global atomics 0")
+    log("[1] libflash_attention_bwd.so: " + "; ".join(rows))
 
 
 def k7_production():
@@ -3941,6 +3979,7 @@ K6_BWD_SHAPES = [  # label, b, hq, hkv, s, d, dtype, causal
                                (1, 10, 2, 256, 128), (1, 4, 4, 77, 64)])
     for name in ("float32", "bfloat16") for causal in (True, False)]
 K6_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # x max |plain|
+K6_BWD_TIMED = ("minicpm", "qwen3")  # timed, and launched twice
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 5
 
 
@@ -3966,12 +4005,152 @@ def events_ms(fn, n=5, warm=1):
     return s.elapsed_time(e) / n
 
 
+def k6_bwd_split(bwd, n=10):
+    """Device µs a launch of each of K6's backward's three kernels (row
+    sums, dK/dV, dQ), from the profiler: ``n`` eager calls of ``bwd`` in a
+    warm-up step, then ``n`` recorded. Late in this script the first
+    milliseconds of a profile may hold no device event (a profile of a
+    few launches there can record none), so the recorded step follows a
+    warm-up step that lasts 50 ms or more, and each kernel's time is
+    averaged over the launches recorded of it. Fails when one of the three
+    was not recorded. Launch counters are restored."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from repro_torch.kernels import build
+
+    counted = dict(build.LAUNCHES)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for warm in (True, False):
+            for _ in range(n):
+                bwd()
+            torch.cuda.synchronize()
+            if warm:
+                time.sleep(0.05)
+            prof.step()
+    build.LAUNCHES.update(counted)
+    rows = device_rows(prof)
+    parts = {}
+    for e in rows:
+        for part in ("delta_kernel", "dkdv_kernel", "dq_kernel"):
+            if part in e.key:
+                t, c = parts.get(part, (0.0, 0))
+                parts[part] = (t + e.self_device_time_total, c + e.count)
+    check(len(parts) == 3, f"the profiler recorded {sorted(parts)} of K6 "
+          f"backward's three kernels over {n} launches; its device rows: "
+          f"{[e.key[:48] for e in rows][:8]}")
+    return {k: t / c for k, (t, c) in parts.items()}, \
+        min(c for _, c in parts.values())
+
+
+def k6_bwd_timing(q, k, v, o, lse, do, plain):
+    """K6's backward at one causal bf16 shape: each of its three kernels'
+    device µs from the profiler (``k6_bwd_split``), its device µs a launch
+    by ``device_ms`` (a CUDA graph of launches), K6's forward with lse,
+    SDPA's forward + backward and its forward by ``device_ms`` too (timed
+    only, never called by the port; its backward is their difference), the
+    bound, and with ``plain`` autograd through the plain version in
+    float32. Returns the JSON line's times."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.ref import gqa_attention_ref
+
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+
+    def bwd():
+        return flash_attention_bwd_cuda(q, k, v, o, lse, do, True)
+
+    parts, seen = k6_bwd_split(bwd)
+    split = (f"row sums {parts['delta_kernel']:.1f} + dK/dV "
+             f"{parts['dkdv_kernel']:.1f} + dQ {parts['dq_kernel']:.1f} us "
+             f"by the profiler, {seen} or more of 10 launches recorded")
+    ms = device_ms(bwd, per_graph=2, replays=10)
+    fwd_ms = device_ms(lambda: flash_attention_cuda(q, k, v, True, lse=lse),
+                       per_graph=10, replays=5)
+    plain_ms = None
+    if plain:
+        ref = [t.float().requires_grad_() for t in (q, k, v)]
+        ref_out = gqa_attention_ref(*ref, True)
+        plain_ms = events_ms(lambda: torch.autograd.grad(
+            ref_out, ref, do.float(), retain_graph=True), n=3)
+        del ref, ref_out
+    lib_in = [t.detach().requires_grad_() for t in (q, k, v)]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(*lib_in, is_causal=True,
+                                              enable_gqa=hq != hkv)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa(), lib_in, do)
+
+    # a graph holds SDPA's backward only with its forward captured beside
+    # it (autograd runs a backward op on its forward op's stream): its
+    # backward is the graph of both less the graph of the forward
+    lib_both_ms = device_ms(sdpa_fwd_bwd, per_graph=2, replays=10)
+    lib_fwd_ms = device_ms(sdpa, per_graph=10, replays=5)
+    lib_ms = lib_both_ms - lib_fwd_ms
+    del lib_in
+    flops = 10 * s * s * d * b * hq / 2
+    nbytes = (4 * b * hq * s * d + 4 * b * hkv * s * d) * 2 + 4 * b * hq * s
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound = max(t_ops, t_bytes)
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    plain_txt = ("" if plain_ms is None else
+                 f"; plain autograd {plain_ms * 1e3:.1f} us in float32")
+    log(f"[17] K6 backward at B={b} Hq={hq} Hkv={hkv} S={s} D={d} bf16: "
+        f"device {ms * 1e3:.1f} us/launch ({split}){plain_txt}; "
+        f"sdpa's backward {lib_ms * 1e3:.1f} us (its forward + backward "
+        f"{lib_both_ms * 1e3:.1f} less its forward {lib_fwd_ms * 1e3:.1f}, "
+        f"both CUDA graphs); K6 forward with lse {fwd_ms * 1e3:.1f} us, "
+        f"forward + backward {(fwd_ms + ms) * 1e3:.1f} us; bound "
+        f"{bound * 1e3:.2f} "
+        f"us ({flops / 1e9:.2f} GFLOP at 989 TFLOP/s = {t_ops * 1e3:.2f} "
+        f"us, {nbytes} B at 3.35 TB/s = {t_bytes * 1e3:.2f} us; {by}; "
+        f"{bound / ms:.1%} of it)")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "library_ms": lib_ms}
+
+
+def k6_bwd_times():
+    """K6's backward at the shapes of ``K6_BWD_TIMED`` (bf16, causal),
+    device µs a launch by ``device_ms``, of the port imported from
+    ``sys.path``: run once per checkout, each in its own process, to
+    compare two checkouts on one card (A B B A)."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_cuda)
+
+    build.load()
+    gen = torch.Generator().manual_seed(17)
+    cells = []
+    for label, b, hq, hkv, s, d, name, causal in K6_BWD_SHAPES:
+        if label not in K6_BWD_TIMED:
+            continue
+        q, k, v, do = (randn(gen, (b, h, s, d), torch.bfloat16)
+                       for h in (hq, hkv, hkv, hq))
+        lse = torch.empty((b, hq, s), dtype=torch.float32, device=DEVICE)
+        with torch.no_grad():
+            o = flash_attention_cuda(q, k, v, True, lse=lse)
+        ms = device_ms(lambda: flash_attention_bwd_cuda(q, k, v, o, lse, do,
+                                                        True),
+                       per_graph=2, replays=10)
+        cells.append(f"{label} (B={b} Hq={hq} Hkv={hkv} S={s} D={d}) "
+                     f"{ms * 1e3:.1f}")
+    log(f"k6 bwd times {build.CSRC.parents[2]}: " + "; ".join(cells)
+        + " us/launch")
+
+
 def phase_attention_backward():
     """17(a): K6's forward with its log-sum-exp and K6's backward against
     their plain versions on the card; the wrappers without a backward
     refuse inputs that require grad; the backward's times."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels.decode_attention.decode_attention import (
         decode_attention_cuda)
     from repro_torch.kernels.flash_attention.flash_attention import (
@@ -4018,58 +4197,31 @@ def phase_attention_backward():
                   f"{e} > {K6_BWD_TOL[name]} x {scale}")
             errs.append(e / scale)
             err_abs = max(err_abs, e)
-        del ref, want, dq, dk, dv
+        del ref, want
         worst[name] = max(worst.get(name, 0.0), *errs)
         if label.startswith("small"):
             continue
+        same = ""
+        if label in K6_BWD_TIMED:
+            # no atomics: a second launch on the same inputs, the same bits
+            again = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal)
+            check(all(torch.equal(x, y) for x, y in zip(again,
+                                                        (dq, dk, dv))),
+                  f"K6 backward at {label}: two launches on the same "
+                  f"inputs gave different gradients")
+            same = "; a second launch bit-identical"
+            del again
+        del dq, dk, dv
         log(f"[17] K6 backward {label} (B={b} Hq={hq} Hkv={hkv} S={s} "
             f"D={d} {name}, causal): max |err| / max |plain| dq "
             f"{errs[0]:.3g}, dk {errs[1]:.3g}, dv {errs[2]:.3g} (gate "
             f"{K6_BWD_TOL[name]}); lse off logsumexp by {lse_err:.3g}; the "
-            f"forward bit-identical with and without lse")
-        if label != "minicpm":
+            f"forward bit-identical with and without lse{same}")
+        if label not in K6_BWD_TIMED:
             continue
-        # times at minicpm-2b's training shape, bf16
-        ms = device_ms(lambda: flash_attention_bwd_cuda(q, k, v, o, lse, do,
-                                                        True),
-                       per_graph=2, replays=5)
-        fwd_ms = device_ms(lambda: flash_attention_cuda(q, k, v, True,
-                                                        lse=lse),
-                           per_graph=10, replays=5)
-        ref = [t.float().requires_grad_() for t in (q, k, v)]
-        ref_out = gqa_attention_ref(*ref, True)
-        plain_ms = events_ms(lambda: torch.autograd.grad(
-            ref_out, ref, do.float(), retain_graph=True), n=3)
-        del ref, ref_out
-        lib_in = [t.detach().requires_grad_() for t in (q, k, v)]
-
-        def sdpa_fwd_bwd():
-            y = F.scaled_dot_product_attention(*lib_in, is_causal=True)
-            torch.autograd.grad(y, lib_in, do)
-
-        lib_ms = events_ms(sdpa_fwd_bwd, n=10, warm=3)
-        lib_fwd_ms = events_ms(lambda: F.scaled_dot_product_attention(
-            *lib_in, is_causal=True), n=10, warm=3)
-        flops = 10 * s * s * d * b * hq / 2
-        nbytes = (4 * b * hq * s * d + 4 * b * hkv * s * d) * 2 \
-            + 4 * b * hq * s
-        t_ops = flops / BF16_FLOPS_PER_S * 1e3
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        bound = max(t_ops, t_bytes)
-        by = "operations" if t_ops >= t_bytes else "bytes"
-        out = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-               "bound_by": by, "library_ms": lib_ms}
-        log(f"[17] K6 backward at minicpm B={b} Hq={hq} S={s} D={d} bf16: "
-            f"device {ms * 1e3:.1f} us/launch (3 kernels; plain autograd "
-            f"{plain_ms * 1e3:.1f} us in float32); K6 forward with lse "
-            f"{fwd_ms * 1e3:.1f} us, forward + backward "
-            f"{(fwd_ms + ms) * 1e3:.1f} us against sdpa's forward + backward "
-            f"{lib_ms * 1e3:.1f} us (its forward {lib_fwd_ms * 1e3:.1f}, "
-            f"backward ~{(lib_ms - lib_fwd_ms) * 1e3:.1f}); bound "
-            f"{bound * 1e3:.2f} us ({flops / 1e9:.2f} GFLOP at 989 TFLOP/s "
-            f"= {t_ops * 1e3:.2f} us, {nbytes} B at 3.35 TB/s = "
-            f"{t_bytes * 1e3:.2f} us; {by}; {bound / ms:.1%} of it)")
-        del lib_in
+        timed = k6_bwd_timing(q, k, v, o, lse, do, label == "minicpm")
+        if label == "minicpm":
+            out = timed
     log(f"[17] K6 backward and lse on {len(K6_BWD_SHAPES)} cases (the "
         f"three above; ragged S 200, 130, 77, D 16-128, GQA, causal and "
         f"not, float32 and bf16): worst max |err| / max |plain| "
@@ -4402,9 +4554,11 @@ def main():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false)", file=sys.stderr)
         return 2
-    # --k3-step-times / --split-times / --topology-sweep CHECKOUT: only
+    # --k3-step-times / --k6-bwd-times / --split-times / --topology-sweep
+    # CHECKOUT: only
     # that timing, of that checkout's port
     only = {"--k3-step-times": k3_step_times,
+            "--k6-bwd-times": k6_bwd_times,
             "--split-times": split_times,
             "--topology-sweep": topology_sweep_times}.get(
                 sys.argv[1] if len(sys.argv) == 3 else None)

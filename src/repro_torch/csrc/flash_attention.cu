@@ -276,17 +276,6 @@ struct Layout {
   static constexpr int kBytes = kBars + 8 * (1 + 3 * kStages) + 1024;
 };
 
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
     tc_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
@@ -464,52 +453,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
-                                cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// a [heads, S, D] bf16 tensor as 3-D boxes of [rows, 64] with 128-byte
-// swizzle; rows past S read as zeros
-bool encode(CUtensorMap* map, const void* ptr, int heads, int S, int D,
-            int rows) {
-  const EncodeTiled fn = encoder();
-  if (!fn) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S,
-                              (cuuint64_t)heads};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2};
-  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-            const_cast<void*>(ptr), dims, strides, box, unit,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    float* lse, int B, int Hq, int Hkv, int S, int causal,
                    float scale, cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
-  if (!encode(&mq, q, B * Hq, S, D, kBQ) ||
-      !encode(&mk, k, B * Hkv, S, D, kBN) ||
-      !encode(&mv, v, B * Hkv, S, D, kBN))
+  if (!hopper::encode(&mq, q, B * Hq, S, D, kBQ) ||
+      !hopper::encode(&mk, k, B * Hkv, S, D, kBN) ||
+      !hopper::encode(&mv, v, B * Hkv, S, D, kBN))
     return cudaErrorInvalidValue;
   constexpr int smem = Layout<D>::kBytes;
   auto kern = tc_fwd_kernel<D>;

@@ -10,56 +10,94 @@
 // `kernels/flash_attention/flash_attention.py` binds the two as a
 // `torch.autograd.Function`.
 //
-// What bounds it on an H100: operations. Over the causal half it does
-// five products of 2 * S^2/2 * D flops a (batch, q head) -- S = Q K^T and
-// dP = dO V^T recomputed, dV += P^T dO, dK += dS^T Q, dQ += dS K -- over
-// ~(4 Hq + 4 Hkv) * B * S * D elements read or written: at minicpm-2b's
-// B 4, Hq 36, S 1024, D 64 in bf16, 48.3 GFLOP, 48.9 us at the tensor
-// cores' 989 TFLOP/s. This first form runs on the float32 FMA units (67
-// TFLOP/s peak) and recomputes S and dP once more in the dQ kernel (seven
-// products, not five), so that no tile is written by two CTAs: no
-// atomics, and a rerun gives the same bits. A wgmma redesign is later
-// work (ROADMAP.md §2).
+// What bounds it on an H100: operations. Over the causal half the
+// gradients need five products of 2 * S^2/2 * D flops a (batch, q head) --
+// S = Q K^T and dP = dO V^T recomputed, dV += P^T dO, dK += dS^T Q,
+// dQ += dS K -- over ~(4 Hq + 4 Hkv) * B * S * D elements read or written:
+// at minicpm-2b's B 4, Hq 36, S 1024, D 64 in bf16, 48.3 GFLOP, 48.9 us at
+// the tensor cores' 989 TFLOP/s. Both forms below do seven (67.6 GFLOP
+// there): dQ is a second pass that recomputes S and dP, so that every
+// output tile is written by one CTA and dQ needs neither atomics nor a
+// float32 workspace of per-key-block partials. Each launch is
+// deterministic: two launches on the same inputs give the same bits, and a
+// resumed training run keeps its trajectory.
 //
 // Three kernels, launched in order on one stream by
 // flash_attention_bwd_launch:
 //
-// 1. delta_kernel: Dl = rowsum(dO * O) in float32 [B, Hq, S], one warp a
-//    row.
-// 2. dkdv_kernel: one CTA of 256 threads a (b, kv head, 64-row key
-//    block). It holds its K and V block in shared memory as float32 and
-//    its dK and dV accumulators in registers (a thread: 4 key rows x D/16
-//    columns), and loops over the G q heads of its group and, for each,
-//    over the 64-row query blocks from the diagonal on (all of them when
-//    not causal): stage Q, dO, LSE and Dl; recompute S = Q K^T and
-//    dP = dO V^T (a thread: 4 x 4 of the 64 x 64 tile), P = exp(scale S -
-//    LSE) masked, dS = P (dP - Dl); then dV += P^T dO and dK += dS^T Q.
-//    dK is scaled once at the end; each tile is written once.
-// 3. dq_kernel: one CTA a (b, q head, 64-row query block), looping over
-//    the key blocks up to the diagonal: recompute S, dP and dS as above,
-//    dQ += dS K; scaled once, written once.
+// 1. delta_kernel (both forms): Dl = rowsum(dO * O) in float32, a row
+//    read by D / 8 (bf16) or D / 4 (float32) threads in 16-byte loads, a
+//    memory pass (~38 MB at minicpm's shape). For the tensor-core form it
+//    also writes the forward's LSE (natural log) times log2 e, and both
+//    arrays are padded to Sp = ceil(S / 64) * 64 rows a head with zeros, so
+//    that a 64-row tile of either is one aligned bulk copy.
+// 2. a dK/dV kernel: one CTA a (b, kv head, key block); it loops over the
+//    G q heads of its group and, for each, over the query tiles from the
+//    diagonal on (all of them when not causal), accumulating dK and dV in
+//    registers across the whole group; dK is scaled once and each tile is
+//    written once.
+// 3. a dQ kernel: one CTA a (b, q head, query block), looping over the key
+//    tiles up to the diagonal (all of them when not causal).
 //
-// Shared tiles are float32 rows padded to D + 1 (and 64 + 1), so the 16
-// threads that read 16 different rows at one column hit 16 different
-// banks. Inputs are float32 or bf16, accumulation float32 throughout,
-// outputs in the input dtype. Any S (rows and keys past S are masked and
-// never stored), D in {16, 32, 64, 128}, Hq a multiple of Hkv.
+// Two forms, chosen by dtype and head size as K6's forward chooses
+// (csrc/flash_attention.cu):
 //
-// ABI: q, o, do [B, Hq, S, D]; k, v [B, Hkv, S, D] (one dtype, contiguous);
-// lse float32 [B, Hq, S] (the forward's, natural log); delta float32
-// [B, Hq, S] scratch; dq [B, Hq, S, D], dk, dv [B, Hkv, S, D] in the
-// inputs' dtype; dtype 0 = float32, 1 = bf16.
+// * tc, bfloat16 with D in {64, 128}: every product on wgmma, operands
+//   brought by TMA, every tile 64 rows. A warpgroup (128 threads) owns 64
+//   output rows: at D 128 a thread holds dK and dV (64 + 64 floats) beside
+//   S^T and dP^T (32 + 32) within 255 registers, with no producer warp and
+//   no setmaxnreg. Each kernel's CTA is one warpgroup: three CTAs an SM at
+//   D 64 (a 3-stage ring; 67 KB of shared memory for dK/dV, 65 KB for dQ),
+//   two at D 128 (2 stages; 98 KB, 97 KB). The CTA's first thread issues
+//   the loads: its fixed operands once (K and V for dK/dV, Q and dO for dQ)
+//   and a ring of 64-row tiles (Q, dO and their LSE and Dl rows for dK/dV;
+//   K and V for dQ) in 128-byte-swizzled shared memory, tracked by "full"
+//   mbarriers (TMA bytes) and "empty" ones (the warpgroup's 128 arrivals);
+//   while tile t runs its score products, the stage of tile t - 1 is
+//   refilled with the tile that many stages on. The 3-D tensor maps
+//   [B*H, S, D] zero-fill a ragged tile inside its own head.
+//   dK/dV, a tile of 64 queries: S^T = K Q^T and dP^T = V dO^T as SS
+//   m64n64k16 (both operands K-major); P^T = 2^(S^T scale log2 e - LSE
+//   log2 e) and dS^T = P^T (dP^T - Dl) in float32 in the accumulator
+//   registers; dV += P^T dO and dK += dS^T Q as RS m64nDk16: P^T and dS^T
+//   rounded to bf16 in registers are the A operand as they lie (the
+//   accumulator layout is the A layout), and dO and Q are the B operand
+//   read MN-major with the transpose bit, from the same swizzled copy that
+//   served as the K-major B a moment before. P^T and dS^T never touch
+//   shared memory.
+//   dQ, a tile of 64 keys: S = Q K^T and dP = dO V^T as SS m64n64k16, P and
+//   dS in registers, dQ += dS K as RS m64nDk16 with K read MN-major.
+//   Only tiles on the causal diagonal or past S are masked (P = 0 for keys
+//   past S, rows past S and keys after the query); rows past S are never
+//   stored.
+// * simt, float32 (any D) and bfloat16 with D in {16, 32}: the float32 FMA
+//   units (67 TFLOP/s peak). TF32 on the tensor cores cannot hold the
+//   float32 gate of 1e-4 x max |plain|, and D 16 is not worth a tensor-core
+//   form. A CTA of 256 threads a 64-row block holds its fixed operands in
+//   shared memory as float32 rows padded to D + 1 (so 16 threads reading 16
+//   rows at one column hit 16 banks) and its accumulators in registers (a
+//   thread: 4 rows x D/16 columns); P and dS go through shared memory
+//   between the score products and the gradient products.
+//
+// Inputs are float32 or bf16, accumulation float32 throughout, outputs in
+// the input dtype. Any S, D in {16, 32, 64, 128}, Hq a multiple of Hkv.
+//
+// ABI: q, o, do [B, Hq, S, D]; k, v [B, Hkv, S, D] (one dtype, contiguous,
+// 16-byte aligned: TMA and the row sums' 16-byte loads);
+// lse float32 [B, Hq, S] (the forward's, natural log); scratch float32
+// [2, B, Hq, ceil(S / 64) * 64]; dq [B, Hq, S, D], dk, dv [B, Hkv, S, D]
+// in the inputs' dtype; dtype 0 = float32, 1 = bf16.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-namespace {
+#include <type_traits>
 
-constexpr int kThreads = 256;
-constexpr int kB = 64;       // query rows and key rows per tile
-constexpr int kBP = kB + 1;  // padded row of a 64-wide score tile
-constexpr int kT = 4;        // rows (and score columns) per thread
+#include "hopper.cuh"
+
+namespace {
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -74,6 +112,71 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
+// Dl[bh][i] = sum_d dO . O over a row, for the rows i < Sp of each head
+// (zero past S); with lse2 given, also lse2[bh][i] = LSE log2 e (zero past
+// S). Rows of both are Sp apart. A row is D / V threads of a warp, each
+// reading V elements (16 bytes) of O and of dO, summed by shuffles.
+template <typename T, int D>
+__global__ void __launch_bounds__(256)
+    delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                 const float* __restrict__ lse, float* __restrict__ delta,
+                 float* __restrict__ lse2, int heads, int S, int Sp) {
+  constexpr int V = 16 / sizeof(T);  // elements a 16-byte load
+  constexpr int kPer = D / V;        // threads a row: 2 to 32
+  const int row = blockIdx.x * (256 / kPer) + threadIdx.x / kPer;
+  const int part = threadIdx.x % kPer;
+  const bool in = row < heads * Sp;  // every lane reaches the shuffles
+  const int bh = row / Sp, i = row % Sp;
+  float acc = 0.f;
+  if (in && i < S) {
+    const size_t at = ((size_t)bh * S + i) * D + part * V;
+    const uint4 ov = *reinterpret_cast<const uint4*>(o + at);
+    const uint4 gv = *reinterpret_cast<const uint4*>(dout + at);
+    const T* oe = reinterpret_cast<const T*>(&ov);
+    const T* ge = reinterpret_cast<const T*>(&gv);
+#pragma unroll
+    for (int e = 0; e < V; ++e) acc += to_f32(oe[e]) * to_f32(ge[e]);
+  }
+#pragma unroll
+  for (int off = kPer / 2; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off, kPer);
+  if (in && part == 0) {
+    delta[row] = acc;
+    if (lse2 != nullptr)
+      lse2[row] = i < S ? lse[(size_t)bh * S + i] * 1.4426950408889634f : 0.f;
+  }
+}
+
+// raise a kernel's dynamic shared-memory cap once, outside any CUDA-graph
+// capture of later calls
+template <typename K>
+cudaError_t allow_smem(K kern, size_t bytes, bool* done) {
+  if (*done) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess) *done = true;
+  return err;
+}
+
+template <typename T, int D>
+cudaError_t launch_delta(const void* o, const void* dout, const float* lse,
+                         float* delta, float* lse2, int heads, int S, int Sp,
+                         cudaStream_t stream) {
+  const int rows = heads * Sp, per_block = 256 / (D / (16 / sizeof(T)));
+  delta_kernel<T, D><<<(rows + per_block - 1) / per_block, 256, 0, stream>>>(
+      static_cast<const T*>(o), static_cast<const T*>(dout), lse, delta,
+      lse2, heads, S, Sp);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------- FMA form (float32, small D)
+namespace simt {
+
+constexpr int kThreads = 256;
+constexpr int kB = 64;       // query rows and key rows per tile
+constexpr int kBP = kB + 1;  // padded row of a 64-wide score tile
+constexpr int kT = 4;        // rows (and score columns) per thread
+
 // rows [r0, r0 + kB) of a [S, D] matrix into a [kB][D + 1] float32 tile,
 // zeros past S
 template <typename T, int D>
@@ -84,22 +187,6 @@ __device__ __forceinline__ void stage(float* dst, const T* src, int r0,
     dst[r * (D + 1) + d] =
         r0 + r < S ? to_f32(src[(size_t)(r0 + r) * D + d]) : 0.f;
   }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
-                 float* __restrict__ delta, int rows) {
-  const int row = blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= rows) return;
-  float acc = 0.f;
-  for (int d = lane; d < D; d += 32)
-    acc += to_f32(o[(size_t)row * D + d]) * to_f32(dout[(size_t)row * D + d]);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) delta[row] = acc;
 }
 
 // S = A B^T and dP = C E^T over D for this thread's 4 x 4 of a 64 x 64
@@ -347,17 +434,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// raise a kernel's dynamic shared-memory cap once, outside any CUDA-graph
-// capture of later calls
-template <typename K>
-cudaError_t allow_smem(K kern, size_t bytes, bool* done) {
-  if (*done) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err == cudaSuccess) *done = true;
-  return err;
-}
-
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* o, const void* dout, const float* lse,
@@ -374,11 +450,9 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   const T* k_ = static_cast<const T*>(k);
   const T* v_ = static_cast<const T*>(v);
   const T* do_ = static_cast<const T*>(dout);
-  const int rows = B * Hq * S;
-  const int per_block = kThreads / 32;
-  delta_kernel<T, D><<<(rows + per_block - 1) / per_block, kThreads, 0,
-                       stream>>>(static_cast<const T*>(o), do_, delta, rows);
-  err = cudaGetLastError();
+  // Dl with rows S apart, as the kernels below read it
+  err = launch_delta<T, D>(o, dout, lse, delta, nullptr, B * Hq, S, S,
+                           stream);
   if (err != cudaSuccess) return err;
   const int blocks = (S + kB - 1) / kB;
   dkdv_kernel<T, D><<<dim3(B * Hkv, blocks), kThreads, s1, stream>>>(
@@ -392,24 +466,426 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+}  // namespace simt
+
+// ------------------------------------- tensor-core form (bf16, D 64/128)
+namespace tc {
+
+constexpr int kWG = 128;        // threads of a warpgroup
+constexpr int kBlk = 64;        // rows of every tile: keys or queries
+constexpr int kRowBytes = 128;  // one swizzled row of 64 bf16
+
+// Shared memory of the dK/dV kernel, from a 1024-byte-aligned base: K and
+// V [half][64][64], then Q[stage] and dO[stage] [half][64][64], then the
+// LSE (log2) and Dl rows [stage][64] float32, then the mbarriers.
+// At D 64 three stages keep a CTA under a third of the SM's shared memory,
+// so three CTAs share an SM and hide each other's waits (deeper rings with
+// two CTAs an SM were slower).
+template <int D>
+struct DkdvLayout {
+  static constexpr int kStages = D == 64 ? 3 : 2;
+  static constexpr int kTile = kBlk * D * 2;  // one 64-row tile, bytes
+  static constexpr int kV = kTile;            // K at 0
+  static constexpr int kQ = 2 * kTile;
+  static constexpr int kDO = kQ + kStages * kTile;
+  static constexpr int kLse = kDO + kStages * kTile;
+  static constexpr int kDl = kLse + kStages * kBlk * 4;
+  static constexpr int kBars = kDl + kStages * kBlk * 4;
+  static constexpr int kBytes = kBars + 8 * (1 + 2 * kStages) + 1024;
+};
+
+// Shared memory of the dQ kernel: Q and dO [half][64][64], then K[stage]
+// and V[stage] [half][64][64], then the mbarriers; three stages and three
+// CTAs an SM at D 64, as above.
+template <int D>
+struct DqLayout {
+  static constexpr int kStages = D == 64 ? 3 : 2;
+  static constexpr int kTile = kBlk * D * 2;
+  static constexpr int kDO = kTile;  // Q at 0
+  static constexpr int kK = 2 * kTile;
+  static constexpr int kV = kK + kStages * kTile;
+  static constexpr int kBars = kV + kStages * kTile;
+  static constexpr int kBytes = kBars + 8 * (1 + 2 * kStages) + 1024;
+};
+
+// C[64 x 64] = A B^T over D: the 64-row tiles at `a` and `b`, both
+// K-major; in steps of 16 columns, a step inside a 64-column half moving
+// the start by 32 bytes (the swizzle is applied to the absolute address),
+// the next half the next [64][64] block
+template <int D>
+__device__ __forceinline__ void scores(float (&c)[32], uint32_t a,
+                                       uint32_t b) {
+  using namespace hopper;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int hf = kk / 4, s = kk % 4;
+    wgmma_ss_n64(c, desc_sw128(a + hf * kBlk * kRowBytes + 32 * s, 0),
+                 desc_sw128(b + hf * kBlk * kRowBytes + 32 * s, 0), kk > 0);
+  }
+}
+
+// C[64 x D] += A[64 x 64] B[64 x D]: A from registers (a[kk], the bf16 pairs
+// of k step kk), B the 64-row tile at `b` read MN-major: 16 rows a step
+// (2048 bytes), its 64-column halves 64 rows apart (LBO)
+template <int D>
+__device__ __forceinline__ void grads(float (&c)[D / 2],
+                                      const uint32_t (&a)[4][4], uint32_t b) {
+  using namespace hopper;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t db = desc_sw128(b + kk * 16 * kRowBytes,
+                                   kBlk * kRowBytes);
+    if constexpr (D == 128)
+      wgmma_rs_n128(c, a[kk], db);
+    else
+      wgmma_rs_n64(c, a[kk], db);
+  }
+}
+
+// one 64-row tile of [B*H, S, D] at rows r0 of head bh into `dst`
+template <int D>
+__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map,
+                                          uint32_t bar, int r0, int bh) {
+#pragma unroll
+  for (int hf = 0; hf < D / 64; ++hf)
+    hopper::tma_load_3d(dst + hf * kBlk * kRowBytes, map, bar, hf * 64, r0,
+                        bh);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWG, D == 64 ? 3 : 2)
+    dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
+                const __grid_constant__ CUtensorMap map_k,
+                const __grid_constant__ CUtensorMap map_v,
+                const __grid_constant__ CUtensorMap map_do,
+                const float* __restrict__ lse2,
+                const float* __restrict__ delta,
+                __nv_bfloat16* __restrict__ dk,
+                __nv_bfloat16* __restrict__ dv, int Hq, int Hkv, int S,
+                int Sp, int causal, float scale, float scale_log2) {
+  using L = DkdvLayout<D>;
+  using namespace hopper;
+  constexpr int kSt = L::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t pad = ((smem_u32(smem_raw) + 1023) & ~1023u) -
+                       smem_u32(smem_raw);
+  const uint32_t base = smem_u32(smem_raw) + pad;
+  const float* lse_s = reinterpret_cast<const float*>(smem_raw + pad +
+                                                      L::kLse);
+  const float* dl_s = reinterpret_cast<const float*>(smem_raw + pad + L::kDl);
+  const uint32_t kv_full = base + L::kBars, full = kv_full + 8,
+                 empty = full + 8 * kSt;
+
+  const int bk = blockIdx.x;  // b * Hkv + kv head
+  const int b = bk / Hkv, kvh = bk % Hkv, G = Hq / Hkv;
+  const int k0 = blockIdx.y * kBlk;     // the grid's first blocks are the
+  const int q_first = causal ? k0 : 0;  // longest: most query tiles
+  const int nq = (S - q_first + kBlk - 1) / kBlk;  // query tiles a head
+  const int n_tiles = G * nq;
+  const int tid = threadIdx.x;
+
+  auto load = [&](int t) {  // one thread: tile t into stage t % kSt
+    const int s = t % kSt;
+    const int bh = b * Hq + kvh * G + t / nq;
+    const int q0 = q_first + (t % nq) * kBlk;
+    const uint32_t bar = full + 8 * s;
+    mbar_expect_tx(bar, 2 * L::kTile + 2 * kBlk * 4);
+    load_tile<D>(base + L::kQ + s * L::kTile, &map_q, bar, q0, bh);
+    load_tile<D>(base + L::kDO + s * L::kTile, &map_do, bar, q0, bh);
+    bulk_load(base + L::kLse + s * kBlk * 4, lse2 + (size_t)bh * Sp + q0,
+              kBlk * 4, bar);
+    bulk_load(base + L::kDl + s * kBlk * 4, delta + (size_t)bh * Sp + q0,
+              kBlk * 4, bar);
+  };
+
+  if (tid == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kSt; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kWG);
+    }
+    mbar_fence_init();
+    mbar_expect_tx(kv_full, 2 * L::kTile);
+    load_tile<D>(base, &map_k, kv_full, k0, bk);
+    load_tile<D>(base + L::kV, &map_v, kv_full, k0, bk);
+    for (int t = 0; t < kSt && t < n_tiles; ++t) load(t);
+  }
+  __syncthreads();
+
+  const int w = tid / 32, lane = tid % 32;
+  const int kr = k0 + 16 * w + lane / 4;  // this thread's keys kr, kr + 8
+  float acc_k[D / 2], acc_v[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+  mbar_wait(kv_full, 0);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % kSt;
+    const int q0 = q_first + (t % nq) * kBlk;
+    const uint32_t q_t = base + L::kQ + s * L::kTile,
+                   do_t = base + L::kDO + s * L::kTile;
+    float st[32], dpt[32];  // S^T and dP^T: rows keys, columns queries
+    mbar_wait(full + 8 * s, (t / kSt) & 1);
+    wg_fence();
+    scores<D>(st, base, q_t);
+    scores<D>(dpt, base + L::kV, do_t);
+    wg_commit();
+    // while the products run: refill the stage tile t - 1 released
+    if (tid == 0 && t >= 1 && t + kSt - 1 < n_tiles) {
+      mbar_wait(empty + 8 * ((t - 1) % kSt), ((t - 1) / kSt) & 1);
+      load(t + kSt - 1);
+    }
+    __syncwarp();
+    wg_wait_all();
+    reg_fence(st);
+    reg_fence(dpt);
+
+    // P^T and dS^T in the accumulator layout, packed to bf16 as the A
+    // operand: value i = 8 kk + 2 j (+1) of k step kk is key kr + 8 (j % 2),
+    // query q0 + 16 kk + 8 (j / 2) + 2 (lane % 4) (+1)
+    const float* lse_t = lse_s + s * kBlk;
+    const float* dl_t = dl_s + s * kBlk;
+    const bool mask = (causal && k0 + kBlk - 1 > q0) || q0 + kBlk > S ||
+                      k0 + kBlk > S;
+    uint32_t pT[4][4], dsT[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int i = 8 * kk + 2 * j;
+        const int key = kr + 8 * (j % 2);
+        const int c = 16 * kk + 8 * (j / 2) + 2 * (lane % 4);
+        float p[2], d[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float x = ex2(st[i + e] * scale_log2 - lse_t[c + e]);
+          if (mask) {
+            const int qr = q0 + c + e;
+            if (qr >= S || key >= S || (causal && key > qr)) x = 0.f;
+          }
+          p[e] = x;
+          d[e] = x * (dpt[i + e] - dl_t[c + e]);
+        }
+        pT[kk][j] = pack_bf16(p[0], p[1]);
+        dsT[kk][j] = pack_bf16(d[0], d[1]);
+      }
+
+    // dV += P^T dO, dK += dS^T Q (Q and dO read MN-major)
+    wg_fence();
+    grads<D>(acc_v, pT, do_t);
+    grads<D>(acc_k, dsT, q_t);
+    wg_commit();
+    wg_wait_all();
+    reg_fence(acc_v);
+    reg_fence(acc_k);
+    mbar_arrive(empty + 8 * s);
+  }
+
+  __nv_bfloat16* dkb = dk + (size_t)bk * S * D;
+  __nv_bfloat16* dvb = dv + (size_t)bk * S * D;
+#pragma unroll
+  for (int i = 0; i < D / 2; i += 2) {
+    const int row = kr + 8 * ((i / 2) % 2);
+    const int col = 8 * (i / 4) + 2 * (lane % 4);
+    if (row < S) {
+      *reinterpret_cast<uint32_t*>(dkb + (size_t)row * D + col) =
+          pack_bf16(acc_k[i] * scale, acc_k[i + 1] * scale);
+      *reinterpret_cast<uint32_t*>(dvb + (size_t)row * D + col) =
+          pack_bf16(acc_v[i], acc_v[i + 1]);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWG, D == 64 ? 3 : 2)
+    dq_kernel(const __grid_constant__ CUtensorMap map_q,
+              const __grid_constant__ CUtensorMap map_k,
+              const __grid_constant__ CUtensorMap map_v,
+              const __grid_constant__ CUtensorMap map_do,
+              const float* __restrict__ lse2,
+              const float* __restrict__ delta,
+              __nv_bfloat16* __restrict__ dq, int Hq, int Hkv, int S, int Sp,
+              int causal, float scale, float scale_log2) {
+  using L = DqLayout<D>;
+  using namespace hopper;
+  constexpr int kSt = L::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t q_full = base + L::kBars, full = q_full + 8,
+                 empty = full + 8 * kSt;
+
+  const int bh = blockIdx.x;  // b * Hq + q head
+  const int b = bh / Hq, h = bh % Hq;
+  const int kvh = b * Hkv + h / (Hq / Hkv);
+  // the grid's first blocks are the last query blocks: the most key tiles
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlk;
+  const int kv_end = causal ? min(S, q0 + kBlk) : S;
+  const int n_tiles = (kv_end + kBlk - 1) / kBlk;
+  const int tid = threadIdx.x;
+
+  auto load = [&](int t) {  // one thread: key tile t into stage t % kSt
+    const int s = t % kSt;
+    const uint32_t bar = full + 8 * s;
+    mbar_expect_tx(bar, 2 * L::kTile);
+    load_tile<D>(base + L::kK + s * L::kTile, &map_k, bar, t * kBlk, kvh);
+    load_tile<D>(base + L::kV + s * L::kTile, &map_v, bar, t * kBlk, kvh);
+  };
+
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kSt; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kWG);
+    }
+    mbar_fence_init();
+    mbar_expect_tx(q_full, 2 * L::kTile);
+    load_tile<D>(base, &map_q, q_full, q0, bh);
+    load_tile<D>(base + L::kDO, &map_do, q_full, q0, bh);
+    for (int t = 0; t < kSt && t < n_tiles; ++t) load(t);
+  }
+  __syncthreads();
+
+  const int w = tid / 32, lane = tid % 32;
+  const int r0 = q0 + 16 * w + lane / 4;  // this thread's rows r0, r0 + 8
+  float lse_r[2], dl_r[2];                // rows < Sp: the padded arrays
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    lse_r[hr] = lse2[(size_t)bh * Sp + r0 + 8 * hr];
+    dl_r[hr] = delta[(size_t)bh * Sp + r0 + 8 * hr];
+  }
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  mbar_wait(q_full, 0);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % kSt;
+    const int k0 = t * kBlk;
+    const uint32_t k_t = base + L::kK + s * L::kTile,
+                   v_t = base + L::kV + s * L::kTile;
+    float sc[32], dp[32];  // S and dP: rows queries, columns keys
+    mbar_wait(full + 8 * s, (t / kSt) & 1);
+    wg_fence();
+    scores<D>(sc, base, k_t);
+    scores<D>(dp, base + L::kDO, v_t);
+    wg_commit();
+    if (tid == 0 && t >= 1 && t + kSt - 1 < n_tiles) {
+      mbar_wait(empty + 8 * ((t - 1) % kSt), ((t - 1) / kSt) & 1);
+      load(t + kSt - 1);
+    }
+    __syncwarp();
+    wg_wait_all();
+    reg_fence(sc);
+    reg_fence(dp);
+
+    // dS in the accumulator layout, packed to bf16 as the A operand: value
+    // i = 8 kk + 2 j (+1) is row r0 + 8 (j % 2), key k0 + 16 kk + 8 (j / 2)
+    // + 2 (lane % 4) (+1)
+    const bool mask = (causal && k0 + kBlk - 1 > q0) || k0 + kBlk > S ||
+                      q0 + kBlk > S;
+    uint32_t ds[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int i = 8 * kk + 2 * j, hr = j % 2;
+        const int row = r0 + 8 * hr;
+        const int key = k0 + 16 * kk + 8 * (j / 2) + 2 * (lane % 4);
+        float d[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float x = ex2(sc[i + e] * scale_log2 - lse_r[hr]);
+          if (mask && (row >= S || key + e >= S || (causal && key + e > row)))
+            x = 0.f;
+          d[e] = x * (dp[i + e] - dl_r[hr]);
+        }
+        ds[kk][j] = pack_bf16(d[0], d[1]);
+      }
+
+    // dQ += dS K (K read MN-major)
+    wg_fence();
+    grads<D>(acc, ds, k_t);
+    wg_commit();
+    wg_wait_all();
+    reg_fence(acc);
+    mbar_arrive(empty + 8 * s);
+  }
+
+  __nv_bfloat16* dqb = dq + (size_t)bh * S * D;
+#pragma unroll
+  for (int i = 0; i < D / 2; i += 2) {
+    const int row = r0 + 8 * ((i / 2) % 2);
+    const int col = 8 * (i / 4) + 2 * (lane % 4);
+    if (row < S)
+      *reinterpret_cast<uint32_t*>(dqb + (size_t)row * D + col) =
+          pack_bf16(acc[i] * scale, acc[i + 1] * scale);
+  }
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* o, const void* dout, const float* lse,
+                   float* scratch, void* dq, void* dk, void* dv, int B,
+                   int Hq, int Hkv, int S, int causal, float scale,
+                   cudaStream_t stream) {
+  static bool dkdv_ready = false, dq_ready = false;
+  constexpr int s1 = DkdvLayout<D>::kBytes, s2 = DqLayout<D>::kBytes;
+  cudaError_t err = allow_smem(dkdv_kernel<D>, s1, &dkdv_ready);
+  if (err != cudaSuccess) return err;
+  err = allow_smem(dq_kernel<D>, s2, &dq_ready);
+  if (err != cudaSuccess) return err;
+  CUtensorMap mq, mk, mv, mdo;
+  if (!hopper::encode(&mq, q, B * Hq, S, D, kBlk) ||
+      !hopper::encode(&mk, k, B * Hkv, S, D, kBlk) ||
+      !hopper::encode(&mv, v, B * Hkv, S, D, kBlk) ||
+      !hopper::encode(&mdo, dout, B * Hq, S, D, kBlk))
+    return cudaErrorInvalidValue;
+  const int Sp = (S + kBlk - 1) / kBlk * kBlk;
+  float* delta = scratch;
+  float* lse2 = scratch + (size_t)B * Hq * Sp;
+  err = launch_delta<__nv_bfloat16, D>(o, dout, lse, delta, lse2, B * Hq, S,
+                                       Sp, stream);
+  if (err != cudaSuccess) return err;
+  const int blocks = (S + kBlk - 1) / kBlk;
+  dkdv_kernel<D><<<dim3(B * Hkv, blocks), kWG, s1, stream>>>(
+      mq, mk, mv, mdo, lse2, delta, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), Hq, Hkv, S, Sp, causal, scale,
+      scale * 1.4426950408889634f);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dq_kernel<D><<<dim3(B * Hq, blocks), kWG, s2, stream>>>(
+      mq, mk, mv, mdo, lse2, delta, static_cast<__nv_bfloat16*>(dq), Hq,
+      Hkv, S, Sp, causal, scale, scale * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
 template <typename T>
-cudaError_t launch_dtype(const void* q, const void* k, const void* v,
-                         const void* o, const void* dout, const float* lse,
-                         float* delta, void* dq, void* dk, void* dv, int B,
-                         int Hq, int Hkv, int S, int D, int causal,
-                         float scale, cudaStream_t stream) {
+cudaError_t launch_simt(const void* q, const void* k, const void* v,
+                        const void* o, const void* dout, const float* lse,
+                        float* delta, void* dq, void* dk, void* dv, int B,
+                        int Hq, int Hkv, int S, int D, int causal,
+                        float scale, cudaStream_t stream) {
 #define K6B_CASE(DD)                                                      \
   case DD:                                                                \
-    return launch<T, DD>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Hq, \
-                         Hkv, S, causal, scale, stream);
+    return simt::launch<T, DD>(q, k, v, o, dout, lse, delta, dq, dk, dv,  \
+                               B, Hq, Hkv, S, causal, scale, stream);
   switch (D) {
     K6B_CASE(16)
     K6B_CASE(32)
-    K6B_CASE(64)
-    K6B_CASE(128)
     default:
-      return cudaErrorInvalidValue;
+      break;
   }
+  if constexpr (std::is_same<T, float>::value) {  // bf16 64/128: tc form
+    switch (D) {
+      K6B_CASE(64)
+      K6B_CASE(128)
+      default:
+        break;
+    }
+  }
+  return cudaErrorInvalidValue;
 #undef K6B_CASE
 }
 
@@ -417,7 +893,7 @@ cudaError_t launch_dtype(const void* q, const void* k, const void* v,
 
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
-    const void* dout, const void* lse, void* delta, void* dq, void* dk,
+    const void* dout, const void* lse, void* scratch, void* dq, void* dk,
     void* dv, int B, int Hq, int Hkv, int S, int D, int causal, int dtype,
     void* stream) {
   if (B < 1 || Hkv < 1 || Hq % Hkv != 0 || S < 1)
@@ -425,14 +901,20 @@ extern "C" int flash_attention_bwd_launch(
   const float scale = (float)(1.0 / sqrt((double)D));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
-  float* dl = static_cast<float*>(delta);
+  float* sc = static_cast<float*>(scratch);
   cudaError_t err;
-  if (dtype == 0)
-    err = launch_dtype<float>(q, k, v, o, dout, l, dl, dq, dk, dv, B, Hq,
-                              Hkv, S, D, causal, scale, st);
+  if (dtype == 1 && D == 128)
+    err = tc::launch<128>(q, k, v, o, dout, l, sc, dq, dk, dv, B, Hq, Hkv,
+                          S, causal, scale, st);
+  else if (dtype == 1 && D == 64)
+    err = tc::launch<64>(q, k, v, o, dout, l, sc, dq, dk, dv, B, Hq, Hkv, S,
+                         causal, scale, st);
   else if (dtype == 1)
-    err = launch_dtype<__nv_bfloat16>(q, k, v, o, dout, l, dl, dq, dk, dv,
-                                      B, Hq, Hkv, S, D, causal, scale, st);
+    err = launch_simt<__nv_bfloat16>(q, k, v, o, dout, l, sc, dq, dk, dv, B,
+                                     Hq, Hkv, S, D, causal, scale, st);
+  else if (dtype == 0)
+    err = launch_simt<float>(q, k, v, o, dout, l, sc, dq, dk, dv, B, Hq, Hkv,
+                             S, D, causal, scale, st);
   else
     err = cudaErrorInvalidValue;
   return (int)err;

@@ -1,6 +1,14 @@
 // Hopper (sm_90a) building blocks in inline PTX: mbarriers, TMA tile loads,
 // wgmma shared-memory descriptors and the warpgroup products that K6's
-// tensor-core path uses (csrc/flash_attention.cu). Header-only; no CUTLASS.
+// tensor-core forward and backward use (csrc/flash_attention.cu,
+// csrc/flash_attention_bwd.cu), and on the host the encoder of their TMA
+// tensor maps. Header-only; no CUTLASS.
+//
+// The products: wgmma_ss_n128 / wgmma_ss_n64 (m64n128k16 / m64n64k16, A
+// and B K-major in shared memory: S = Q K^T, dP = dO V^T and their
+// transposes) and wgmma_rs_n128 / wgmma_rs_n64 (A from registers, B
+// MN-major in shared memory: O += P V, dV += P^T dO, dK += dS^T Q,
+// dQ += dS K).
 //
 // Shared-memory layout they assume: a tile of R rows x 64 bf16 (128 bytes a
 // row) in the 128-byte swizzle that TMA's CU_TENSOR_MAP_SWIZZLE_128B
@@ -10,6 +18,8 @@
 // ("halves") of 64 columns, one after the other.
 #pragma once
 #include <cuda.h>  // CUtensorMap (a type only: nothing links libcuda)
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace hopper {
@@ -89,6 +99,22 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst,
       : "memory");
 }
 
+// ------------------------------------------------------------ arithmetic
+
+// 2^x on the SFU (the softmax in the log2 domain)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// two floats rounded to a bf16 pair (lo in the low half): one register of
+// a wgmma A operand, or two neighbouring bf16 outputs
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
 // ------------------------------------------------------------------- wgmma
 
 // Descriptor of a 128-byte-swizzled operand at shared address `addr`:
@@ -153,6 +179,27 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// D[64 x 64] (+)= A[64 x 16] * B[16 x 64]: A and B K-major in shared
+// memory; accumulate = 0 overwrites D
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}"
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // D[64 x 128] += A[64 x 16] * B[16 x 128]: A in registers (bf16 pairs in
 // the accumulator's row/column order), B MN-major in shared memory (the
 // transpose bit set)
@@ -205,6 +252,48 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// ------------------------------------------------------- host: tensor maps
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through cudaGetDriverEntryPoint, so nothing links
+// libcuda; null when libcuda has none
+inline EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a [heads, S, D] bf16 tensor as 3-D boxes of [rows, 64] with 128-byte
+// swizzle; rows past S read as zeros
+inline bool encode(CUtensorMap* map, const void* ptr, int heads, int S,
+                   int D, int rows) {
+  const EncodeTiled fn = encoder();
+  if (!fn) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S,
+                              (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+            const_cast<void*>(ptr), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace hopper

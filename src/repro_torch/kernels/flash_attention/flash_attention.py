@@ -6,7 +6,11 @@ tensors only (``ops.py`` sends CPU tensors to the plain version in
 ``ref.py``), allocate their outputs, launch on PyTorch's current stream,
 never synchronise, and raise on a launch error. A forward call is one K6
 launch in ``build.LAUNCHES["k6"]``; a backward call is one
-``LAUNCHES["k6bwd"]`` (its three kernels: the row sums dO . O, dK/dV, dQ).
+``LAUNCHES["k6bwd"]`` (its three kernels: the row sums dO . O, dK/dV, dQ;
+bf16 with D 64 or 128 takes the tensor-core form, on ``wgmma`` and TMA,
+every other dtype and D the FMA form, as K6's forward chooses). The
+backward's float32 scratch (the row sums and the log2 LSE, padded to 64
+rows a head) is allocated here, like its outputs.
 
 ``FlashAttention`` binds the two as a ``torch.autograd.Function``: its
 forward launches K6 with the log-sum-exp output, its backward the
@@ -24,6 +28,8 @@ import torch
 from repro_torch.kernels import build
 
 HEAD_DIMS = (16, 32, 64, 128)
+#: the backward's scratch rows a head are S rounded up to this
+BWD_ROWS = 64
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -90,13 +96,20 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                          f"dout {tuple(dout.shape)} must be q's "
                          f"{tuple(q.shape)}, lse {tuple(lse.shape)} "
                          f"[B, Hq, S]")
-    delta = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out),
+                    ("dout", dout)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention_bwd: {name} must start on a "
+                             f"16-byte boundary (the kernels' TMA and "
+                             f"16-byte loads)")
+    scratch = torch.empty((2, b, hq, -(-s // BWD_ROWS) * BWD_ROWS),
+                          dtype=torch.float32, device=q.device)
     dq, dk, dv = (torch.empty_like(q), torch.empty_like(k),
                   torch.empty_like(v))
     lib = build.load()["flash_attention_bwd"]
     err = lib.flash_attention_bwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), b, hq, hkv, s, d, int(causal),
         DTYPES[q.dtype], build.stream_of(q))
     build.check(err, "flash_attention_bwd")
@@ -119,6 +132,9 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, lse,
-                                              dout.contiguous(), ctx.causal)
+        dout = dout.contiguous()
+        if dout.data_ptr() % 16:  # a view into the middle of a buffer
+            dout = dout.clone()
+        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, lse, dout,
+                                              ctx.causal)
         return dq, dk, dv, None
