@@ -19,7 +19,13 @@ neither JAX nor the reference package:
   trees, which have the parameters' structure (float32 throughout);
 * :func:`lm_caches_from_numpy` / :func:`lm_caches_to_numpy` — the
   reference's LM caches ``{"prefix": [...], "body": {slot: [G, ...]}}``
-  <-> this package's per-layer cache list.
+  <-> this package's per-layer cache list (every mixer's: GQA, MLA,
+  Mamba, mLSTM, sLSTM);
+* :func:`encdec_params_from_numpy` / :func:`encdec_params_to_numpy` and
+  :func:`encdec_caches_from_numpy` / :func:`encdec_caches_to_numpy` — the
+  reference's encoder-decoder tree (``enc``/``dec`` stacked ``[L, ...]``)
+  and its decoder caches ``{"k", "v": [L, ...]}`` <-> this package's
+  per-layer lists.
 
 The LM blocks keep the reference's names and its ``[d_in, d_out]`` weight
 layout, so every parameter maps to the same path and no matrix is
@@ -156,6 +162,17 @@ def _layer_trees(cfg, tree) -> List[Any]:
     return out
 
 
+def _params_of(node, device, dtype, name=""):
+    """A parameter subtree on ``device``: matrices (ndim >= 2) cast to
+    ``dtype``, except ``REFERENCE_F32``; vectors as they are."""
+    if isinstance(node, dict):
+        return {k: _params_of(v, device, dtype, k) for k, v in node.items()}
+    t = _torch_of(node)
+    if t.is_floating_point() and t.dim() >= 2 and name not in REFERENCE_F32:
+        t = t.to(dtype)
+    return t.to(device)
+
+
 def lm_params_from_numpy(cfg, tree, device=None,
                          dtype=torch.float32) -> Dict[str, Any]:
     """This package's LM parameters from the reference's tree as numpy
@@ -164,21 +181,11 @@ def lm_params_from_numpy(cfg, tree, device=None,
     reference uses in float32 (``REFERENCE_F32``: the MoE router and the
     Mamba ``A_log``); norm scales, biases and other vectors stay
     float32."""
-    def leaf(a, name):
-        t = _torch_of(a)
-        if t.is_floating_point() and t.dim() >= 2 \
-                and name not in REFERENCE_F32:
-            t = t.to(dtype)
-        return t.to(device)
-
-    def tree_of(node, name=""):
-        if isinstance(node, dict):
-            return {k: tree_of(v, k) for k, v in node.items()}
-        return leaf(node, name)
-
-    params = tree_of({k: tree[k] for k in ("embed", "final_norm", "lm_head")
-                      if k in tree})
-    params["layers"] = [tree_of(t) for t in _layer_trees(cfg, tree)]
+    params = _params_of({k: tree[k] for k in ("embed", "final_norm",
+                                              "lm_head") if k in tree},
+                        device, dtype)
+    params["layers"] = [_params_of(t, device, dtype)
+                        for t in _layer_trees(cfg, tree)]
     return params
 
 
@@ -189,18 +196,26 @@ def _np_of(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
+def _unstack(tree, n: int) -> List[Any]:
+    """A tree of leaves stacked [n, ...] -> n trees, one a layer."""
+    return [_tree_map(lambda a, i=i: np.asarray(a)[i], tree)
+            for i in range(n)]
+
+
+def _stack(trees) -> Any:
+    """Per-layer trees -> one tree of numpy leaves stacked [n, ...]."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack([_np_of(t) for t in trees])
+
+
 def _stack_layers(cfg, layers) -> Dict[str, Any]:
     """``{"prefix": [...], "body": {slot: leaves stacked [G, ...]}}`` from
     per-layer trees in layer order (the inverse of ``_layer_trees``)."""
-    def stack(trees):
-        if isinstance(trees[0], dict):
-            return {k: stack([t[k] for t in trees]) for k in trees[0]}
-        return np.stack([_np_of(t) for t in trees])
-
     n_pre = len(cfg.prefix)
     period = len(cfg.period)
     return {"prefix": [_tree_map(_np_of, t) for t in layers[:n_pre]],
-            "body": {str(slot): stack(layers[n_pre + slot::period])
+            "body": {str(slot): _stack(layers[n_pre + slot::period])
                      for slot in range(period)}}
 
 
@@ -229,8 +244,49 @@ def lm_caches_to_numpy(cfg, caches) -> Dict[str, Any]:
     return _stack_layers(cfg, caches)
 
 
+_ENCDEC_TOP = ("embed", "enc_norm", "final_norm", "lm_head")
+
+
+def encdec_params_from_numpy(cfg, tree, device=None,
+                             dtype=torch.float32) -> Dict[str, Any]:
+    """This package's encoder-decoder parameters (``models.encdec``: the
+    layers as lists) from the reference's tree, whose ``enc`` and ``dec``
+    leaves are stacked [L, ...]; matrices cast to ``dtype`` as
+    :func:`lm_params_from_numpy` casts them."""
+    params = _params_of({k: tree[k] for k in _ENCDEC_TOP}, device, dtype)
+    for k, n in (("enc", cfg.n_enc_layers), ("dec", cfg.n_layers)):
+        params[k] = [_params_of(t, device, dtype)
+                     for t in _unstack(tree[k], n)]
+    return params
+
+
+def encdec_params_to_numpy(cfg, params) -> Dict[str, Any]:
+    """The reference's encoder-decoder tree (``enc``/``dec`` stacked [L,
+    ...]) as numpy arrays from this package's parameters; bfloat16 leaves
+    come out as float32."""
+    tree = {k: _tree_map(_np_of, params[k]) for k in _ENCDEC_TOP}
+    tree["enc"] = _stack(params["enc"])
+    tree["dec"] = _stack(params["dec"])
+    return tree
+
+
+def encdec_caches_from_numpy(cfg, tree, device=None
+                             ) -> List[Dict[str, Any]]:
+    """This package's decoder caches (one {"k", "v"} a layer) from the
+    reference's ``init_dec_caches`` tree {"k", "v": [L, B, Hkv, S, D]}."""
+    return [_tree_map(lambda a: _torch_of(a).to(device), t)
+            for t in _unstack(tree, cfg.n_layers)]
+
+
+def encdec_caches_to_numpy(cfg, caches) -> Dict[str, Any]:
+    """The reference's decoder cache tree {"k", "v": [L, B, Hkv, S, D]}
+    from this package's per-layer caches."""
+    return _stack(caches)
+
+
 __all__ = ["SINK_FIELDS", "trace_from_numpy", "schedule_from_numpy",
            "flatten", "state_to_numpy", "state_from_numpy",
            "lm_params_from_numpy", "lm_params_to_numpy",
-           "lm_caches_from_numpy",
-           "lm_caches_to_numpy"]
+           "lm_caches_from_numpy", "lm_caches_to_numpy",
+           "encdec_params_from_numpy", "encdec_params_to_numpy",
+           "encdec_caches_from_numpy", "encdec_caches_to_numpy"]

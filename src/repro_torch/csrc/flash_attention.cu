@@ -47,6 +47,18 @@
 //   columns, row max and sum reduced over 16 lanes with shuffles; float32
 //   (m, l, acc) in registers, one write of the output.
 //
+// * The general form (flash_attention_gen_launch): the same FMA kernel,
+//   templated on the query/key width DQK and the value width DV apart, with
+//   the query and key lengths Sq and Sk apart (a column >= Sk is masked, so
+//   a ragged Sk needs no padding) and the caller's scale. It takes what the
+//   reference reaches through its jnp blocked_attention and not through the
+//   Pallas kernel (src/repro/models/blocked_attention.py:30): MLA's prefill,
+//   d_qk = 128 + 64 against d_v = 128 (src/repro/models/mla.py:72-84), and
+//   non-causal cross-attention with Sq != Sk. Causal needs Sq == Sk. At
+//   MLA's shape it is bound by operations, 2 B H (S^2 / 2)(DQK + DV) for a
+//   causal prefill, and runs them on the float32 FMA units, far from the
+//   tensor cores' rate: a first form that is right, not a fast one.
+//
 // Both forms write, when given a non-null lse pointer, each row's
 // log-sum-exp of its scaled logits (natural log, float32 [B, Hq, S]) in
 // their epilogue: the one value the backward (csrc/flash_attention_bwd.cu)
@@ -55,7 +67,10 @@
 //
 // ABI: q [B, Hq, S, D], k/v [B, Hkv, S, D] (one dtype: float32 or bf16,
 // contiguous), out [B, Hq, S, D] in q's dtype, lse float32 [B, Hq, S] or
-// null; D in {16, 32, 64, 128}; dtype 0 = float32, 1 = bf16.
+// null; D in {16, 32, 64, 128}; dtype 0 = float32, 1 = bf16. The general
+// form: q [B, Hq, Sq, Dqk], k [B, Hkv, Sk, Dqk], v [B, Hkv, Sk, Dv], out
+// [B, Hq, Sq, Dv], lse [B, Hq, Sq] or null, a float32 scale; (Dqk, Dv) in
+// {(16, 16), (32, 32), (64, 64), (128, 128), (24, 16), (192, 128)}.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -91,38 +106,41 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-constexpr size_t smem_bytes(int D) {
-  return sizeof(float) * (size_t)(kBQ * (D + 1) + kBK * (D + 1) + kBK * D +
-                                  kBQ * (kBK + 1));
+constexpr size_t smem_bytes(int DQK, int DV) {
+  return sizeof(float) * (size_t)(kBQ * (DQK + 1) + kBK * (DQK + 1) +
+                                  kBK * DV + kBQ * (kBK + 1));
 }
 
-template <typename T, int D>
+// q [B, Hq, Sq, DQK], k [B, Hkv, Sk, DQK], v [B, Hkv, Sk, DV] -> out
+// [B, Hq, Sq, DV]; causal only with Sq == Sk (the launcher refuses the rest).
+template <typename T, int DQK, int DV>
 __global__ void __launch_bounds__(kThreads, 2)
     fma_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, T* __restrict__ out,
-                   float* __restrict__ lse, int Hq, int Hkv, int S,
+                   float* __restrict__ lse, int Hq, int Hkv, int Sq, int Sk,
                    int causal, float scale) {
-  constexpr int DP = D + 1;
-  constexpr int ND = D / 16;  // acc columns per thread
+  static_assert(DV % 16 == 0, "a thread owns DV / 16 output columns");
+  constexpr int QP = DQK + 1;
+  constexpr int ND = DV / 16;  // acc columns per thread
   extern __shared__ float smem[];
-  float* q_s = smem;              // [kBQ][DP]
-  float* k_s = q_s + kBQ * DP;    // [kBK][DP]
-  float* v_s = k_s + kBK * DP;    // [kBK][D]
-  float* p_s = v_s + kBK * D;     // [kBQ][kBK + 1]
+  float* q_s = smem;              // [kBQ][QP]
+  float* k_s = q_s + kBQ * QP;    // [kBK][QP]
+  float* v_s = k_s + kBK * QP;    // [kBK][DV]
+  float* p_s = v_s + kBK * DV;    // [kBQ][kBK + 1]
 
   const int bh = blockIdx.x;  // b * Hq + q head
   const int b = bh / Hq, h = bh % Hq;
   const int kvh = b * Hkv + h / (Hq / Hkv);
   const int q0 = blockIdx.y * kBQ;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const T* qb = q + (size_t)bh * S * D;
-  const T* kb = k + (size_t)kvh * S * D;
-  const T* vb = v + (size_t)kvh * S * D;
+  const T* qb = q + (size_t)bh * Sq * DQK;
+  const T* kb = k + (size_t)kvh * Sk * DQK;
+  const T* vb = v + (size_t)kvh * Sk * DV;
 
-  for (int i = tid; i < kBQ * D; i += kThreads) {
-    const int r = i / D, d = i % D;
-    q_s[r * DP + d] =
-        q0 + r < S ? to_f32(qb[(size_t)(q0 + r) * D + d]) * scale : 0.f;
+  for (int i = tid; i < kBQ * DQK; i += kThreads) {
+    const int r = i / DQK, d = i % DQK;
+    q_s[r * QP + d] =
+        q0 + r < Sq ? to_f32(qb[(size_t)(q0 + r) * DQK + d]) * scale : 0.f;
   }
   float m[kRows], l[kRows], acc[kRows][ND];
 #pragma unroll
@@ -133,19 +151,18 @@ __global__ void __launch_bounds__(kThreads, 2)
     for (int j = 0; j < ND; ++j) acc[i][j] = 0.f;
   }
 
-  const int kv_end = causal ? min(S, q0 + kBQ) : S;
+  const int kv_end = causal ? min(Sk, q0 + kBQ) : Sk;
   for (int k0 = 0; k0 < kv_end; k0 += kBK) {
     __syncthreads();  // q_s is ready; the previous tile's readers are done
-    for (int i = tid; i < kBK * D; i += kThreads) {
-      const int t = i / D, d = i % D;
-      float kx = 0.f, vx = 0.f;
-      if (k0 + t < S) {
-        const size_t off = (size_t)(k0 + t) * D + d;
-        kx = to_f32(kb[off]);
-        vx = to_f32(vb[off]);
-      }
-      k_s[t * DP + d] = kx;
-      v_s[t * D + d] = vx;
+    for (int i = tid; i < kBK * DQK; i += kThreads) {
+      const int t = i / DQK, d = i % DQK;
+      k_s[t * QP + d] =
+          k0 + t < Sk ? to_f32(kb[(size_t)(k0 + t) * DQK + d]) : 0.f;
+    }
+    for (int i = tid; i < kBK * DV; i += kThreads) {
+      const int t = i / DV, d = i % DV;
+      v_s[t * DV + d] =
+          k0 + t < Sk ? to_f32(vb[(size_t)(k0 + t) * DV + d]) : 0.f;
     }
     __syncthreads();
 
@@ -155,12 +172,12 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
       for (int j = 0; j < kCols; ++j) s[i][j] = 0.f;
 #pragma unroll 8
-    for (int d = 0; d < D; ++d) {
+    for (int d = 0; d < DQK; ++d) {
       float qv[kRows], kv[kCols];
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) qv[i] = q_s[(ty + 16 * i) * DP + d];
+      for (int i = 0; i < kRows; ++i) qv[i] = q_s[(ty + 16 * i) * QP + d];
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) kv[j] = k_s[(tx + 16 * j) * DP + d];
+      for (int j = 0; j < kCols; ++j) kv[j] = k_s[(tx + 16 * j) * QP + d];
 #pragma unroll
       for (int i = 0; i < kRows; ++i)
 #pragma unroll
@@ -174,7 +191,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
       for (int j = 0; j < kCols; ++j) {
         const int col = k0 + tx + 16 * j;
-        if (col >= S || (causal && col > row)) s[i][j] = kNegInf;
+        if (col >= Sk || (causal && col > row)) s[i][j] = kNegInf;
         mx = fmaxf(mx, s[i][j]);
       }
       // the 16 lanes tx = 0..15 of a half warp share this row
@@ -204,7 +221,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     for (int c = 0; c < kBK; ++c) {
       float vv[ND];
 #pragma unroll
-      for (int j = 0; j < ND; ++j) vv[j] = v_s[c * D + tx + 16 * j];
+      for (int j = 0; j < ND; ++j) vv[j] = v_s[c * DV + tx + 16 * j];
 #pragma unroll
       for (int i = 0; i < kRows; ++i) {
         const float p = p_s[(ty + 16 * i) * (kBK + 1) + c];
@@ -214,27 +231,27 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
   }
 
-  T* ob = out + (size_t)bh * S * D;
+  T* ob = out + (size_t)bh * Sq * DV;
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     const int row = q0 + ty + 16 * i;
-    if (row >= S) continue;
+    if (row >= Sq) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int j = 0; j < ND; ++j)
-      ob[(size_t)row * D + tx + 16 * j] = from_f32<T>(acc[i][j] * inv);
+      ob[(size_t)row * DV + tx + 16 * j] = from_f32<T>(acc[i][j] * inv);
     // m and l are the row's over its 16 lanes: one lane writes
     if (lse != nullptr && tx == 0)
-      lse[(size_t)bh * S + row] = m[i] + logf(l[i]);
+      lse[(size_t)bh * Sq + row] = m[i] + logf(l[i]);
   }
 }
 
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 cudaError_t launch_fma(const void* q, const void* k, const void* v, void* out,
-                       float* lse, int B, int Hq, int Hkv, int S, int causal,
-                       float scale, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes(D);
-  auto kern = fma_fwd_kernel<T, D>;
+                       float* lse, int B, int Hq, int Hkv, int Sq, int Sk,
+                       int causal, float scale, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes(DQK, DV);
+  auto kern = fma_fwd_kernel<T, DQK, DV>;
   // raise the dynamic shared-memory cap once per instantiation, outside
   // any CUDA-graph capture of later calls
   static bool configured = false;
@@ -244,10 +261,10 @@ cudaError_t launch_fma(const void* q, const void* k, const void* v, void* out,
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  const dim3 grid(B * Hq, (S + kBQ - 1) / kBQ);
+  const dim3 grid(B * Hq, (Sq + kBQ - 1) / kBQ);
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), lse, Hq, Hkv, S,
+      static_cast<const T*>(v), static_cast<T*>(out), lse, Hq, Hkv, Sq, Sk,
       causal, scale);
   return cudaGetLastError();
 }
@@ -489,8 +506,8 @@ cudaError_t launch_fma_dtype(const void* q, const void* k, const void* v,
                              cudaStream_t stream) {
 #define K6_CASE(DD)                                                        \
   case DD:                                                                 \
-    return simt::launch_fma<T, DD>(q, k, v, out, lse, B, Hq, Hkv, S,       \
-                                  causal, scale, stream);
+    return simt::launch_fma<T, DD, DD>(q, k, v, out, lse, B, Hq, Hkv, S,   \
+                                      S, causal, scale, stream);
   switch (D) {
     K6_CASE(16)
     K6_CASE(32)
@@ -507,6 +524,29 @@ cudaError_t launch_fma_dtype(const void* q, const void* k, const void* v,
   }
   return cudaErrorInvalidValue;
 #undef K6_CASE
+}
+
+// The general form: the FMA kernel at (DQK, DV) with Sq and Sk apart and the
+// caller's scale. The pairs: the equal head sizes (a cross-attention,
+// Sq != Sk), MLA at full width (nope 128 + rope 64 against v 128) and at
+// the CPU tests' tiny size (16 + 8 against 16).
+template <typename T>
+cudaError_t launch_gen_dtype(const void* q, const void* k, const void* v,
+                             void* out, float* lse, int B, int Hq, int Hkv,
+                             int Sq, int Sk, int Dqk, int Dv, int causal,
+                             float scale, cudaStream_t stream) {
+#define K6_GEN(QK, VV)                                                     \
+  if (Dqk == QK && Dv == VV)                                               \
+    return simt::launch_fma<T, QK, VV>(q, k, v, out, lse, B, Hq, Hkv, Sq,  \
+                                      Sk, causal, scale, stream);
+  K6_GEN(16, 16)
+  K6_GEN(32, 32)
+  K6_GEN(64, 64)
+  K6_GEN(128, 128)
+  K6_GEN(24, 16)
+  K6_GEN(192, 128)
+  return cudaErrorInvalidValue;
+#undef K6_GEN
 }
 
 }  // namespace
@@ -536,4 +576,27 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   else
     err = cudaErrorInvalidValue;
   return (int)err;
+}
+
+// The general form (namespace simt, FMA): q [B, Hq, Sq, Dqk], k [B, Hkv, Sk,
+// Dqk], v [B, Hkv, Sk, Dv] -> out [B, Hq, Sq, Dv], logits times `scale`;
+// causal only with Sq == Sk; (Dqk, Dv) one of launch_gen_dtype's pairs.
+extern "C" int flash_attention_gen_launch(const void* q, const void* k,
+                                          const void* v, void* out,
+                                          void* lse_p, int B, int Hq,
+                                          int Hkv, int Sq, int Sk, int Dqk,
+                                          int Dv, int causal, int dtype,
+                                          float scale, void* stream) {
+  float* lse = static_cast<float*>(lse_p);
+  if (B < 1 || Hkv < 1 || Hq % Hkv != 0 || Sq < 1 || Sk < 1 ||
+      (causal && Sq != Sk))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return (int)launch_gen_dtype<__nv_bfloat16>(
+        q, k, v, out, lse, B, Hq, Hkv, Sq, Sk, Dqk, Dv, causal, scale, st);
+  if (dtype == 0)
+    return (int)launch_gen_dtype<float>(q, k, v, out, lse, B, Hq, Hkv, Sq,
+                                        Sk, Dqk, Dv, causal, scale, st);
+  return (int)cudaErrorInvalidValue;
 }

@@ -17,10 +17,19 @@ forward launches K6 with the log-sum-exp output, its backward the
 backward kernels. ``flash_attention_cuda`` called directly while grad
 mode is on and an input requires grad raises (``build.refuse_grad``):
 its output, filled through a raw pointer, would carry no ``grad_fn``.
+
+K6's general form (``flash_attention_gen_launch``, the FMA kernel at a
+query/key width and a value width apart, Sq and Sk apart, the caller's
+scale) takes every call that the base forms do not: MLA's prefill (Dqk
+192, Dv 128), cross-attention (Sq != Sk, not causal) and an explicit scale
+other than 1/sqrt(Dqk). It counts under ``LAUNCHES["k6gen"]``.
+``FlashAttention`` takes only the base shapes, which its backward covers,
+and raises on the others. A shape that no form takes raises.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -28,6 +37,9 @@ import torch
 from repro_torch.kernels import build
 
 HEAD_DIMS = (16, 32, 64, 128)
+#: (Dqk, Dv) of the general form: equal widths (a cross-attention), MLA at
+#: full width (nope 128 + rope 64, v 128) and at the tests' tiny width
+GEN_DIMS = ((16, 16), (32, 32), (64, 64), (128, 128), (24, 16), (192, 128))
 #: the backward's scratch rows a head are S rounded up to this
 BWD_ROWS = 64
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -52,28 +64,85 @@ def _check(name: str, q: torch.Tensor, k: torch.Tensor,
     return b, hq, hkv, s, d
 
 
+def is_base_form(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 scale: Optional[float] = None) -> bool:
+    """Whether a call is one of K6's base forms (its backward's too): one
+    length, one head width in ``HEAD_DIMS``, the scale 1/sqrt(D)."""
+    d = q.shape[-1]
+    return (k.shape[2] == q.shape[2] and k.shape[-1] == v.shape[-1] == d
+            and d in HEAD_DIMS
+            and (scale is None or scale == 1.0 / math.sqrt(d)))
+
+
+def _check_general(name: str, q: torch.Tensor, k: torch.Tensor,
+                   v: torch.Tensor, causal: bool
+                   ) -> Tuple[int, int, int, int, int, int, int]:
+    if q.dtype not in DTYPES:
+        raise ValueError(f"{name}: dtype {q.dtype} not supported "
+                         f"(float32 or bfloat16)")
+    build.require_cuda(name, dtype=q.dtype, q=q, k=k, v=v)
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"{name}: q, k and v must be 4-D")
+    b, hq, sq, dqk = q.shape
+    hkv, sk, dv = k.shape[1], k.shape[2], v.shape[3]
+    if k.shape != (b, hkv, sk, dqk) or v.shape[:3] != (b, hkv, sk):
+        raise ValueError(f"{name}: k {tuple(k.shape)} must be [B={b}, Hkv, "
+                         f"Sk, Dqk={dqk}] and v {tuple(v.shape)} [B={b}, Hkv, "
+                         f"Sk, Dv]")
+    if hq % hkv or sq < 1 or sk < 1:
+        raise ValueError(f"{name}: Hq={hq} must be a multiple of Hkv={hkv}")
+    if (dqk, dv) not in GEN_DIMS:
+        raise ValueError(f"{name}: (Dqk, Dv) = ({dqk}, {dv}) is not one of "
+                         f"K6's forms {GEN_DIMS}")
+    if causal and sq != sk:
+        raise ValueError(f"{name}: causal attention needs Sq == Sk (got "
+                         f"{sq}, {sk})")
+    return b, hq, hkv, sq, sk, dqk, dv
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True,
-                         lse: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch K6. q [B, Hq, S, D]; k, v [B, Hkv, S, D] (q's dtype).
-    Returns [B, Hq, S, D] in q's dtype. Given ``lse`` (float32 [B, Hq, S],
-    contiguous), K6 also writes there each row's log-sum-exp of its
-    scaled logits; the output is the same bits either way."""
+                         lse: Optional[torch.Tensor] = None,
+                         scale: Optional[float] = None) -> torch.Tensor:
+    """Launch K6. q [B, Hq, Sq, Dqk]; k [B, Hkv, Sk, Dqk]; v [B, Hkv, Sk,
+    Dv] (q's dtype); the logits times ``scale`` (1/sqrt(Dqk) by default);
+    causal only with Sq == Sk. Returns [B, Hq, Sq, Dv] in q's dtype. A base
+    form (:func:`is_base_form`) launches the tensor-core or FMA kernel of
+    ``flash_attention_launch``, anything else the general form. Given
+    ``lse`` (float32 [B, Hq, Sq], contiguous), K6 also writes there each
+    row's log-sum-exp of its scaled logits; the output is the same bits
+    either way."""
     build.refuse_grad("flash_attention", q=q, k=k, v=v)
-    b, hq, hkv, s, d = _check("flash_attention", q, k, v)
+    base = is_base_form(q, k, v, scale)
+    if base:
+        b, hq, hkv, sq, d = _check("flash_attention", q, k, v)
+    else:
+        b, hq, hkv, sq, sk, dqk, dv = _check_general("flash_attention", q, k,
+                                                     v, causal)
     if lse is not None:
         build.require_cuda("flash_attention", dtype=torch.float32, lse=lse)
-        if lse.shape != (b, hq, s):
+        if lse.shape != (b, hq, sq):
             raise ValueError(f"flash_attention: lse {tuple(lse.shape)} must "
-                             f"be [B={b}, Hq={hq}, S={s}]")
-    out = torch.empty_like(q)
+                             f"be [B={b}, Hq={hq}, Sq={sq}]")
+    lse_p = None if lse is None else lse.data_ptr()
     lib = build.load()["flash_attention"]
-    err = lib.flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        None if lse is None else lse.data_ptr(), b, hq, hkv, s, d,
-        int(causal), DTYPES[q.dtype], build.stream_of(q))
-    build.check(err, "flash_attention")
-    build.LAUNCHES["k6"] += 1
+    if base:
+        out = torch.empty_like(q)
+        err = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_p,
+            b, hq, hkv, sq, d, int(causal), DTYPES[q.dtype],
+            build.stream_of(q))
+        build.check(err, "flash_attention")
+        build.LAUNCHES["k6"] += 1
+        return out
+    out = torch.empty((b, hq, sq, dv), dtype=q.dtype, device=q.device)
+    err = lib.flash_attention_gen_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_p, b,
+        hq, hkv, sq, sk, dqk, dv, int(causal), DTYPES[q.dtype],
+        1.0 / math.sqrt(dqk) if scale is None else float(scale),
+        build.stream_of(q))
+    build.check(err, "flash_attention (general form)")
+    build.LAUNCHES["k6gen"] += 1
     return out
 
 
@@ -122,7 +191,14 @@ class FlashAttention(torch.autograd.Function):
     backward launches ``flash_attention_bwd_cuda``."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool):
+    def forward(ctx, q, k, v, causal: bool, scale: Optional[float] = None):
+        if not is_base_form(q, k, v, scale):
+            raise NotImplementedError(
+                f"K6's backward takes one length, one head width in "
+                f"{HEAD_DIMS} and the scale 1/sqrt(D) (got q "
+                f"{tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}, "
+                f"scale {scale}); the general form has no backward yet, "
+                f"queued in ROADMAP.md §1")
         lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
         out = flash_attention_cuda(q, k, v, causal, lse=lse)
         ctx.save_for_backward(q, k, v, out, lse)
@@ -137,4 +213,4 @@ class FlashAttention(torch.autograd.Function):
             dout = dout.clone()
         dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, lse, dout,
                                               ctx.causal)
-        return dq, dk, dv, None
+        return dq, dk, dv, None, None

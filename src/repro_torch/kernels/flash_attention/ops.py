@@ -7,10 +7,14 @@ requires grad, the call goes through ``FlashAttention`` (K6 with its
 log-sum-exp, then K6's backward kernels); otherwise it is K6's plain
 launch. Both take any sequence length: the kernels mask a ragged last
 block, so the Pallas wrapper's rule that S be a multiple of
-``min(128, S)`` does not apply.
+``min(128, S)`` does not apply. A call that is not one of K6's base forms
+(Dqk != Dv, Sk != Sq, or another scale) launches K6's general form; under
+grad it raises, since only the base forms have a backward.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -22,12 +26,14 @@ from repro_torch.kernels.flash_attention.ref import gqa_attention_ref
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              causal: bool = True) -> torch.Tensor:
-    """q [B, Hq, S, D]; k, v [B, Hkv, S, D] -> [B, Hq, S, D]."""
+              causal: bool = True,
+              scale: Optional[float] = None) -> torch.Tensor:
+    """q [B, Hq, Sq, Dqk]; k [B, Hkv, Sk, Dqk]; v [B, Hkv, Sk, Dv] ->
+    [B, Hq, Sq, Dv]; the logits times ``scale`` (1/sqrt(Dqk) by default)."""
     if not q.is_cuda:
-        return gqa_attention_ref(q, k, v, causal=causal)
+        return gqa_attention_ref(q, k, v, causal=causal, scale=scale)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return FlashAttention.apply(q, k, v, causal)
-    return flash_attention_cuda(q, k, v, causal)
+        return FlashAttention.apply(q, k, v, causal, scale)
+    return flash_attention_cuda(q, k, v, causal, scale=scale)

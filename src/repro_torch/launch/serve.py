@@ -8,7 +8,8 @@ its slot's position to 0: cache entries beyond a slot's position are never
 attended under causal masking, so slot reuse needs no cache clearing. A
 Mamba layer's state is not reset: a reused slot carries the previous
 request's ``h`` and ``conv`` into the next one, as in the reference
-server (ROADMAP §3).
+server (ROADMAP §3); so does an mLSTM or sLSTM layer's ``c``, ``n`` and
+``m``, and an idle slot's state moves on under its token 0.
 Prompt tokens are teacher-forced one per step. The loop reads the step's
 next tokens on the host once per step.
 
@@ -17,6 +18,13 @@ Usage:
       --device cpu --batch 4 --requests 10 --prompt-len 16 --max-new 32
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch jamba-v0.1-52b --tiny --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch deepseek-v3-671b --tiny --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch xlstm-1.3b --tiny --device cpu
+
+An encoder-decoder config (seamless-m4t-medium) exits, as the reference
+server does: its prefill and decode step are ``launch.steps``'.
 """
 
 from __future__ import annotations
@@ -129,6 +137,10 @@ def main(argv=None) -> None:
     cfg = get_config(args.arch)
     if args.tiny:
         cfg = cfg.tiny()
+    if cfg.is_encdec:
+        raise SystemExit(f"{cfg.name} is an encoder-decoder model: serve it "
+                         f"through launch.steps.make_prefill and "
+                         f"make_decode_step, not this loop")
     dev = resolve_device(args.device)
 
     params = registry.init_params(cfg, args.seed, device=dev)

@@ -14,7 +14,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.simulator import resolve_device
-from repro_torch.models import lm, registry
+from repro_torch.models import encdec, lm, registry
 from repro_torch.optim import adamw
 from repro_torch.optim import compression as comp_lib
 from repro_torch.optim.adamw import AdamWConfig, tree_leaves, tree_map
@@ -128,11 +128,18 @@ def make_train_step(cfg: ArchConfig, schedule: Optional[Callable] = None,
 def make_prefill(cfg: ArchConfig, dtype=torch.bfloat16,
                  device=None) -> Callable:
     """Full-sequence forward producing last-token logits (float32 [B,
-    vocab]) and the per-layer caches: {"k", "v"} [B, Hkv, S, D] of an
-    attention layer, {"h", "conv"} (the state after the last token) of a
-    Mamba layer. ``batch`` holds ``tokens`` int [B, S] or ``embeds``
-    [B, S, d_model]."""
+    vocab]) and the per-layer caches: {"k", "v"} [B, Hkv, S, D] of a GQA
+    attention layer, {"ckv", "k_rope"} of an MLA layer, the state after
+    the last token of a recurrent mixer. ``batch`` holds ``tokens`` int
+    [B, S] or ``embeds`` [B, S, d_model]. An encoder-decoder config's
+    prefill is ``(params, src_embeds [B, S_src, d]) -> (enc_out, cross)``:
+    the encoder's output and every decoder layer's cross K/V."""
     dev = resolve_device(device)
+    if cfg.is_encdec:
+        def prefill_encdec(params, src_embeds):
+            enc_out = encdec.encode(cfg, params, src_embeds.to(dev, dtype))
+            return enc_out, encdec.precompute_cross_kv(cfg, params, enc_out)
+        return prefill_encdec
 
     def prefill(params, batch):
         tokens = batch.get("tokens")
@@ -153,14 +160,23 @@ def make_decode_step(cfg: ArchConfig, dtype=torch.bfloat16, device=None,
     int32[B] on the device, logits float32 [B, vocab], caches). The next
     token is the greedy argmax (the first maximal index on ties).
     ``backend="plain"`` runs K5's plain version on any device: the card's
-    reference for the decode-vs-prefill check."""
-    lm.check_supported(cfg)
+    reference for the decode-vs-prefill check. An encoder-decoder config's
+    step is ``(params, caches, cross, token, pos)``, ``cross`` from its
+    prefill."""
+    entry = registry.decode_entry(cfg)
     dev = resolve_device(device)
+    if cfg.is_encdec:
+        def step_encdec(params, caches, cross, token, pos):
+            logits, caches = entry(cfg, params, caches, cross,
+                                   _as_int32(token, dev),
+                                   _as_int32(pos, dev), dtype, backend)
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            return nxt, logits, caches
+        return step_encdec
 
     def step(params, caches, token, pos):
-        logits, caches = lm.decode_step(cfg, params, caches,
-                                        _as_int32(token, dev),
-                                        _as_int32(pos, dev), dtype, backend)
+        logits, caches = entry(cfg, params, caches, _as_int32(token, dev),
+                               _as_int32(pos, dev), dtype, backend)
         nxt = torch.argmax(logits, dim=-1).to(torch.int32)
         return nxt, logits, caches
 

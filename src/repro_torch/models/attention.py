@@ -1,11 +1,12 @@
 """GQA attention (RoPE, optional qk-norm / QKV bias) with KV-cache support.
 
-Covers the qwen2/qwen3/minicpm/starcoder2/llava attention layers. Kernel
-dispatch goes through ``repro_torch.kernels``: a CUDA tensor launches K6
-(prefill) and K5 (decode) and a CPU tensor runs their plain versions.
-``attn_decode`` also takes ``backend="plain"``, which runs K5's plain
-version on any device: the card's reference for the decode-vs-prefill
-check.
+Covers the qwen2/qwen3/minicpm/starcoder2/llava/phi3.5/jamba attention
+layers and the seamless encoder and decoder (cross-attention included).
+Kernel dispatch goes through ``repro_torch.kernels``: a CUDA tensor
+launches K6 (prefill) and K5 (decode) and a CPU tensor runs their plain
+versions. ``attn_decode`` and ``attn_cross`` also take
+``backend="plain"``, which runs K5's plain version on any device: the
+card's reference for the decode checks.
 
 ``attn_decode`` writes the new token into the cache IN PLACE and returns
 the same dict: the reference returns a new cache, but copying every
@@ -22,6 +23,7 @@ import torch
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention.ops import attention as flash_attention
+from repro_torch.models.blocked_attention import blocked_attention
 from repro_torch.models.layers import (
     F32,
     apply_rope,
@@ -166,3 +168,52 @@ def attn_decode(p: Params, x: torch.Tensor, kv_cache: Dict[str, torch.Tensor],
         o = decode_attention(q[:, :, 0], ck, cv, kv_len)
     o = o.reshape(b, 1, n_heads * d_head)
     return o @ p["wo"].to(x.dtype), kv_cache
+
+
+def attn_cross(p: Params, x: torch.Tensor,
+               enc_kv: Tuple[torch.Tensor, torch.Tensor], *, n_heads: int,
+               n_kv_heads: int, d_head: int, qk_norm: bool = False,
+               eps: float = 1e-5, backend: str = "kernel") -> torch.Tensor:
+    """Cross-attention: queries from x [B, S, d], K and V [B, Hkv, S_src,
+    D] precomputed from the encoder's output (``cross_kv``). One query row
+    (a decode step) is K5 over the whole source (``kv_len = S_src`` for
+    every row; its plain version with ``backend="plain"``); more rows go
+    through ``blocked_attention`` (K6's general form, not causal)."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got "
+                         f"{backend!r}")
+    b, s, _ = x.shape
+    q = x @ p["wq"].to(x.dtype)
+    if "bq" in p:
+        q = q + p["bq"].to(x.dtype)
+    q = q.reshape(b, s, n_heads, d_head).transpose(1, 2)
+    if qk_norm:
+        q = rmsnorm(p["q_norm"], q, eps)
+    k, v = enc_kv
+    if s == 1:
+        kv_len = torch.full((b,), k.shape[2], dtype=torch.int32,
+                            device=x.device)
+        attend = decode_attention_ref if backend == "plain" \
+            else decode_attention
+        o = attend(q[:, :, 0], k, v, kv_len)[:, None]      # [B, 1, Hq, D]
+    else:
+        o = blocked_attention(q, k, v, causal=False).transpose(1, 2)
+    return o.reshape(b, s, n_heads * d_head) @ p["wo"].to(x.dtype)
+
+
+def cross_kv(p: Params, enc_out: torch.Tensor, *, n_kv_heads: int,
+             d_head: int, qk_norm: bool = False, eps: float = 1e-5
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The encoder's K and V for cross-attention, [B, Hkv, S_src, D] each,
+    contiguous (they are read by every decode step)."""
+    b, s, _ = enc_out.shape
+    k = enc_out @ p["wk"].to(enc_out.dtype)
+    v = enc_out @ p["wv"].to(enc_out.dtype)
+    if "bk" in p:
+        k = k + p["bk"].to(enc_out.dtype)
+        v = v + p["bv"].to(enc_out.dtype)
+    k = k.reshape(b, s, n_kv_heads, d_head).transpose(1, 2)
+    v = v.reshape(b, s, n_kv_heads, d_head).transpose(1, 2)
+    if qk_norm:
+        k = rmsnorm(p["k_norm"], k, eps)
+    return k.contiguous(), v.contiguous()

@@ -4,14 +4,16 @@ The reference stacks its body over groups and applies it with
 ``lax.scan``; this package holds the blocks as a plain list in layer order
 (the prefix layers, then group by group the slots of the period) and loops
 over it. Each layer has a mixer and an FFN kind, ``layer_kinds(cfg)``.
-Supported here: GQA attention (``attn_type="gqa"``) and Mamba mixers,
-dense SwiGLU, MoE or no FFN. That covers qwen3-14b, qwen2-72b, minicpm-2b,
-starcoder2-7b, llava-next-34b (through ``embeds``), phi3.5-moe and jamba.
-MLA, the mLSTM/sLSTM mixers and encoder-decoder models raise
-``NotImplementedError``; they are queued in ROADMAP.md §1, LLM model
-stack. The training loss (``lm_loss``) takes every supported family but
-jamba: a Mamba layer has no backward on the card yet (K7's), so
-``check_trainable`` refuses it on every device.
+Supported here: GQA (``attn_type="gqa"``) and MLA (``"mla"``)
+attention, Mamba, mLSTM and sLSTM mixers, dense SwiGLU, MoE or no FFN.
+That covers every decoder-only config: qwen3-14b, qwen2-72b, minicpm-2b,
+starcoder2-7b, llava-next-34b (through ``embeds``), phi3.5-moe, jamba,
+deepseek-v3 and xlstm. Encoder-decoder models are ``models.encdec``'s.
+The training loss (``lm_loss``) takes the GQA families with attention,
+dense and MoE FFNs; ``check_trainable`` refuses, on every device, a Mamba
+layer (K7 has no backward on the card yet), MLA (K6's general form has
+none) and the mLSTM/sLSTM mixers (their chunked remat is not ported):
+queued in ROADMAP.md §1.
 
 While grad is enabled and its input or parameters require grad (not in
 serving), ``forward`` checkpoints each group of the period as
@@ -22,15 +24,19 @@ recomputes the rest, ``"none"`` saves everything.
 
 Parameters: ``{"embed": {"table"}, "final_norm": {"scale"},
 "lm_head" (untied only), "layers": [block, ...]}`` with each block
-``{"norm1", "mixer": attention or Mamba params, "norm2", "ffn": SwiGLU or
-MoE params}`` (no ``norm2``/``ffn`` where the FFN kind is ``"none"``).
+``{"norm1", "mixer": GQA, MLA, Mamba, mLSTM or sLSTM params, "norm2",
+"ffn": SwiGLU or MoE params}`` (no ``norm2``/``ffn`` where the FFN kind is
+``"none"``).
 
 Caches: a list with one dict per layer in the same order. Attention:
 ``{"k", "v": [B, Hkv, max_seq, D]}`` in the compute dtype, or the int8
 form ``{"k", "v": int8, "k_scale", "v_scale": float16 [B, Hkv, max_seq,
-1]}`` when ``cfg.kv_quant``. Mamba: ``{"h": float32 [B, d_inner,
-d_state], "conv": [B, d_conv - 1, d_inner]}`` in the compute dtype.
-``decode_step`` updates them in place.
+1]}`` when ``cfg.kv_quant``. MLA: the latent cache ``{"ckv": [B,
+max_seq, kv_lora], "k_rope": [B, max_seq, rope]}`` in the compute dtype.
+Mamba: ``{"h": float32 [B, d_inner, d_state], "conv": [B, d_conv - 1,
+d_inner]}`` in the compute dtype. mLSTM ``{"c": [B, H, dh, dh], "n": [B,
+H, dh], "m": [B, H]}`` and sLSTM ``{"c", "n", "m": [B, d_model]}``, all
+float32. ``decode_step`` updates them in place.
 """
 
 from __future__ import annotations
@@ -43,8 +49,10 @@ import torch.utils.checkpoint as ckpt
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import mla as mla_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
+from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.layers import (
     F32,
     chunked_softmax_xent,
@@ -62,7 +70,8 @@ Params = Dict[str, Any]
 Caches = List[Dict[str, torch.Tensor]]
 
 _ROADMAP = "queued in ROADMAP.md §1, LLM model stack"
-MIXERS = ("attn", "mamba")
+MIXERS = ("attn", "mamba", "mlstm", "slstm")
+ATTN_TYPES = ("gqa", "mla")
 
 
 def layer_kinds(cfg: ArchConfig) -> List[Tuple[str, str]]:
@@ -73,34 +82,49 @@ def layer_kinds(cfg: ArchConfig) -> List[Tuple[str, str]]:
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for a family this package does not
-    port yet: encoder-decoder models, MLA attention and the mLSTM/sLSTM
-    mixers."""
+    """Raise ``NotImplementedError`` for a config this module does not
+    build: an encoder-decoder model (``models.encdec``'s), a mixer or an
+    attention type it does not know."""
     if cfg.is_encdec:
         raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models are not ported yet; "
-            + _ROADMAP)
+            f"{cfg.name}: an encoder-decoder model is models.encdec's, not "
+            f"the decoder-only LM's")
     for mixer, ffn in layer_kinds(cfg):
         if mixer not in MIXERS:
             raise NotImplementedError(
-                f"{cfg.name}: the {mixer} mixer is not ported yet (ported: "
+                f"{cfg.name}: the {mixer} mixer is not ported (ported: "
                 f"{', '.join(MIXERS)}); " + _ROADMAP)
-        if mixer == "attn" and cfg.attn_type != "gqa":
+        if mixer == "attn" and cfg.attn_type not in ATTN_TYPES:
             raise NotImplementedError(
-                f"{cfg.name}: {cfg.attn_type} attention is not ported yet "
-                f"(ported: gqa); " + _ROADMAP)
+                f"{cfg.name}: {cfg.attn_type} attention is not ported "
+                f"(ported: {', '.join(ATTN_TYPES)}); " + _ROADMAP)
 
 
 def check_trainable(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` where ``lm_loss`` cannot train: every
-    family :func:`check_supported` refuses, and a Mamba layer, whose
-    kernel (K7) has no backward yet. Refused on every device, so that a
-    config that trains on the CPU also trains on the card."""
+    """Raise ``NotImplementedError`` where ``lm_loss`` cannot train: an
+    encoder-decoder model, a Mamba layer (its kernel, K7, has no backward
+    yet), MLA (K6's general form, Dqk != Dv, has no backward yet) and the
+    mLSTM/sLSTM mixers (their chunked remat is not ported). Refused on
+    every device, so that a config that trains on the CPU also trains on
+    the card."""
+    if cfg.is_encdec:
+        raise NotImplementedError(
+            f"{cfg.name}: training an encoder-decoder model (seq2seq_loss) "
+            f"is not ported yet; " + _ROADMAP)
     check_supported(cfg)
-    if any(m == "mamba" for m, _ in layer_kinds(cfg)):
+    kinds = {m for m, _ in layer_kinds(cfg)}
+    if "mamba" in kinds:
         raise NotImplementedError(
             f"{cfg.name}: training a Mamba layer needs K7's backward "
             f"(selective scan), not ported yet; " + _ROADMAP)
+    if "attn" in kinds and cfg.attn_type == "mla":
+        raise NotImplementedError(
+            f"{cfg.name}: training MLA needs K6's backward at Dqk != Dv, "
+            f"not ported yet; " + _ROADMAP)
+    if kinds & {"mlstm", "slstm"}:
+        raise NotImplementedError(
+            f"{cfg.name}: training the mLSTM/sLSTM mixers needs their "
+            f"chunked remat, not ported yet; " + _ROADMAP)
 
 
 def weight_decay_mask(cfg: ArchConfig, params: Params) -> Params:
@@ -122,17 +146,30 @@ def weight_decay_mask(cfg: ArchConfig, params: Params) -> Params:
 
 # ---------------------------------------------------------------- blocks ----
 
+#: the recurrent mixers' (init, full-sequence, one-token decode) forms
+_RECURRENT = {
+    "mamba": (ssm_lib.init_mamba, ssm_lib.mamba_full, ssm_lib.mamba_decode),
+    "mlstm": (xlstm_lib.init_mlstm, xlstm_lib.mlstm_full,
+              xlstm_lib.mlstm_decode),
+    "slstm": (xlstm_lib.init_slstm, xlstm_lib.slstm_full,
+              xlstm_lib.slstm_decode),
+}
+
+
 def init_block(gen: torch.Generator, cfg: ArchConfig, mixer: str, ffn: str,
                device=None, dtype=F32) -> Params:
-    """One block: a GQA attention or Mamba mixer and a SwiGLU, MoE or no
-    FFN."""
+    """One block: a GQA or MLA attention, Mamba, mLSTM or sLSTM mixer and
+    a SwiGLU, MoE or no FFN."""
     p: Params = {"norm1": init_rmsnorm(cfg.d_model, device)}
-    if mixer == "attn":
+    if mixer == "attn" and cfg.attn_type == "mla":
+        p["mixer"] = mla_lib.init_mla(gen, cfg, device=device, dtype=dtype)
+    elif mixer == "attn":
         p["mixer"] = attn_lib.init_attention(
             gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
             cfg.qk_norm, cfg.qkv_bias, device=device, dtype=dtype)
     else:
-        p["mixer"] = ssm_lib.init_mamba(gen, cfg, device=device, dtype=dtype)
+        p["mixer"] = _RECURRENT[mixer][0](gen, cfg, device=device,
+                                          dtype=dtype)
     if ffn == "none":
         return p
     p["norm2"] = init_rmsnorm(cfg.d_model, device)
@@ -147,8 +184,10 @@ def init_block(gen: torch.Generator, cfg: ArchConfig, mixer: str, ffn: str,
 def _mixer_full(p: Params, x: torch.Tensor, cfg: ArchConfig, mixer: str,
                 positions: Optional[torch.Tensor]
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    if mixer == "mamba":
-        return ssm_lib.mamba_full(p, x, cfg)
+    if mixer in _RECURRENT:
+        return _RECURRENT[mixer][1](p, x, cfg)
+    if cfg.attn_type == "mla":
+        return mla_lib.mla_full(p, x, cfg, positions)
     out, (k, v) = attn_lib.attn_full(
         p, x, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
         d_head=cfg.head_dim, rope_theta=cfg.rope_theta, causal=cfg.causal,
@@ -160,8 +199,10 @@ def _mixer_full(p: Params, x: torch.Tensor, cfg: ArchConfig, mixer: str,
 def _mixer_decode(p: Params, x: torch.Tensor, cache: Dict[str, Any],
                   cfg: ArchConfig, mixer: str, pos: torch.Tensor,
                   backend: str) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    if mixer == "mamba":
-        return ssm_lib.mamba_decode(p, x, cache, cfg)
+    if mixer in _RECURRENT:
+        return _RECURRENT[mixer][2](p, x, cache, cfg)
+    if cfg.attn_type == "mla":
+        return mla_lib.mla_decode(p, x, cache, cfg, pos)
     return attn_lib.attn_decode(
         p, x, cache, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
         d_head=cfg.head_dim, rope_theta=cfg.rope_theta, qk_norm=cfg.qk_norm,
@@ -249,8 +290,9 @@ def forward(cfg: ArchConfig, params: Params,
             collect_caches: bool = False, dtype=F32
             ) -> Tuple[torch.Tensor, Caches, torch.Tensor]:
     """Full-sequence forward. Returns (hidden [B, S, d], caches (one per
-    layer when ``collect_caches``: attention {"k", "v"} [B, Hkv, S, D],
-    Mamba {"h", "conv"}; else empty), the MoE aux loss summed over the
+    layer when ``collect_caches``: GQA attention {"k", "v"} [B, Hkv, S, D],
+    MLA {"ckv", "k_rope"}, the recurrent mixers' state after the last
+    token; else empty), the MoE aux loss summed over the
     layers).
 
     ``embeds`` (precomputed modality embeddings, [B, S, d_model]) may
@@ -352,7 +394,17 @@ def lm_loss(cfg: ArchConfig, params: Params,
 
 def _zero_cache(cfg: ArchConfig, mixer: str, batch: int, max_seq: int,
                 dtype, device=None) -> Dict[str, torch.Tensor]:
-    """One layer's cache: GQA attention's KV cache or Mamba's state."""
+    """One layer's cache: GQA attention's KV cache, MLA's latent cache,
+    or the recurrent state of a Mamba, mLSTM or sLSTM mixer."""
+    if mixer == "mlstm":
+        return xlstm_lib.mlstm_state(batch, cfg, device)
+    if mixer == "slstm":
+        return xlstm_lib.slstm_state(batch, cfg, device)
+    if cfg.attn_type == "mla" and mixer == "attn":
+        return {"ckv": torch.zeros((batch, max_seq, cfg.mla_kv_lora),
+                                   dtype=dtype, device=device),
+                "k_rope": torch.zeros((batch, max_seq, cfg.mla_rope_dim),
+                                      dtype=dtype, device=device)}
     if mixer == "mamba":
         di = cfg.ssm_expand * cfg.d_model
         return {"h": torch.zeros((batch, di, cfg.ssm_d_state), dtype=F32,

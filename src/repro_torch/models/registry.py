@@ -1,11 +1,10 @@
-"""Arch-id -> model entry points (init / loss / decode / caches).
-
-Decoder-only configs whose layers ``models.lm`` ports (GQA attention and
-Mamba mixers, dense and MoE FFNs: the dense-GQA models, phi3.5-moe and
-jamba); the others (MLA, xLSTM, encoder-decoder) raise
-``NotImplementedError`` (queued in ROADMAP.md §1, LLM model stack). The
-entry points run on the CUDA card unless given ``device="cpu"``, and raise
-when there is no card.
+"""Arch-id -> model entry points (init / loss / decode / caches),
+family-dispatched: encoder-decoder configs to ``models.encdec``, every
+other to ``models.lm``. The entry points run on the CUDA card unless given
+``device="cpu"``, and raise when there is no card. Training takes the
+families ``lm.check_trainable`` admits; the others (encoder-decoder,
+Mamba, MLA, xLSTM) raise ``NotImplementedError`` (queued in ROADMAP.md
+§1).
 """
 
 from __future__ import annotations
@@ -16,7 +15,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.simulator import resolve_device
-from repro_torch.models import lm
+from repro_torch.models import encdec, lm
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, device=None,
@@ -29,14 +28,16 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None,
     """
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
+    if cfg.is_encdec:
+        return encdec.init_params(cfg, gen, device=dev, dtype=dtype)
     return lm.init_params(cfg, gen, device=dev, dtype=dtype)
 
 
 def loss_fn(cfg: ArchConfig) -> Callable[..., Any]:
     """Returns loss(params, batch, dtype) -> (scalar, metrics); the batch
-    holds ``tokens`` or ``embeds``, and ``labels``. Decoder-only models;
-    an encoder-decoder config raises, as do the families ``lm_loss``
-    cannot train (``lm.check_trainable``)."""
+    holds ``tokens`` or ``embeds``, and ``labels``. Raises, on every
+    device, for the families ``lm.check_trainable`` refuses (an
+    encoder-decoder config among them)."""
     lm.check_trainable(cfg)
 
     def f(params, batch, dtype):
@@ -46,11 +47,15 @@ def loss_fn(cfg: ArchConfig) -> Callable[..., Any]:
 
 
 def decode_entry(cfg: ArchConfig) -> Callable[..., Any]:
+    if cfg.is_encdec:
+        return encdec.decode_step
     lm.check_supported(cfg)
     return lm.decode_step
 
 
 def init_caches(cfg: ArchConfig, batch: int, max_seq: int,
                 dtype=torch.float32, device=None):
-    return lm.init_caches(cfg, batch, max_seq, dtype,
-                          device=resolve_device(device))
+    dev = resolve_device(device)
+    if cfg.is_encdec:
+        return encdec.init_dec_caches(cfg, batch, max_seq, dtype, device=dev)
+    return lm.init_caches(cfg, batch, max_seq, dtype, device=dev)

@@ -1,0 +1,138 @@
+"""The port's ``blocked_attention`` and K6's general-shape plain version
+(``gqa_attention_ref``) against the reference's jnp ``blocked_attention``:
+GQA, a query/key width apart from the value width (MLA), a key length
+apart from the query length (cross-attention, not causal), causal, an
+explicit scale, the reference in blocks smaller than the sequence (its
+online-softmax recurrence over several blocks), and lengths that are no
+multiple of a block (which the port takes in one call); then the shape
+rules of K6's wrapper and of its autograd Function, which the card
+enforces.
+
+Tolerance: float32 1e-5 (the same softmax in another summation order);
+bfloat16 2e-2, as K6's.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.models.blocked_attention import (  # noqa: E402
+    blocked_attention as jax_blocked,
+)
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention as k6,
+)
+from repro_torch.kernels.flash_attention.ops import attention  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    gqa_attention_ref,
+)
+from repro_torch.models.blocked_attention import (  # noqa: E402
+    blocked_attention,
+)
+
+F32 = dict(atol=1e-5, rtol=1e-5)
+BF16 = dict(atol=2e-2, rtol=2e-2)
+
+#: (B, Hq, Hkv, Sq, Sk, Dqk, Dv, causal, scale, the reference's blocks,
+#: seed). The "blocks" cases run the reference in blocks of 16 queries and
+#: 32 keys over S = 64, so its recurrence carries (m, l, acc) across key
+#: blocks; the "ragged" ones have lengths no block of 16 or 32 divides.
+CASES = {
+    "gqa_causal": (2, 4, 2, 64, 64, 16, 16, True, None, {}, 0),
+    "gqa_full": (2, 4, 2, 48, 48, 32, 32, False, None, {}, 0),
+    "mla_causal": (2, 4, 4, 32, 32, 24, 16, True, 24 ** -0.5, {}, 0),
+    "mla_wide": (1, 2, 2, 64, 64, 192, 128, True, 192 ** -0.5, {}, 0),
+    "cross": (2, 4, 2, 8, 96, 16, 16, False, None, {}, 0),
+    "cross_mla_widths": (1, 4, 1, 16, 40, 24, 16, False, None, {}, 0),
+    "scale": (1, 4, 4, 32, 32, 16, 16, True, 0.3, {}, 0),
+    "blocks_causal": (2, 4, 2, 64, 64, 24, 16, True, None,
+                      dict(block_q=16, block_k=32), 1),
+    "blocks_full": (2, 4, 2, 64, 64, 24, 16, False, None,
+                    dict(block_q=16, block_k=32), 1),
+    "ragged_cross": (1, 4, 2, 50, 70, 16, 16, False, None, {}, 2),
+    "ragged_causal": (1, 4, 2, 50, 50, 24, 16, True, None, {}, 3),
+}
+
+
+def inputs(b, hq, hkv, sq, sk, dqk, dv, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, hq, sq, dqk)).astype(np.float32),
+            rng.standard_normal((b, hkv, sk, dqk)).astype(np.float32),
+            rng.standard_normal((b, hkv, sk, dv)).astype(np.float32))
+
+
+def jax_out(q, k, v, causal, scale, **blocks):
+    return np.asarray(jax_blocked(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), causal=causal,
+                                  scale=scale, **blocks))
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_blocked_attention_matches_reference(case):
+    b, hq, hkv, sq, sk, dqk, dv, causal, scale, blocks, seed = CASES[case]
+    q, k, v = inputs(b, hq, hkv, sq, sk, dqk, dv, seed)
+    want = jax_out(q, k, v, causal, scale, **blocks)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    got = blocked_attention(tq, tk, tv, causal=causal, scale=scale)
+    assert got.shape == (b, hq, sq, dv)
+    np.testing.assert_allclose(got.numpy(), want, **F32)
+    # K6's plain version and its entry point (a CPU tensor) agree too
+    np.testing.assert_allclose(
+        gqa_attention_ref(tq, tk, tv, causal, scale).numpy(), want, **F32)
+    np.testing.assert_allclose(attention(tq, tk, tv, causal, scale).numpy(),
+                               want, **F32)
+
+
+def test_bfloat16_matches_reference():
+    q, k, v = inputs(2, 4, 4, 32, 32, 24, 16, seed=4)
+    tb = [torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)]
+    want = jax_out(*(np.asarray(t.float()) for t in tb), True, None)
+    got = blocked_attention(*tb, causal=True)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, **BF16)
+
+
+def test_causal_needs_equal_lengths():
+    q, k, v = (torch.from_numpy(a) for a in inputs(1, 2, 2, 8, 16, 16, 16))
+    with pytest.raises(ValueError, match="Sq == Sk"):
+        gqa_attention_ref(q, k, v, True)
+
+
+def test_k6_wrapper_refuses_shapes_no_form_takes(monkeypatch):
+    """With the device check bypassed, the wrapper's shape rules raise
+    before anything is built: a (Dqk, Dv) pair with no form, causal with
+    Sq != Sk; the backward's Function refuses every general shape (its
+    backward covers the base forms only)."""
+    monkeypatch.setattr(build, "require_cuda", lambda *a, **kw: None)
+    monkeypatch.setattr(build, "load", lambda: pytest.fail("built"))
+    q, k, v = (torch.from_numpy(a) for a in inputs(1, 2, 2, 8, 8, 48, 32))
+    with pytest.raises(ValueError, match="not one of K6's forms"):
+        k6.flash_attention_cuda(q, k, v, False)
+    q, k, v = (torch.from_numpy(a) for a in inputs(1, 2, 2, 8, 16, 16, 16))
+    with pytest.raises(ValueError, match="Sq == Sk"):
+        k6.flash_attention_cuda(q, k, v, True)
+    for shapes, scale in (((1, 2, 2, 8, 8, 24, 16), None),
+                          ((1, 2, 2, 8, 16, 16, 16), None),
+                          ((1, 2, 2, 8, 8, 16, 16), 0.5)):
+        q, k, v = (torch.from_numpy(a) for a in inputs(*shapes))
+        with pytest.raises(NotImplementedError, match="K6's backward"):
+            k6.FlashAttention.apply(q, k, v, False, scale)
+
+
+def test_base_forms():
+    """The base forms, which keep today's kernels: one length, one head
+    width in HEAD_DIMS, the default scale."""
+    def form(*shape, scale=None):
+        q, k, v = (torch.zeros(s) for s in shape)
+        return k6.is_base_form(q, k, v, scale)
+
+    assert form((1, 4, 8, 64), (1, 2, 8, 64), (1, 2, 8, 64))
+    assert form((1, 4, 8, 64), (1, 2, 8, 64), (1, 2, 8, 64), scale=0.125)
+    assert not form((1, 4, 8, 64), (1, 2, 8, 64), (1, 2, 8, 64), scale=0.1)
+    assert not form((1, 4, 8, 64), (1, 2, 9, 64), (1, 2, 9, 64))
+    assert not form((1, 4, 8, 192), (1, 4, 8, 192), (1, 4, 8, 128))
+    assert not form((1, 4, 8, 24), (1, 4, 8, 24), (1, 4, 8, 24))

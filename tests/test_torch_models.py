@@ -42,6 +42,7 @@ from repro_torch.launch.steps import (  # noqa: E402
     make_prefill,
 )
 from repro_torch.models import attention as tattn  # noqa: E402
+from repro_torch.models import encdec as tencdec  # noqa: E402
 from repro_torch.models import layers as tlayers  # noqa: E402
 from repro_torch.models import lm as tlm  # noqa: E402
 from repro_torch.models import registry as tregistry  # noqa: E402
@@ -321,10 +322,11 @@ def test_init_params_shapes_and_dtypes():
                                   "jamba-v0.1-52b", "xlstm-1.3b",
                                   "seamless-m4t-medium"])
 def test_unported_families_raise(arch):
-    """Every entry point raises for a family whose layers are not ported
-    (MLA, xLSTM, encoder-decoder); phi3.5-moe and jamba (MoE and Mamba,
-    ported) build and decode; phi3.5-moe trains, and jamba's training
-    loss and train step raise, naming K7's backward."""
+    """Every family builds, makes caches and decodes a step on the CPU
+    (phi3.5-moe, jamba, deepseek-v3's MLA, xlstm's mLSTM/sLSTM and
+    seamless's encoder-decoder); phi3.5-moe trains, and the training loss
+    and train step of the others raise, naming the ROADMAP queue (jamba's
+    K7's backward)."""
     from repro_torch.launch.steps import make_train_step
 
     cfg = ARCHS[arch].tiny()
@@ -332,23 +334,33 @@ def test_unported_families_raise(arch):
         tregistry.loss_fn(cfg)
         make_train_step(cfg, device="cpu")
     else:
-        for call in (lambda: tlm.lm_loss(cfg, None, None, None),
+        for call in (lambda: tregistry.loss_fn(cfg),
                      lambda: make_train_step(cfg, device="cpu")):
             with pytest.raises(NotImplementedError,
                                match="ROADMAP.md §1, LLM model stack") as e:
                 call()
             assert arch != "jamba-v0.1-52b" or "K7's backward" in str(e.value)
-    if arch in ("phi3.5-moe-42b-a6.6b", "jamba-v0.1-52b"):
-        assert len(tregistry.init_params(cfg, 0, device="cpu")["layers"]) \
-            == len(tregistry.init_caches(cfg, 1, 8, device="cpu"))
+    params = tregistry.init_params(cfg, 0, device="cpu")
+    caches = tregistry.init_caches(cfg, 2, 8, device="cpu")
+    tok = torch.tensor([1, 2], dtype=torch.int32)
+    pos = torch.tensor([0, 3], dtype=torch.int32)
+    if cfg.is_encdec:
+        assert tregistry.decode_entry(cfg) is tencdec.decode_step
+        assert len(params["dec"]) == len(caches) == cfg.n_layers
+        enc, cross = make_prefill(cfg, dtype=torch.float32, device="cpu")(
+            params, torch.zeros((2, 5, cfg.d_model)))
+        nxt, logits, _ = make_decode_step(cfg, dtype=torch.float32,
+                                          device="cpu")(params, caches,
+                                                        cross, tok, pos)
+    else:
         assert tregistry.decode_entry(cfg) is tlm.decode_step
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1, LLM model stack"):
-        tregistry.init_params(cfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1, LLM model stack"):
-        tregistry.init_caches(cfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1, LLM model stack"):
-        tregistry.decode_entry(cfg)
+        assert len(params["layers"]) == len(caches)
+        nxt, logits, _ = make_decode_step(cfg, dtype=torch.float32,
+                                          device="cpu")(params, caches, tok,
+                                                        pos)
+    assert logits.shape == (2, cfg.vocab) and bool(torch.isfinite(
+        logits).all())
+    assert nxt.dtype == torch.int32 and nxt.shape == (2,)
 
 
 @pytest.mark.parametrize("entry", ["init_params", "init_caches",
@@ -368,3 +380,20 @@ def test_entry_points_raise_without_a_card(entry):
                                               "--tiny"])}[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call()
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "xlstm-1.3b",
+                                  "seamless-m4t-medium"])
+def test_new_families_need_a_card_or_the_cpu(arch):
+    """The entry points of the MLA, xLSTM and encoder-decoder families run
+    on the card by default and raise without one (the CPU needs
+    ``device="cpu"``), as every other family's."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None selects it")
+    cfg = ARCHS[arch].tiny()
+    for call in (lambda: tregistry.init_params(cfg),
+                 lambda: tregistry.init_caches(cfg, 1, 8),
+                 lambda: make_prefill(cfg),
+                 lambda: make_decode_step(cfg)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
