@@ -12,10 +12,12 @@ Phases (any failed check exits non-zero):
    static shared memory and spills of K3's kernels (the one-bank-a-thread
    forms and the k-banks-a-thread form), K6's kernels and its backward's,
    K5's D = 128 kernels and K7's production kernels from the ``-Xptxas
-   -v`` logs, the count of ``HGMMA`` instructions in ``cuobjdump -sass`` of
-   ``libflash_attention.so`` (non-zero: K6's bf16 path runs on the tensor
-   cores) and of each tensor-core kernel of K6's backward (at least one a
-   k step of a tile's products, and no global atomic), and K7's bf16
+   -v`` logs (K6's tensor-core kernels at (64, 64), (128, 128) and (192,
+   128) with no spill), the count of ``HGMMA`` instructions in
+   ``cuobjdump -sass`` of each of those three kernels (at least one a k
+   step of a tile's two products; none in K6's FMA kernels) and of each
+   tensor-core kernel of K6's backward (at least one a k step of a tile's
+   products, and no global atomic), and K7's bf16
    S = 16 kernel's ``MUFU.EX2`` count (at least one
    per element of a thread's chunk: exp on the SFUs) and instructions per
    ``EX2``;
@@ -256,17 +258,25 @@ Phases (any failed check exits non-zero):
    the card with 17's timings; then a resumed run), the resumed losses
    equal the uninterrupted ones (rtol 1e-6).
 18. the MLA, xLSTM and encoder-decoder families (run last): (a) K6's
-   general form (``flash_attention_gen_launch``: the FMA kernel at Dqk !=
-   Dv and Sq != Sk, the caller's scale) against its plain version in
-   float32 and bfloat16 (1e-5 / 2e-2 x max |plain|) at deepseek-v3's MLA
-   prefill shape (2, 128/128, 1024, 192/128) causal, a cross shape (Sq 256
-   against a ragged Sk 1000, not causal) and small ragged, GQA and tiny-MLA
-   shapes; a shape no form takes, causal Sq != Sk and a backward at Dqk !=
-   Dv raise; its device time at MLA's shape in bf16 beside its plain
-   version, SDPA (timed only) and the bound; (b) deepseek-v3 at its
+   general form (Dqk != Dv, Sq != Sk, the caller's scale: in bf16 at
+   (64, 64), (128, 128) and (192, 128) the tensor-core kernel
+   ``flash_attention_gen_tc_launch``, counted under ``k6gen_tc``; in
+   float32 and at smaller widths the FMA kernel
+   ``flash_attention_gen_launch``, under ``k6gen``) against its plain
+   version in float32 and bfloat16 (1e-5 / 2e-2 x max |plain|) at
+   deepseek-v3's MLA prefill shape (2, 128/128, 1024, 192/128) causal, a
+   cross shape (Sq 256 against a ragged Sk 1000, not causal) and small
+   ragged, GQA and tiny-MLA shapes, each launch under the key of the form
+   its dtype and widths choose (MLA's and the cross shape: tensor cores in
+   bf16, FMA in float32), and at those two shapes its log-sum-exp within
+   1e-5 of ``logsumexp``; a shape no form takes, causal Sq != Sk and a
+   backward at Dqk != Dv raise; its device time in bf16 at MLA's shape
+   beside its plain version, SDPA (timed only) and the bound, and at the
+   cross shape beside SDPA and the bound; (b) deepseek-v3 at its
    published widths, depth cut 61 -> 4 (the 3 dense prefix layers and 1
    MoE layer of 256 experts top-8, 15.1 B parameters, 30.2 GB in bf16): a
-   prefill of 2 x 1024 (4 launches of the general form, the latent caches'
+   prefill of 2 x 1024 (4 launches of the general form, all on the
+   tensor cores; the latent caches'
    shapes), ``serve_loop`` of 8 requests through 4 slots (no kernel: MLA's
    decode is absorbed einsums), the decode step's device profile beside
    the weight-streaming floor, and decode against prefill over 2 x 128
@@ -298,6 +308,12 @@ sweep's wall, launch starts and device times.
 ``python3 chip_smoke.py --k6-bwd-times CHECKOUT`` runs only K6's
 backward's device time a launch at minicpm-2b's and qwen3-14b's bf16
 shapes, of the port in another checkout (A B B A, as below).
+
+``python3 chip_smoke.py --k6-gen-times CHECKOUT`` runs only K6's general
+form at MLA's shape, its base forms at qwen3-14b's and minicpm-2b's bf16
+shapes (device µs a launch) and deepseek-v3's 4-layer prefill of 2 x 1024
+(wall ms, three runs), of the port in another checkout (A B B A, as
+below).
 
 ``python3 chip_smoke.py --k3-step-times CHECKOUT`` runs only the
 single-lane persistent K3's time per step (four traces at 100k cycles,
@@ -478,19 +494,51 @@ def phase_device():
             check(any("fused_run_batch_kernel" in r[0] for r in rows),
                   "no lane-batched K3 (fused_run_batch_kernel) in the "
                   "ptxas log of csrc/fused.cu")
+        if name == "flash_attention":
+            tc_rows = {r[0]: r[3] for r in rows if "tc_fwd_kernel" in r[0]}
+            check(sorted(tc_rows) == sorted(K6_TC_KERNELS) and all(
+                v == "0/0" for v in tc_rows.values()), f"K6's tensor-core "
+                f"kernels in the ptxas log, spill stores/loads: {tc_rows} "
+                f"(want {K6_TC_KERNELS}, none spilling)")
         for fn, regs, smem, spills in rows:
             if name == "selective_scan" and prod["name"] not in fn:
                 continue  # the sweep's shapes: not on the path
             log(f"[1] {name}: {fn}: {regs} registers, {smem} B static "
                 f"shared memory, spill stores/loads {spills}")
-    hgmma = count_sass(out_dir / "libflash_attention.so", "HGMMA")
-    check(hgmma > 0, "libflash_attention.so holds no HGMMA instruction: "
-          "K6's bf16 path is not on the tensor cores")
-    log(f"[1] libflash_attention.so: {hgmma} HGMMA instructions in "
-        f"cuobjdump -sass")
+    k6_fwd_sass(out_dir)
     k6_bwd_sass(out_dir)
     k7_sass(out_dir / "libselective_scan.so", prod)
     return card
+
+
+#: K6's tensor-core forward instantiations, (DQK, DV): the base forms' D
+#: 64 and 128 and MLA's (192, 128), base and general forms alike
+K6_TC_KERNELS = {f"tc::tc_fwd_kernel<{qk}, {vv}>": (qk, vv)
+                 for qk, vv in ((64, 64), (128, 128), (192, 128))}
+
+
+def k6_fwd_sass(out_dir):
+    """K6's forward, tensor-core form: each instantiation holds HGMMA, at
+    least one a k step of a tile's two products (DQK / 16 for S = Q K^T, 8
+    for O += P V over 128 keys), and so does no other kernel of the
+    library (the FMA forms)."""
+    funcs = sass_functions(out_dir / "libflash_attention.so")
+    rows = []
+    for name, (qk, vv) in K6_TC_KERNELS.items():
+        ops = funcs.get(name)
+        check(ops is not None, f"{name} not in libflash_attention.so: "
+              f"{sorted(funcs)[:6]} ...")
+        n = sum(op.startswith("HGMMA") for op in ops)
+        want = qk // 16 + 8
+        check(n >= want, f"{name}: {n} HGMMA, fewer than one a k step of "
+              f"a tile's products ({want}): not on the tensor cores")
+        rows.append(f"{name} HGMMA {n} (a tile's k steps {want})")
+    other = {f: sum(op.startswith("HGMMA") for op in ops)
+             for f, ops in funcs.items() if f not in K6_TC_KERNELS}
+    check(not any(other.values()), f"HGMMA outside the tensor-core "
+          f"kernels: {other}")
+    log("[1] libflash_attention.so: " + "; ".join(rows) + f"; the "
+        f"{len(other)} FMA kernels 0")
 
 
 def k6_bwd_sass(out_dir):
@@ -624,17 +672,6 @@ def ptxas_report(text, keep=None):
     except OSError:
         pass
     return rows
-
-
-def count_sass(lib, opcode):
-    """Instructions of ``opcode`` in ``cuobjdump -sass`` of a library."""
-    import shutil
-
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
-                          text=True, timeout=300)
-    check(sass.returncode == 0, f"cuobjdump failed on {lib}: {sass.stderr}")
-    return sum(opcode in line for line in sass.stdout.splitlines())
 
 
 def topo_for(channels, tiers, ranks=2, **kw):
@@ -4559,13 +4596,22 @@ def phase_train(drill):
 #: K6's general form against its plain version: (b, hq, hkv, sq, sk, dqk,
 #: dv, causal). deepseek-v3's MLA prefill (phase 18(b)'s shape), a cross
 #: shape with a ragged source, and small ones: the tests' tiny MLA widths,
-#: a GQA cross-attention, equal widths with Sq != Sk
+#: a GQA cross-attention, equal widths with Sq != Sk, MLA's widths ragged
+#: (causal, and GQA across Sq != Sk) and D 64 causal at another scale
 K6_GEN_SHAPES = [(2, 128, 128, 1024, 1024, 192, 128, True),
                  (4, 16, 16, 256, 1000, 64, 64, False),
                  (2, 4, 4, 77, 77, 24, 16, True),
                  (2, 8, 2, 33, 50, 16, 16, False),
                  (1, 4, 1, 130, 64, 128, 128, False),
-                 (1, 4, 4, 40, 97, 32, 32, False)]
+                 (1, 4, 4, 40, 97, 32, 32, False),
+                 (1, 4, 4, 300, 300, 192, 128, True),
+                 (1, 8, 2, 200, 333, 192, 128, False),
+                 (2, 6, 3, 77, 77, 64, 64, True)]
+#: the two shapes whose form, log-sum-exp and time phase 18(a) also checks:
+#: MLA's prefill and the cross shape
+K6_GEN_MLA, K6_GEN_CROSS = K6_GEN_SHAPES[:2]
+#: the general form's LSE against logsumexp, as phase 17's base forms'
+K6_LSE_TOL = 1e-5
 #: deepseek-v3 cut to its 3 dense prefix layers and 1 MoE layer
 DEEPSEEK_LAYERS = 4
 #: xlstm-1.3b's float32 decode against its prefill over all 48 layers,
@@ -4575,7 +4621,10 @@ DEEPSEEK_LAYERS = 4
 #: first period's 8 layers, 1.1e-3-1.7e-3 after 48, states 3.4e-3 (18(c)'s
 #: two float32 lines on an H100 at 700 W, PERF.md), while the recurrence
 #: itself holds the reference's to 3e-5 after 150 steps on the CPU
-#: (tests/test_torch_xlstm.py). A wrong state misses by ~100%.
+#: (tests/test_torch_xlstm.py). A wrong state misses by ~100%. At all 48
+#: layers and tiny width on the CPU, the port's float32 decode-against-
+#: prefill gap is held to at most 2x the reference's own
+#: (test_xlstm_48_layers_decode_gap_is_the_references): both are 0 there.
 #: The first period's 8 layers are held to 1e-3.
 DEEP_F32_TOL = 1e-2
 #: seamless: frame embeddings encoded, greedy decode steps, the gate's steps
@@ -4584,43 +4633,132 @@ SEAMLESS_STEPS = 32
 SEAMLESS_GATE_STEPS = 8
 
 
+def gen_scale(dqk, dv):
+    """Phase 18(a)'s scale: MLA's 1/sqrt(Dqk), and for equal widths 0.7 of
+    it (not a base form's)."""
+    return dqk ** -0.5 if dqk != dv else 0.7 / dqk ** 0.5
+
+
+def plain_lse(q, k, causal, scale):
+    """Each row's log-sum-exp of its scaled logits in float32, [B, Hq,
+    Sq]."""
+    import torch
+
+    g = q.shape[1] // k.shape[1]
+    logits = torch.einsum("bhsd,bhtd->bhst", q.float(),
+                          k.float().repeat_interleave(g, dim=1)) * scale
+    if causal:
+        s = q.shape[2]
+        logits = logits.masked_fill(~torch.ones(
+            (s, s), dtype=torch.bool, device=q.device).tril(), float("-inf"))
+    return torch.logsumexp(logits, -1)
+
+
+def gen_time(gen, shape):
+    """K6's general form in bf16 at one shape: device ms a launch beside
+    SDPA's (timed only), with the bound; the plain version's too at MLA's
+    shape."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.ref import gqa_attention_ref
+
+    b, hq, hkv, sq, sk, dqk, dv, causal = shape
+    bf16 = torch.bfloat16
+    q = randn(gen, (b, hq, sq, dqk), bf16)
+    k = randn(gen, (b, hkv, sk, dqk), bf16)
+    v = randn(gen, (b, hkv, sk, dv), bf16)
+    scale = gen_scale(dqk, dv)
+    ms = device_ms(lambda: flash_attention_cuda(q, k, v, causal,
+                                                scale=scale),
+                   per_graph=2 if causal else 20, replays=10)
+    plain_ms = None
+    if shape == K6_GEN_MLA:
+        plain_ms = device_ms(lambda: gqa_attention_ref(q, k, v, causal,
+                                                       scale),
+                             per_graph=1, replays=5)
+    lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=causal, scale=scale, enable_gqa=hq != hkv),
+        per_graph=2 if causal else 20, replays=10)
+    pairs = sq * (sq + 1) // 2 if causal else sq * sk
+    flops = 2 * b * hq * pairs * (dqk + dv)
+    nbytes = (b * hq * sq * (dqk + dv) + b * hkv * sk * (dqk + dv)) * 2
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound = max(t_ops, t_bytes)
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    plain_txt = ("" if plain_ms is None else
+                 f"plain {plain_ms * 1e3:.1f} us, ")
+    log(f"[18] K6 general B={b} H={hq}/{hkv} Sq={sq} Sk={sk} Dqk={dqk} "
+        f"Dv={dv} causal={causal} bf16: device {ms * 1e3:.1f} us/launch "
+        f"({plain_txt}sdpa {lib_ms * 1e3:.1f} us, {ms / lib_ms:.2f}x sdpa); "
+        f"bound {bound * 1e3:.2f} us ({flops / 1e9:.2f} GFLOP at 989 TFLOP/s "
+        f"bf16 = {t_ops * 1e3:.2f} us, {nbytes} B at 3.35 TB/s = "
+        f"{t_bytes * 1e3:.2f} us; {by}; {bound / ms:.1%} of it)")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "library_ms": lib_ms}
+
+
 def phase_general_attention():
     """18(a): K6's general form (Dqk != Dv, Sk != Sq, the caller's scale)
     against its plain version on the card in float32 and bfloat16, with
-    K6's tolerances times max |plain|; shapes no form takes raise; then
-    its device time at deepseek-v3's MLA prefill shape beside the plain
-    version, SDPA and the bound."""
+    K6's tolerances times max |plain|, each launch counted under its
+    kernel's key (``k6gen_tc`` for the tensor-core form, bf16 at a pair of
+    ``TC_DIMS``; ``k6gen`` for the FMA form); at MLA's and the cross shape
+    its log-sum-exp against the plain one; shapes no form takes raise;
+    then its device time at MLA's and the cross shape beside SDPA and the
+    bound."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention.flash_attention import (
-        FlashAttention, flash_attention_cuda)
+        TC_DIMS, FlashAttention, flash_attention_cuda)
     from repro_torch.kernels.flash_attention.ref import gqa_attention_ref
 
     gen = torch.Generator().manual_seed(18)
-    worst, worst_abs, n = 0.0, 0.0, 0
+    worst, worst_abs, n, forms, lse_errs = 0.0, 0.0, 0, {}, []
     for name, tol in ATTN_TOL.items():
         dt = getattr(torch, name)
-        for b, hq, hkv, sq, sk, dqk, dv, causal in K6_GEN_SHAPES:
+        for shape in K6_GEN_SHAPES:
+            b, hq, hkv, sq, sk, dqk, dv, causal = shape
             q = randn(gen, (b, hq, sq, dqk), dt)
             k = randn(gen, (b, hkv, sk, dqk), dt)
             v = randn(gen, (b, hkv, sk, dv), dt)
-            scale = dqk ** -0.5 if dqk != dv else 0.7 / dqk ** 0.5
-            before = build.LAUNCHES["k6gen"]
-            got = flash_attention_cuda(q, k, v, causal, scale=scale)
-            check(build.LAUNCHES["k6gen"] == before + 1,
-                  "the general form was not launched")
+            scale = gen_scale(dqk, dv)
+            key = ("k6gen_tc" if dt == torch.bfloat16 and (dqk, dv)
+                   in TC_DIMS else "k6gen")
+            before = dict(build.LAUNCHES)
+            lse = None
+            if shape in (K6_GEN_MLA, K6_GEN_CROSS):
+                lse = torch.empty((b, hq, sq), dtype=torch.float32,
+                                  device=DEVICE)
+            got = flash_attention_cuda(q, k, v, causal, lse=lse, scale=scale)
+            check(build.LAUNCHES == {**before, key: before[key] + 1},
+                  f"K6 general at {shape} {name}: launches went from "
+                  f"{before} to {build.LAUNCHES}, want one {key}")
+            forms[shape, name] = key
             want = gqa_attention_ref(q, k, v, causal, scale)
             e = float_err(got, want)
             top = float(want.float().abs().max())
-            check(e <= tol * top, f"K6 general != plain at "
-                  f"{(b, hq, hkv, sq, sk, dqk, dv)} causal={causal} {name}: "
-                  f"max abs err {e} (max |plain| {top:.3f}, bound "
-                  f"{tol} x max)")
+            check(e <= tol * top, f"K6 general != plain at {shape} {name}: "
+                  f"max abs err {e} (max |plain| {top:.3f}, bound {tol} x "
+                  f"max)")
             worst = max(worst, e / top)
             worst_abs = max(worst_abs, e)
             n += 1
-            del q, k, v, got, want
+            del got, want
+            if lse is not None:
+                le = float((lse - plain_lse(q, k, causal, scale)).abs().max())
+                check(le <= K6_LSE_TOL, f"K6 general's lse at {shape} {name} "
+                      f"is off logsumexp by {le} (> {K6_LSE_TOL})")
+                lse_errs.append(le)
+            del q, k, v, lse
+    for shape in (K6_GEN_MLA, K6_GEN_CROSS):
+        check(forms[shape, "bfloat16"] == "k6gen_tc"
+              and forms[shape, "float32"] == "k6gen", f"K6 general at "
+              f"{shape}: forms {forms[shape, 'bfloat16']} (bf16), "
+              f"{forms[shape, 'float32']} (float32); want the tensor-core "
+              f"form in bf16, the FMA form in float32")
     refused = 0
     q = randn(gen, (1, 4, 64, 48), torch.bfloat16)
     v = randn(gen, (1, 4, 64, 32), torch.bfloat16)
@@ -4636,39 +4774,20 @@ def phase_general_attention():
         refused += 1
     check(refused == 3, f"K6 took {3 - refused} shapes no form takes")
     torch.cuda.synchronize()
+    n_tc = sum(v == "k6gen_tc" for v in forms.values())
     log(f"[18] K6 general == plain on {n} cases (MLA's (2, 128, 1024, "
         f"192/128) causal, a cross Sq 256 against Sk 1000, small GQA and "
         f"ragged shapes; float32 and bfloat16), worst max abs err "
-        f"{worst:.3g} x max |plain| (bounds 1e-5, 2e-2); (Dqk, Dv) = (48, "
-        f"32), causal Sq != Sk and a backward at Dqk != Dv raise")
-
-    # time at MLA's prefill shape, bf16
-    b, h, s, dqk, dv = 2, 128, 1024, 192, 128
-    bf16 = torch.bfloat16
-    q = randn(gen, (b, h, s, dqk), bf16)
-    k = randn(gen, (b, h, s, dqk), bf16)
-    v = randn(gen, (b, h, s, dv), bf16)
-    scale = dqk ** -0.5
-    ms = device_ms(lambda: flash_attention_cuda(q, k, v, True, scale=scale),
-                   per_graph=2, replays=10)
-    plain_ms = device_ms(lambda: gqa_attention_ref(q, k, v, True, scale),
-                         per_graph=1, replays=5)
-    lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, scale=scale), per_graph=2, replays=10)
-    flops = 2 * b * h * s * (s + 1) // 2 * (dqk + dv)
-    nbytes = (b * h * s * (2 * dqk + 2 * dv)) * 2
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    bound = max(t_ops, t_bytes)
-    by = "operations" if t_ops >= t_bytes else "bytes"
-    log(f"[18] K6 general B={b} H={h}/{h} S={s} Dqk={dqk} Dv={dv} causal "
-        f"bf16: device {ms * 1e3:.1f} us/launch (plain {plain_ms * 1e3:.1f} "
-        f"us, sdpa {lib_ms * 1e3:.1f} us, {ms / lib_ms:.2f}x sdpa); bound "
-        f"{bound * 1e3:.2f} us ({flops / 1e9:.2f} GFLOP at 989 TFLOP/s bf16 "
-        f"= {t_ops * 1e3:.2f} us, {nbytes} B at 3.35 TB/s = "
-        f"{t_bytes * 1e3:.2f} us; {by}; {bound / ms:.1%} of it)")
-    return {"max_abs_err": worst_abs, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
+        f"{worst:.3g} x max |plain| (bounds 1e-5, 2e-2); {n_tc} cases on "
+        f"the tensor-core form (k6gen_tc), {n - n_tc} on the FMA form "
+        f"(k6gen): MLA's and the cross shape tensor cores in bf16, FMA in "
+        f"float32; lse at those two off logsumexp by at most "
+        f"{max(lse_errs):.3g} (bound {K6_LSE_TOL}); (Dqk, Dv) = (48, 32), "
+        f"causal Sq != Sk and a backward at Dqk != Dv raise")
+    rec = gen_time(gen, K6_GEN_MLA)
+    rec["cross"] = gen_time(gen, K6_GEN_CROSS)
+    rec["max_abs_err"] = worst_abs
+    return rec
 
 
 def serve_cell(tag, cfg, params, batch=4, max_seq=256):
@@ -4843,9 +4962,10 @@ def phase_deepseek():
     toks = torch.randint(1, cfg.vocab, (2, 1024), generator=gen)
     logits, caches, pre_ms, pre = timed_prefill(cfg, params,
                                                 {"tokens": toks})
-    check(pre["k6gen"] == cfg.n_layers and pre["k6"] == 0
-          and pre["k5"] == 0, f"prefill launched {pre}, want K6's general "
-          f"form = {cfg.n_layers}")
+    check(pre["k6gen_tc"] == cfg.n_layers and pre["k6gen"] == 0
+          and pre["k6"] == 0 and pre["k5"] == 0, f"prefill launched {pre}, "
+          f"want K6's general form on the tensor cores (k6gen_tc) = "
+          f"{cfg.n_layers} and no other K6")
     check(logits.shape == (2, cfg.vocab) and bool(torch.isfinite(
         logits).all()), "prefill logits are not finite [2, vocab]")
     for c in caches:
@@ -4857,12 +4977,14 @@ def phase_deepseek():
     latent = (cfg.mla_kv_lora + cfg.mla_rope_dim) * cfg.n_layers * 2
     log(f"[18] deepseek prefill B=2 S=1024: {pre_ms:.1f} ms wall, "
         f"{2 * 1024 / pre_ms * 1e3:.0f} tok/s, K6 general launches "
-        f"{pre['k6gen']} (= {cfg.n_layers} MLA layers); latent cache "
+        f"{pre['k6gen_tc']} on the tensor cores (= {cfg.n_layers} MLA "
+        f"layers); latent cache "
         f"{cfg.mla_kv_lora + cfg.mla_rope_dim} values x {cfg.n_layers} "
         f"layers = {latent} B a token in bf16 (GQA at 128 heads of 128 "
         f"would hold {2 * 128 * 128 * cfg.n_layers * 2} B)")
     served, steps, wall = serve_cell("deepseek", cfg, params)
-    check(served["k6gen"] == served["k6"] == served["k5"] == 0,
+    check(served["k6gen"] == served["k6gen_tc"] == served["k6"]
+          == served["k5"] == 0,
           f"deepseek serve launched {served}: MLA's absorbed decode runs "
           f"no kernel")
     decode_profile(make_decode_step(cfg, dtype=torch.bfloat16), params, cfg,
@@ -4872,7 +4994,7 @@ def phase_deepseek():
     log(f"[18] deepseek peak device memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     del params
-    return {"k6gen": pre["k6gen"], "prefill_ms": pre_ms,
+    return {"k6gen_tc": pre["k6gen_tc"], "prefill_ms": pre_ms,
             "step_ms": wall / steps * 1e3, "floor_ms": n_bytes
             / HBM_BYTES_PER_S * 1e3}
 
@@ -4960,7 +5082,8 @@ def phase_seamless():
     src = randn(gen, (b, s_src, cfg.d_model), bf16)
     enc, cross, enc_ms, pre = timed_prefill(cfg, params, src)
     check(pre["k6"] == cfg.n_enc_layers and pre["k6gen"] == 0
-          and pre["k5"] == 0, f"encode launched {pre}, want K6 = "
+          and pre["k6gen_tc"] == 0 and pre["k5"] == 0, f"encode launched "
+          f"{pre}, want K6 = "
           f"{cfg.n_enc_layers}")
     check(enc.shape == (b, s_src, cfg.d_model) and bool(torch.isfinite(
         enc.float()).all()) and len(cross) == cfg.n_layers
@@ -4987,7 +5110,8 @@ def phase_seamless():
     wall = time.perf_counter() - t0
     dec = dict(build.LAUNCHES)
     check(dec["k5"] == 2 * cfg.n_layers * SEAMLESS_STEPS and dec["k6"] == 0
-          and dec["k6gen"] == 0, f"decode launched {dec}, want K5 = 2 x "
+          and dec["k6gen"] == dec["k6gen_tc"] == 0, f"decode launched "
+          f"{dec}, want K5 = 2 x "
           f"{cfg.n_layers} x {SEAMLESS_STEPS}")
     check(bool(torch.isfinite(logits).all()), "decode logits not finite")
     step_ms = wall / SEAMLESS_STEPS * 1e3
@@ -5110,6 +5234,71 @@ def topology_sweep_times():
             f"process: {wall:.3f} s wall; " + spans_text(spans))
 
 
+#: K6's base forms timed against another checkout: (label, b, hq, hkv, s,
+#: d), causal bf16 at qwen3-14b's prefill and minicpm-2b's training shape
+K6_BASE_TIMED = [("qwen3", 2, 40, 8, 1024, 128), ("minicpm", 4, 36, 36, 1024,
+                                                    64)]
+
+
+def k6_gen_times():
+    """K6's general form at MLA's prefill shape (phase 18(a)), its base
+    forms at ``K6_BASE_TIMED`` (device µs a launch, CUDA graphs, bf16
+    causal) and deepseek-v3 cut to 4 layers prefilling 2 x 1024 (phase
+    18(b)'s cell: wall ms of 3 prefills after a warm-up, and the K6
+    launches of one), of the port imported from ``sys.path``: run once per
+    checkout, each in its own process, to compare two checkouts on one
+    card (A B B A)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_cuda)
+    from repro_torch.launch.steps import make_prefill
+    from repro_torch.models import lm
+
+    build.load()
+    where = build.CSRC.parents[2]
+    gen = torch.Generator().manual_seed(26)
+    bf16 = torch.bfloat16
+    b, hq, hkv, s, _, dqk, dv, causal = K6_GEN_MLA
+    q, k, v = (randn(gen, (b, h, s, d), bf16)
+               for h, d in ((hq, dqk), (hkv, dqk), (hkv, dv)))
+    ms = device_ms(lambda: flash_attention_cuda(q, k, v, causal,
+                                                scale=gen_scale(dqk, dv)),
+                   per_graph=2)
+    cells = [f"general MLA {ms * 1e3:.1f}"]
+    for label, b, hq, hkv, s, d in K6_BASE_TIMED:
+        q, k, v = (randn(gen, (b, h, s, d), bf16) for h in (hq, hkv, hkv))
+        ms = device_ms(lambda: flash_attention_cuda(q, k, v, True),
+                       per_graph=20)
+        cells.append(f"base {label} {ms * 1e3:.1f}")
+    del q, k, v
+    log(f"k6 gen times {where}: " + "; ".join(cells) + " us/launch")
+    cfg = dataclasses.replace(get_config("deepseek-v3-671b"),
+                              n_layers=DEEPSEEK_LAYERS)
+    params = lm.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(
+        0), device=DEVICE, dtype=bf16)
+    toks = torch.randint(1, cfg.vocab, (2, 1024),
+                         generator=torch.Generator().manual_seed(5))
+    prefill = make_prefill(cfg, dtype=bf16)
+    prefill(params, {"tokens": toks})
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        prefill(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    k6 = {key: n for key, n in build.LAUNCHES.items() if key.startswith("k6")
+          and n}
+    log(f"k6 gen times {where}: deepseek-v3 ({cfg.n_layers} layers) prefill "
+        f"2 x 1024 " + ", ".join(f"{w:.1f}" for w in walls) + f" ms; K6 "
+        f"launches a prefill {k6}")
+
+
 def main():
     try:
         import torch
@@ -5120,11 +5309,12 @@ def main():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false)", file=sys.stderr)
         return 2
-    # --k3-step-times / --k6-bwd-times / --split-times / --topology-sweep
-    # CHECKOUT: only
+    # --k3-step-times / --k6-bwd-times / --k6-gen-times / --split-times /
+    # --topology-sweep CHECKOUT: only
     # that timing, of that checkout's port
     only = {"--k3-step-times": k3_step_times,
             "--k6-bwd-times": k6_bwd_times,
+            "--k6-gen-times": k6_gen_times,
             "--split-times": split_times,
             "--topology-sweep": topology_sweep_times}.get(
                 sys.argv[1] if len(sys.argv) == 3 else None)
@@ -5273,14 +5463,15 @@ def main():
             "max_abs_err": attn_errs[k], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms})
     # K6's general form (Dqk != Dv, Sk != Sq): what the reference runs as
-    # jnp blocked_attention; timed at deepseek-v3's MLA prefill shape, its
-    # launches those of phase 18(b)'s prefill
+    # jnp blocked_attention; its tensor-core kernel (bf16) timed at
+    # deepseek-v3's MLA prefill shape, its launches those of phase 18(b)'s
+    # prefill, all on the tensor-core form
     gen_rec = families["k6gen"]
     kernels.append({
         "name": "flash_attention_general", "route": "cuda",
         "source": src + "flash_attention.cu",
         "replaces": "src/repro/models/blocked_attention.py:30",
-        "launches": families["deepseek"]["k6gen"],
+        "launches": families["deepseek"]["k6gen_tc"],
         "max_abs_err": gen_rec["max_abs_err"], "ms": gen_rec["ms"],
         "plain_ms": gen_rec["plain_ms"], "bound_ms": gen_rec["bound_ms"],
         "bound_by": gen_rec["bound_by"],

@@ -56,6 +56,15 @@ class TimingState(NamedTuple):
         )
 
 
+def bank_to_rank(topo: Topology, bank_idx: torch.Tensor) -> torch.Tensor:
+    """Map flattened bank index -> flattened rank index.
+
+    Banks are flattened channel-major:
+    ``bank = ((ch * R + rank) * BG + bg) * BA + ba``.
+    """
+    return bank_idx // topo.banks_per_rank
+
+
 def legal_issue_cycle(rp: RuntimeParams, timing: TimingState,
                       cmd: torch.Tensor, rank_of_bank: torch.Tensor
                       ) -> torch.Tensor:

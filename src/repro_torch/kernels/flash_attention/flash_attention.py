@@ -18,13 +18,17 @@ backward kernels. ``flash_attention_cuda`` called directly while grad
 mode is on and an input requires grad raises (``build.refuse_grad``):
 its output, filled through a raw pointer, would carry no ``grad_fn``.
 
-K6's general form (``flash_attention_gen_launch``, the FMA kernel at a
-query/key width and a value width apart, Sq and Sk apart, the caller's
-scale) takes every call that the base forms do not: MLA's prefill (Dqk
-192, Dv 128), cross-attention (Sq != Sk, not causal) and an explicit scale
-other than 1/sqrt(Dqk). It counts under ``LAUNCHES["k6gen"]``.
-``FlashAttention`` takes only the base shapes, which its backward covers,
-and raises on the others. A shape that no form takes raises.
+K6's general form takes every call that the base forms do not: MLA's
+prefill (Dqk 192, Dv 128), cross-attention (Sq != Sk, not causal) and an
+explicit scale other than 1/sqrt(Dqk). :func:`general_form` picks its
+kernel from dtype and (Dqk, Dv): bf16 at a pair of ``TC_DIMS`` launches
+the tensor-core kernel (``flash_attention_gen_tc_launch``, on ``wgmma``
+and TMA), counted under ``LAUNCHES["k6gen_tc"]``; float32, and bf16 at the
+small widths, the FMA kernel (``flash_attention_gen_launch``), counted
+under ``LAUNCHES["k6gen"]``. There is no fallback between the two: a
+launch that fails raises. ``FlashAttention`` takes only the base shapes,
+which its backward covers, and raises on the others. A shape that no form
+takes raises.
 """
 
 from __future__ import annotations
@@ -40,6 +44,8 @@ HEAD_DIMS = (16, 32, 64, 128)
 #: (Dqk, Dv) of the general form: equal widths (a cross-attention), MLA at
 #: full width (nope 128 + rope 64, v 128) and at the tests' tiny width
 GEN_DIMS = ((16, 16), (32, 32), (64, 64), (128, 128), (24, 16), (192, 128))
+#: (Dqk, Dv) that the general form runs on the tensor cores, in bf16
+TC_DIMS = ((64, 64), (128, 128), (192, 128))
 #: the backward's scratch rows a head are S rounded up to this
 BWD_ROWS = 64
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -72,6 +78,14 @@ def is_base_form(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (k.shape[2] == q.shape[2] and k.shape[-1] == v.shape[-1] == d
             and d in HEAD_DIMS
             and (scale is None or scale == 1.0 / math.sqrt(d)))
+
+
+def general_form(dtype: torch.dtype, dqk: int, dv: int) -> str:
+    """The general form's kernel for a dtype and (Dqk, Dv): ``"tc"`` (the
+    tensor cores: bf16 at a pair of ``TC_DIMS``) or ``"fma"`` (float32,
+    whose 1e-5 tolerance TF32 cannot hold, and bf16 at the small widths)."""
+    return "tc" if dtype == torch.bfloat16 and (dqk, dv) in TC_DIMS \
+        else "fma"
 
 
 def _check_general(name: str, q: torch.Tensor, k: torch.Tensor,
@@ -136,12 +150,19 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         build.LAUNCHES["k6"] += 1
         return out
     out = torch.empty((b, hq, sq, dv), dtype=q.dtype, device=q.device)
+    scale = 1.0 / math.sqrt(dqk) if scale is None else float(scale)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_p)
+    if general_form(q.dtype, dqk, dv) == "tc":
+        err = lib.flash_attention_gen_tc_launch(
+            *ptrs, b, hq, hkv, sq, sk, dqk, dv, int(causal), scale,
+            build.stream_of(q))
+        build.check(err, "flash_attention (general form, tensor cores)")
+        build.LAUNCHES["k6gen_tc"] += 1
+        return out
     err = lib.flash_attention_gen_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_p, b,
-        hq, hkv, sq, sk, dqk, dv, int(causal), DTYPES[q.dtype],
-        1.0 / math.sqrt(dqk) if scale is None else float(scale),
-        build.stream_of(q))
-    build.check(err, "flash_attention (general form)")
+        *ptrs, b, hq, hkv, sq, sk, dqk, dv, int(causal), DTYPES[q.dtype],
+        scale, build.stream_of(q))
+    build.check(err, "flash_attention (general form, FMA)")
     build.LAUNCHES["k6gen"] += 1
     return out
 

@@ -49,6 +49,11 @@ def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return (y * p["scale"].to(F32)).to(x.dtype)
 
 
+def init_layernorm(d: int, device=None) -> Params:
+    return {"scale": torch.ones((d,), dtype=F32, device=device),
+            "bias": torch.zeros((d,), dtype=F32, device=device)}
+
+
 def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     xf = x.to(F32)
     mu = xf.mean(dim=-1, keepdim=True)

@@ -18,6 +18,10 @@ from repro_torch.core.simulator import resolve_device
 from repro_torch.models import encdec, lm
 
 
+def is_encdec(cfg: ArchConfig) -> bool:
+    return cfg.is_encdec
+
+
 def init_params(cfg: ArchConfig, seed: int = 0, device=None,
                 dtype=torch.float32):
     """Random parameters from ``torch.Generator().manual_seed(seed)`` (a

@@ -6,11 +6,15 @@ explicit scale, the reference in blocks smaller than the sequence (its
 online-softmax recurrence over several blocks), and lengths that are no
 multiple of a block (which the port takes in one call); then the shape
 rules of K6's wrapper and of its autograd Function, which the card
-enforces.
+enforces, and the kernel the wrapper picks for each shape and dtype (the
+tensor-core or the FMA general form, or a base form) with the lengths,
+widths and scale it passes on.
 
 Tolerance: float32 1e-5 (the same softmax in another summation order);
 bfloat16 2e-2, as K6's.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -121,6 +125,78 @@ def test_k6_wrapper_refuses_shapes_no_form_takes(monkeypatch):
         q, k, v = (torch.from_numpy(a) for a in inputs(*shapes))
         with pytest.raises(NotImplementedError, match="K6's backward"):
             k6.FlashAttention.apply(q, k, v, False, scale)
+
+
+class _Recorder:
+    """Stands in for K6's loaded library: records each entry point called
+    with its arguments and returns 0 (no error)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        if not name.startswith("flash_attention"):
+            raise AttributeError(name)
+        return lambda *args: self.calls.append((name, args)) or 0
+
+
+#: (dtype, shapes as in ``inputs``, causal, scale) -> (entry point, the
+#: LAUNCHES key it bumps)
+FORMS = {
+    "tc_mla_causal": ("bfloat16", (1, 2, 2, 256, 256, 192, 128), True,
+                      192 ** -0.5, "tc"),
+    "tc_cross_64": ("bfloat16", (1, 2, 2, 256, 1000, 64, 64), False, None,
+                    "tc"),
+    "tc_cross_128": ("bfloat16", (1, 4, 2, 40, 97, 128, 128), False, 0.3,
+                     "tc"),
+    "fma_mla_causal": ("float32", (1, 2, 2, 256, 256, 192, 128), True,
+                       192 ** -0.5, "fma"),
+    "fma_cross_64": ("float32", (1, 2, 2, 256, 1000, 64, 64), False, None,
+                     "fma"),
+    "fma_cross_128": ("float32", (1, 4, 2, 40, 97, 128, 128), False, 0.3,
+                      "fma"),
+    "fma_tiny_mla_bf16": ("bfloat16", (1, 2, 2, 24, 24, 24, 16), True, None,
+                          "fma"),
+    "base_bf16": ("bfloat16", (1, 4, 2, 64, 64, 64, 64), True, None, "base"),
+}
+ENTRY = {"tc": ("flash_attention_gen_tc_launch", "k6gen_tc"),
+         "fma": ("flash_attention_gen_launch", "k6gen"),
+         "base": ("flash_attention_launch", "k6")}
+
+
+@pytest.mark.parametrize("case", list(FORMS))
+def test_k6_wrapper_picks_the_form(monkeypatch, case):
+    """With the device check bypassed and the library replaced by a
+    recorder, the wrapper calls the kernel :func:`general_form` names for
+    the dtype and (Dqk, Dv) (a base shape the base entry point), passes
+    Sq, Sk, the widths and the caller's scale on unchanged, and bumps that
+    kernel's count and no other."""
+    name, shapes, causal, scale, form = FORMS[case]
+    dt = getattr(torch, name)
+    b, hq, hkv, sq, sk, dqk, dv = shapes
+    lib = _Recorder()
+    monkeypatch.setattr(build, "require_cuda", lambda *a, **kw: None)
+    monkeypatch.setattr(build, "load", lambda: {"flash_attention": lib})
+    monkeypatch.setattr(build, "stream_of", lambda t: 7)
+    monkeypatch.setattr(build, "LAUNCHES", dict.fromkeys(build.LAUNCHES, 0))
+    q, k, v = (torch.from_numpy(a).to(dt) for a in inputs(*shapes))
+    out = k6.flash_attention_cuda(q, k, v, causal, scale=scale)
+    entry, key = ENTRY[form]
+    assert [c[0] for c in lib.calls] == [entry]
+    assert build.LAUNCHES == {**dict.fromkeys(build.LAUNCHES, 0), key: 1}
+    assert out.shape == (b, hq, sq, dv) and out.dtype == dt
+    args = lib.calls[0][1]
+    assert args[:4] == (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        out.data_ptr()) and args[4] is None and args[-1] == 7
+    if form == "base":
+        assert args[5:12] == (b, hq, hkv, sq, dqk, int(causal), 1)
+        return
+    assert args[5:13] == (b, hq, hkv, sq, sk, dqk, dv, int(causal))
+    assert k6.general_form(dt, dqk, dv) == form
+    want = 1.0 / math.sqrt(dqk) if scale is None else scale
+    assert args[-2] == want
+    if form == "fma":
+        assert args[13] == k6.DTYPES[dt]
 
 
 def test_base_forms():
