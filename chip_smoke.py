@@ -13,14 +13,16 @@ Phases (any failed check exits non-zero):
    forms and the k-banks-a-thread form), K6's kernels and its backward's,
    K5's D = 128 kernels and K7's production kernels from the ``-Xptxas
    -v`` logs (K6's tensor-core kernels at (64, 64), (128, 128) and (192,
-   128) with no spill), the count of ``HGMMA`` instructions in
+   128) with no spill; K7's backward's eight kernels and the twelve FMA
+   instances of K6's backward that only its general form takes, none
+   spilling), the count of ``HGMMA`` instructions in
    ``cuobjdump -sass`` of each of those three kernels (at least one a k
    step of a tile's two products; none in K6's FMA kernels) and of each
    tensor-core kernel of K6's backward (at least one a k step of a tile's
    products, and no global atomic), and K7's bf16
    S = 16 kernel's ``MUFU.EX2`` count (at least one
    per element of a thread's chunk: exp on the SFUs) and instructions per
-   ``EX2``;
+   ``EX2``; no global atomic in ``cuobjdump -sass`` of K7's backward;
 2. every kernel against its plain PyTorch version on the card, bit for bit:
    K1/K2 at B in {32, 128}, S in {1, 3}, T in {1, 2}; K3 at lanes in
    {1, 4}, channels in {1, 2}, S in {1, 3}, T in {1, 2}, and channels of
@@ -227,9 +229,10 @@ Phases (any failed check exits non-zero):
    (chunks 0-3 left), a second child resuming it (4 chunks restored, 4
    launches) and then sweeping again (all 8 restored, no launch), each
    equal to (a)'s lanes; (c) two fresh children over one empty
-   ``MEMSIM_EXEC_CACHE_DIR``: the first builds every kernel library
-   (its nvcc seconds printed), the second builds none (0 compiles, a hit
-   a library, no error) and gives the same ``t_complete``.
+   ``MEMSIM_EXEC_CACHE_DIR``, each loading only the library its sweep
+   runs (K3's, ``CACHE_LIBS``): the first builds it (its nvcc seconds
+   printed), the second builds none (0 compiles, a hit, no error) and
+   gives the same ``t_complete``.
 17. training: (a) K6's backward (``flash_attention_bwd_cuda``,
    ``csrc/flash_attention_bwd.cu``) against autograd through its plain
    version in float32: causal at minicpm-2b's B 4, H 36/36, S 1024, D 64
@@ -270,7 +273,7 @@ Phases (any failed check exits non-zero):
    its dtype and widths choose (MLA's and the cross shape: tensor cores in
    bf16, FMA in float32), and at those two shapes its log-sum-exp within
    1e-5 of ``logsumexp``; a shape no form takes, causal Sq != Sk and a
-   backward at Dqk != Dv raise; its device time in bf16 at MLA's shape
+   shape no form takes under grad raise; its device time in bf16 at MLA's shape
    beside its plain version, SDPA (timed only) and the bound, and at the
    cross shape beside SDPA and the bound; (b) deepseek-v3 at its
    published widths, depth cut 61 -> 4 (the 3 dense prefix layers and 1
@@ -285,7 +288,7 @@ Phases (any failed check exits non-zero):
    path against plain path, has nothing to compare; float32 is the gate);
    (c) xlstm-1.3b at its published
    width and depth (42 mLSTM + 6 sLSTM layers, 3.5 B parameters): a prefill
-   of 2 x 256 (a loop over the steps; no kernel), ``serve_loop``, the
+   of 2 x 128 (a loop over the steps; no kernel), ``serve_loop``, the
    step's floor (weights + the mLSTM states read and written) and
    profile, and decode against prefill in float32 (the gate, as in (b)):
    on the first period within 1e-3 of logits and states, on all 48
@@ -294,6 +297,39 @@ Phases (any failed check exits non-zero):
    launches) and the cross K/V, 32 greedy decode steps (24 K5 launches a
    step), the step's profile, and 8 steps of the kernel path within 2e-2
    x max |logit| of the plain path's, in bf16.
+19. every family trains (run last): (a) K7's backward
+   (``selective_scan_bwd_cuda``, ``csrc/selective_scan_bwd.cu``) against
+   autograd through ``selective_scan_ref`` in float32, dx, ddt, dB, dC and
+   dA within 1e-4 (float32) / 2e-2 (bf16, against the float32 plain
+   version on the same bf16 inputs) x max |plain|, with the gradient of
+   h_final and without, at the JAX tests' shapes, jamba's (2, 1024, 8192,
+   16), (2, 128, 8192, 16), a ragged (2, 200, 600, 16), T 1 and 33 at S 8
+   (each float32 and bf16) and (1, 4096, 256, 16) with dt A near 0; a
+   second launch bit-identical; its device time at jamba's shape (CUDA
+   events) beside its plain version and the bound (no library call
+   computes it); (b) K6's backward at its general form (the FMA kernels
+   of ``flash_attention_bwd_gen_launch``, under ``k6bwd_gen``) against
+   autograd through ``gqa_attention_ref`` (phase 17's gates) at MLA's
+   (2, 128/128, 1024, 192/128) causal bf16 (float32 on 16 heads), the
+   cross shape (4, 16/16, Sq 256, Sk 1000, 64), the tiny (24, 16), an
+   explicit scale 0.5 and GQA across Sq != Sk, and seamless's encoder
+   shape through the base form's backward; each launch under its form's
+   key, a second launch bit-identical; device times at MLA's and the
+   cross shape beside the bound, the plain version and SDPA's backward;
+   (c) four families at their published widths, float32 masters drawn on
+   the card, bf16 compute, each freed before the next: jamba-v0.1 (8 of
+   32 layers, 2 of 16 experts top-2; B 2 x S 1024), deepseek-v3 (its 3
+   dense prefix layers of 61, no MoE layer; B 2 x S 1024), xlstm-1.3b (8
+   of 48 layers: 7 mLSTM + 1 sLSTM; B 2 x S 256) and seamless-m4t-medium
+   (unreduced; B 4, 1024 source frames, 256 target tokens): the first
+   batch's loss and gradient norm with the kernels against every kernel's
+   plain version (1e-3 and 1e-2 relative; xlstm runs no kernel), every
+   gradient finite and not zero, then 3 steps of ``make_train_step``
+   (cosine), each kernel's launches a step held to the model's layers
+   (jamba: K7 14, K7's backward 7, K6 2, K6's backward 1; deepseek: the
+   general form 3, its backward 3; seamless: K6 24, K6's backward 24, the
+   general form 12, its backward 12), the median wall of steps 2-3,
+   tokens/s and peak allocated memory.
 
 ``python3 chip_smoke.py --split-times CHECKOUT`` runs only the split
 backend's ``simulate_fast`` on conv2d at 20k cycles (phase 4's run) of the
@@ -314,6 +350,11 @@ form at MLA's shape, its base forms at qwen3-14b's and minicpm-2b's bf16
 shapes (device µs a launch) and deepseek-v3's 4-layer prefill of 2 x 1024
 (wall ms, three runs), of the port in another checkout (A B B A, as
 below).
+
+``python3 chip_smoke.py --train-kernel-times CHECKOUT`` runs only K7's
+forward at jamba's training shape and K6's base-form backward at
+minicpm-2b's bf16 and float32 and qwen3-14b's bf16 shapes (device µs a
+launch), of the port in another checkout (A B B A, as below).
 
 ``python3 chip_smoke.py --k3-step-times CHECKOUT`` runs only the
 single-lane persistent K3's time per step (four traces at 100k cycles,
@@ -488,7 +529,8 @@ def phase_device():
     for name, keep in (("fused", None), ("flash_attention", None),
                        ("flash_attention_bwd", None),
                        ("decode_attention", "Li128E"),
-                       ("selective_scan", "scan_kernel")):
+                       ("selective_scan", "scan_kernel"),
+                       ("selective_scan_bwd", None)):
         rows = ptxas_report((out_dir / f"{name}.log").read_text(), keep)
         if name == "fused":
             check(any("fused_run_batch_kernel" in r[0] for r in rows),
@@ -500,6 +542,17 @@ def phase_device():
                 v == "0/0" for v in tc_rows.values()), f"K6's tensor-core "
                 f"kernels in the ptxas log, spill stores/loads: {tc_rows} "
                 f"(want {K6_TC_KERNELS}, none spilling)")
+        if name == "flash_attention_bwd":
+            gen = {r[0]: r[3] for r in rows if "simt::" in r[0] and any(
+                f"{p}>" in r[0] for p in K6_BWD_GEN_NEW)}
+            check(len(gen) == 12 and all(v == "0/0" for v in gen.values()),
+                  f"the general backward's FMA instances new in its "
+                  f"template, spill stores/loads: {gen} (want 12, none "
+                  f"spilling)")
+        if name == "selective_scan_bwd":
+            check(len(rows) == 8 and all(r[3] == "0/0" for r in rows),
+                  f"K7's backward kernels, spill stores/loads: "
+                  f"{[(r[0], r[3]) for r in rows]} (want 8, none spilling)")
         for fn, regs, smem, spills in rows:
             if name == "selective_scan" and prod["name"] not in fn:
                 continue  # the sweep's shapes: not on the path
@@ -508,7 +561,29 @@ def phase_device():
     k6_fwd_sass(out_dir)
     k6_bwd_sass(out_dir)
     k7_sass(out_dir / "libselective_scan.so", prod)
+    k7_bwd_sass(out_dir / "libselective_scan_bwd.so")
     return card
+
+
+#: the (DQK, DV) pairs of K6's backward's FMA template that only the
+#: general form instantiates: MLA's two and bf16 at the tensor-core base
+#: widths (their dK/dV and dQ kernels, float32 and bf16: 12 kernels)
+K6_BWD_GEN_NEW = ("float, 24, 16", "__nv_bfloat16, 24, 16",
+                  "float, 192, 128", "__nv_bfloat16, 192, 128",
+                  "__nv_bfloat16, 64, 64", "__nv_bfloat16, 128, 128")
+
+
+def k7_bwd_sass(lib):
+    """K7's backward: no global atomic in any of its kernels (its sums
+    over channels and over B are per-block partials added in a fixed
+    order)."""
+    funcs = sass_functions(lib)
+    check(len(funcs) >= 8, f"{lib.name}: kernels {sorted(funcs)}")
+    n = {f: sum(op.startswith(("RED.", "ATOMG")) for op in ops)
+         for f, ops in funcs.items()}
+    check(not any(n.values()), f"{lib.name}: global atomics {n}")
+    log(f"[1] {lib.name}: {len(funcs)} kernels, global atomics (RED, "
+        f"ATOMG) 0 in each")
 
 
 #: K6's tensor-core forward instantiations, (DQK, DV): the base forms' D
@@ -2838,8 +2913,10 @@ KILL_GRID = {k: STREAM_GRID[k] for k in ("tCL", "tRCDRD", "tRP",
                                          "queue_size")}
 KILL_CHUNK = 32
 KILL_AT = 4
-#: 16(c): the warm re-invoke's sweep (4 points of conv2d at 20k)
+#: 16(c): the warm re-invoke's sweep (4 points of conv2d at 20k), and the
+#: one library its two processes build and load (K3's)
 CACHE_GRID = {"tCL": [14, 18], "queue_size": [16, 128]}
+CACHE_LIBS = ("fused",)
 CACHE_CYCLES = 20_000
 #: plain protocol steps of every lane of 16(a)'s slowest chunk, timed
 #: after one warm-up step of its first 8 lanes
@@ -2892,6 +2969,11 @@ def stream_child(args):
 
     mode, ckdir, grid = args[0], args[1], json.loads(args[2])
     cycles, chunk, kill_at = int(args[3]), int(args[4]), int(args[5])
+    if mode in ("cold", "warm"):
+        # 16(c): this process loads, and so builds, only the library its
+        # sweep runs (K3's), not the whole set
+        build._ENTRY_POINTS = {k: v for k, v in build._ENTRY_POINTS.items()
+                               if k in CACHE_LIBS}
     if mode == "kill":
         def hook(ci):
             if ci >= kill_at:
@@ -3163,7 +3245,7 @@ def phase_stream(drills):
 
         # ---- (c) a warm re-invoke over one exec cache directory --------
         cache = tmp / "exec_cache"
-        n_libs = len(build._ENTRY_POINTS)
+        n_libs = len(CACHE_LIBS)
         _, (cold,), w_cold = run_child("16(c) cold", "cold", "-",
                                        CACHE_GRID, CACHE_CYCLES, 2,
                                        cache_dir=cache)
@@ -4197,6 +4279,41 @@ def k6_bwd_timing(q, k, v, o, lse, do, plain):
             "bound_by": by, "library_ms": lib_ms}
 
 
+def train_kernel_times():
+    """K7's forward at jamba's training shape (2, 1024, 8192, 16) bf16 and
+    K6's base-form backward at minicpm-2b's bf16 and float32 and qwen3-14b's
+    bf16 shapes (``K6_BWD_SHAPES``), device µs a launch by ``device_ms``, of
+    the port imported from ``sys.path``: run once per checkout, each in its
+    own process, to compare two checkouts on one card (A B B A)."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_cuda)
+    from repro_torch.kernels.selective_scan.selective_scan import (
+        selective_scan_cuda)
+
+    build.load()
+    gen = torch.Generator().manual_seed(27)
+    x, dt, bc, cc, a = scan_inputs(gen, 2, 1024, 8192, 16, torch.bfloat16)
+    ms = device_ms(lambda: selective_scan_cuda(x, dt, bc, cc, a),
+                   per_graph=10, replays=5)
+    cells = [f"K7 forward (2, 1024, 8192, 16) bf16 {ms * 1e3:.1f}"]
+    for label, b, hq, hkv, s, d, name, causal in K6_BWD_SHAPES[:3]:
+        dt_ = getattr(torch, name)
+        q, k, v, do = (randn(gen, (b, h, s, d), dt_)
+                       for h in (hq, hkv, hkv, hq))
+        lse = torch.empty((b, hq, s), dtype=torch.float32, device=DEVICE)
+        with torch.no_grad():
+            o = flash_attention_cuda(q, k, v, causal, lse=lse)
+        ms = device_ms(lambda: flash_attention_bwd_cuda(q, k, v, o, lse, do,
+                                                        causal),
+                       per_graph=2, replays=10)
+        cells.append(f"K6 backward {label} (B={b} Hq={hq} Hkv={hkv} S={s} "
+                     f"D={d} {name}) {ms * 1e3:.1f}")
+    log(f"train kernel times {build.CSRC.parents[2]}: " + "; ".join(cells)
+        + " us/launch")
+
+
 def k6_bwd_times():
     """K6's backward at the shapes of ``K6_BWD_TIMED`` (bf16, causal),
     device µs a launch by ``device_ms``, of the port imported from
@@ -4329,23 +4446,6 @@ def phase_attention_backward():
     log("[17] K5, K7 and K6's plain launch refuse inputs that require grad")
     out["max_abs_err"] = err_abs
     return out
-
-
-class plain_attention:
-    """Within: the LM's attention (``models.attention.flash_attention``)
-    is K6's plain version, autograd and all, on any device."""
-
-    def __enter__(self):
-        from repro_torch.kernels.flash_attention.ref import gqa_attention_ref
-        from repro_torch.models import attention
-
-        self.saved = attention.flash_attention
-        attention.flash_attention = gqa_attention_ref
-
-    def __exit__(self, *exc):
-        from repro_torch.models import attention
-
-        attention.flash_attention = self.saved
 
 
 class Drill:
@@ -4500,7 +4600,7 @@ def phase_train(drill):
 
     # the first step's gradients with K6's plain backward, then with K6's
     build.reset_launches()
-    with plain_attention():
+    with plain_kernels():
         loss_p, _, grads = loss_and_grads(lfn, params, batch_at(0), bf16)
         gn_p = float(global_norm(grads))
     check(build.LAUNCHES["k6"] == 0 and build.LAUNCHES["k6bwd"] == 0,
@@ -4627,6 +4727,9 @@ DEEPSEEK_LAYERS = 4
 #: (test_xlstm_48_layers_decode_gap_is_the_references): both are 0 there.
 #: The first period's 8 layers are held to 1e-3.
 DEEP_F32_TOL = 1e-2
+#: xlstm-1.3b's timed prefill length (2 x 128: a loop over time, ~20 ms a
+#: step over 48 layers)
+XLSTM_PREFILL = 128
 #: seamless: frame embeddings encoded, greedy decode steps, the gate's steps
 SEAMLESS_SRC = (4, 1024)
 SEAMLESS_STEPS = 32
@@ -4767,10 +4870,10 @@ def phase_general_attention():
             flash_attention_cuda(*args)
         except ValueError:
             refused += 1
-    q = randn(gen, (1, 4, 64, 24), torch.float32).requires_grad_()
-    try:
-        FlashAttention.apply(q, q, q[..., :16], True)
-    except NotImplementedError:
+    q = randn(gen, (1, 4, 64, 48), torch.float32).requires_grad_()
+    try:  # under grad too: the Function takes what the forms take
+        FlashAttention.apply(q, q, q[..., :32], False)
+    except ValueError:
         refused += 1
     check(refused == 3, f"K6 took {3 - refused} shapes no form takes")
     torch.cuda.synchronize()
@@ -4783,7 +4886,7 @@ def phase_general_attention():
         f"(k6gen): MLA's and the cross shape tensor cores in bf16, FMA in "
         f"float32; lse at those two off logsumexp by at most "
         f"{max(lse_errs):.3g} (bound {K6_LSE_TOL}); (Dqk, Dv) = (48, 32), "
-        f"causal Sq != Sk and a backward at Dqk != Dv raise")
+        f"causal Sq != Sk and (48, 32) under grad raise")
     rec = gen_time(gen, K6_GEN_MLA)
     rec["cross"] = gen_time(gen, K6_GEN_CROSS)
     rec["max_abs_err"] = worst_abs
@@ -5021,7 +5124,7 @@ def phase_xlstm():
         f"mLSTM's up-projection by 2 and its three d_inner^2 matrices make "
         f"it more than the name says)", cfg, lm.init_params)
     gen = torch.Generator().manual_seed(6)
-    toks = torch.randint(1, cfg.vocab, (2, 256), generator=gen)
+    toks = torch.randint(1, cfg.vocab, (2, XLSTM_PREFILL), generator=gen)
     logits, caches, pre_ms, pre = timed_prefill(
         cfg, params, {"tokens": toks}, warm={"tokens": toks[:, :16]})
     check(not any(pre.values()), f"xlstm prefill launched {pre}: no "
@@ -5031,9 +5134,10 @@ def phase_xlstm():
                                for c in caches for v in c.values()),
           "xlstm prefill logits or states are not finite")
     del caches
-    log(f"[18] xlstm prefill B=2 S=256 (a Python loop over the 256 steps "
-        f"a layer; no TPU kernel is on this path): {pre_ms:.1f} ms wall, "
-        f"{2 * 256 / pre_ms * 1e3:.0f} tok/s")
+    log(f"[18] xlstm prefill B=2 S={XLSTM_PREFILL} (a Python loop over the "
+        f"{XLSTM_PREFILL} steps a layer; no TPU kernel is on this path): "
+        f"{pre_ms:.1f} ms wall, {2 * XLSTM_PREFILL / pre_ms * 1e3:.0f} "
+        f"tok/s")
     served, steps, wall = serve_cell("xlstm", cfg, params)
     check(not any(served.values()), f"xlstm serve launched {served}")
     dh = 2 * cfg.d_model // cfg.n_heads
@@ -5155,6 +5259,456 @@ def phase_families():
            "xlstm": phase_xlstm(),
            "seamless": phase_seamless()}
     log(f"[18] phase 18 {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# --------------------------------------- phase 19: every family trains --
+
+#: K7's backward against autograd through its plain version: (b, t, d, s).
+#: The JAX tests' shapes, jamba's training shape (phase 19(c)'s, timed),
+#: the invariant's, a ragged one, one step and a chunk and one step at
+#: S = 8; each in float32 and bf16, with the gradient of h_final and
+#: without
+K7_BWD_SHAPES = [(2, 64, 32, 8), (1, 512, 512, 16), (3, 128, 64, 16),
+                 (2, 1024, 8192, 16), (2, 128, 8192, 16), (2, 200, 600, 16),
+                 (1, 1, 600, 8), (1, 33, 600, 8)]
+K7_BWD_TIMED = (2, 1024, 8192, 16)
+#: K6's backward at its general form against autograd through its plain
+#: version: label, b, hq, hkv, sq, sk, dqk, dv, causal, dtype, scale (None:
+#: 1/sqrt(dqk)). deepseek-v3's MLA training shape (bf16; float32 on fewer
+#: heads), seamless's cross-attention (S_tgt 256 against a ragged source),
+#: the tests' tiny MLA widths, an explicit scale, GQA across Sq != Sk; and
+#: seamless's encoder shape, which is a base form (K6's tensor-core
+#: backward)
+K6_GEN_BWD_SHAPES = [
+    ("mla", 2, 128, 128, 1024, 1024, 192, 128, True, "bfloat16", None),
+    ("mla_f32", 1, 16, 16, 1024, 1024, 192, 128, True, "float32", None),
+    ("cross", 4, 16, 16, 256, 1000, 64, 64, False, "bfloat16", None),
+    ("cross_f32", 1, 16, 16, 256, 1000, 64, 64, False, "float32", None),
+    ("tiny_mla", 2, 4, 4, 77, 77, 24, 16, True, "float32", None),
+    ("tiny_mla_bf16", 2, 4, 4, 77, 77, 24, 16, True, "bfloat16", None),
+    ("scale", 2, 4, 4, 64, 64, 64, 64, True, "bfloat16", 0.5),
+    ("scale_f32", 2, 8, 2, 33, 50, 16, 16, False, "float32", 0.5),
+    ("gqa_cross_mla", 1, 8, 2, 200, 333, 192, 128, False, "bfloat16", None),
+    ("seamless_enc", 4, 16, 16, 1024, 1024, 64, 64, False, "bfloat16",
+     None)]
+K6_GEN_BWD_TIMED = ("mla", "cross")
+#: phase 19(c): steps timed after the comparison step, the cosine schedule
+FAMILY_STEPS = 3
+#: deepseek-v3's training batch (2 x 1024; 1 if its peak passes 75 GB)
+DEEPSEEK_TRAIN_BATCH = 2
+
+
+class plain_kernels:
+    """Within: every kernel call of the LM stack's training path is its
+    plain version, autograd and all, on any device: K6 (the GQA
+    attention's and ``blocked_attention``'s, base and general forms) and K7
+    (the Mamba mixer's scan)."""
+
+    def __enter__(self):
+        from repro_torch.kernels.flash_attention.ref import gqa_attention_ref
+        from repro_torch.kernels.selective_scan.ref import selective_scan_ref
+        from repro_torch.models import attention, blocked_attention, ssm
+
+        self.saved = (attention.flash_attention,
+                      blocked_attention.k6_attention, ssm.selective_scan)
+        attention.flash_attention = gqa_attention_ref
+        blocked_attention.k6_attention = gqa_attention_ref
+        ssm.selective_scan = selective_scan_ref
+
+    def __exit__(self, *exc):
+        from repro_torch.models import attention, blocked_attention, ssm
+
+        (attention.flash_attention, blocked_attention.k6_attention,
+         ssm.selective_scan) = self.saved
+
+
+def k7_bwd_bound_ms(b, t, d, s, nbytes):
+    """K7's backward's bound: the larger of one exp a (b, t, d, s) on the
+    SFUs (K7's own bound) and the bytes it must move at 3.35 TB/s:
+    x, dt, dy read and dx, ddt written ([B, T, D]), B, C read and dB, dC
+    written ([B, T, S]), A read and dA written ([D, S], float32)."""
+    t_exp = b * t * d * s / SFU_EXP_PER_S * 1e3
+    moved = 5 * b * t * d * nbytes + 4 * b * t * s * nbytes + 2 * d * s * 4
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    return max(t_exp, t_bytes), ("operations" if t_exp >= t_bytes
+                                 else "bytes"), t_exp, t_bytes
+
+
+def phase_scan_backward():
+    """19(a): K7's backward against autograd through ``selective_scan_ref``
+    on the card, every gradient, with and without the gradient of h_final;
+    two launches bit-identical; its time at jamba's training shape."""
+    import torch
+    from repro_torch.kernels.selective_scan.ref import selective_scan_ref
+    from repro_torch.kernels.selective_scan.selective_scan import (
+        selective_scan_bwd_cuda, selective_scan_cuda)
+
+    gen = torch.Generator().manual_seed(19)
+    tol = {"float32": 1e-4, "bfloat16": 2e-2}
+    long_shape, factor = SCAN_LONG  # dt A near 0, float32 only
+    worst, err_abs, n = {}, 0.0, 0
+    timed = None
+    for shape in K7_BWD_SHAPES + [long_shape]:
+        for name in (("float32",) if shape == long_shape
+                     else ("float32", "bfloat16")):
+            dt_ = getattr(torch, name)
+            x, dt, bc, cc, a = scan_inputs(gen, *shape, dt_)
+            if shape == long_shape:
+                dt, a = (dt.float() * factor).to(dt_), a * factor
+            b, t, d, s = shape
+            dy = randn(gen, (b, t, d), dt_)
+            dh = randn(gen, (b, d, s), torch.float32)
+            ref = [u.detach().float().requires_grad_()
+                   for u in (x, dt, bc, cc, a)]
+            y, h = selective_scan_ref(*ref)
+            want = {
+                "dh": torch.autograd.grad((y, h), ref, (dy.float(), dh),
+                                          retain_graph=True),
+                "none": torch.autograd.grad(y, ref, dy.float())}
+            del y, h, ref
+            errs = []
+            for case, dh_in in (("dh", dh), ("none", None)):
+                got = selective_scan_bwd_cuda(x, dt, bc, cc, a, dy, dh_in)
+                again = selective_scan_bwd_cuda(x, dt, bc, cc, a, dy, dh_in)
+                check(all(torch.equal(p, q) for p, q in zip(got, again)),
+                      f"K7 backward at {shape} {name} dh={case}: two launches "
+                      f"on the same inputs gave different gradients")
+                for nm, g, w in zip(("dx", "ddt", "dB", "dC", "dA"), got,
+                                    want[case]):
+                    e = float_err(g.float(), w)
+                    scale = float(w.abs().max())
+                    check(e <= tol[name] * scale, f"K7 backward {nm} != "
+                          f"plain at {shape} {name} dh={case}: max abs err "
+                          f"{e} > {tol[name]} x {scale}")
+                    errs.append(e / max(scale, 1e-30))
+                    err_abs = max(err_abs, e)
+                n += 1
+            worst[name] = max(worst.get(name, 0.0), *errs)
+            del want, got, again
+            if shape == K7_BWD_TIMED and name == "bfloat16":
+                timed = (x, dt, bc, cc, a, dy)
+    log(f"[19] (a) K7 backward against autograd through its plain version "
+        f"on {n} cases (the JAX tests' shapes, jamba's (2, 1024, 8192, 16), "
+        f"(2, 128, 8192, 16), ragged (2, 200, 600, 16), T 1 and 33 at S 8, "
+        f"each float32 and bf16; {long_shape} float32 with dt A near 0; each "
+        f"with the gradient of h_final and without): worst max |err| / max "
+        f"|plain| over dx, ddt, dB, dC, dA {worst['float32']:.3g} float32 "
+        f"(gate 1e-4), {worst['bfloat16']:.3g} bf16 against float32 plain "
+        f"on the same bf16 inputs (gate 2e-2: the forward already rounds "
+        f"dt x elsewhere than the oracle); every second launch "
+        f"bit-identical")
+    x, dt, bc, cc, a, dy = timed
+    b, t, d, s = K7_BWD_TIMED
+    ms = events_ms(lambda: selective_scan_bwd_cuda(x, dt, bc, cc, a, dy),
+                   n=10, warm=2)
+    fwd_ms = events_ms(lambda: selective_scan_cuda(x, dt, bc, cc, a),
+                       n=10, warm=2)
+    ref = [u.detach().float().requires_grad_() for u in (x, dt, bc, cc, a)]
+    y, _ = selective_scan_ref(*ref)
+    plain_ms = events_ms(lambda: torch.autograd.grad(
+        y, ref, dy.float(), retain_graph=True), n=2, warm=1)
+    del ref, y
+    bound, by, t_exp, t_bytes = k7_bwd_bound_ms(b, t, d, s, 2)
+    log(f"[19] (a) K7 backward at jamba's {K7_BWD_TIMED} bf16: device "
+        f"{ms * 1e3:.1f} us/launch (CUDA events over 10 launches; K7's "
+        f"forward {fwd_ms * 1e3:.1f}); plain autograd's backward "
+        f"{plain_ms * 1e3:.1f} us in float32; bound {bound * 1e3:.2f} us "
+        f"({b * t * d * s} exps on the SFUs = {t_exp * 1e3:.2f} us, bytes "
+        f"{t_bytes * 1e3:.2f} us; {by}; {bound / ms:.1%} of it); no single "
+        f"PyTorch call computes it")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "library_ms": None, "max_abs_err": err_abs}
+
+
+def k6_gen_bwd_bound_ms(b, hq, hkv, sq, sk, dqk, dv, causal, nbytes, peak):
+    """The general backward's bound: five products (S = Q K^T and dP = dO
+    V^T recomputed, dV, dK, dQ), 2 Sq Sk (3 Dqk + 2 Dv) flops a head (half
+    of it causal) at ``peak``, against the bytes of q, k, v, o, do read and
+    dq, dk, dv written, and the LSE."""
+    flops = 2 * sq * sk * (3 * dqk + 2 * dv) * b * hq * (0.5 if causal
+                                                         else 1.0)
+    moved = (2 * b * hq * sq * dqk + 2 * b * hkv * sk * (dqk + dv)
+             + 2 * b * hq * sq * dv) * nbytes + 4 * b * hq * sq
+    t_ops = flops / peak * 1e3
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes"), flops
+
+
+def phase_general_backward():
+    """19(b): K6's backward at its general form (and at seamless's encoder
+    shape, a base form) against autograd through ``gqa_attention_ref`` on
+    the card; two launches bit-identical; the launches by form; times at
+    MLA's and the cross shape beside SDPA's backward."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_cuda, is_base_form)
+    from repro_torch.kernels.flash_attention.ref import gqa_attention_ref
+
+    gen = torch.Generator().manual_seed(20)
+    worst, err_abs, out = {}, 0.0, {}
+    for label, b, hq, hkv, sq, sk, dqk, dv, causal, name, scale in \
+            K6_GEN_BWD_SHAPES:
+        dt_ = getattr(torch, name)
+        q, k = randn(gen, (b, hq, sq, dqk), dt_), randn(gen, (b, hkv, sk,
+                                                              dqk), dt_)
+        v, do = randn(gen, (b, hkv, sk, dv), dt_), randn(gen, (b, hq, sq,
+                                                               dv), dt_)
+        base = is_base_form(q, k, v, scale)
+        lse = torch.empty((b, hq, sq), dtype=torch.float32, device=DEVICE)
+        with torch.no_grad():
+            o = flash_attention_cuda(q, k, v, causal, lse=lse, scale=scale)
+        build.reset_launches()
+        got = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal, scale)
+        again = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal, scale)
+        key = "k6bwd" if base else "k6bwd_gen"
+        check(build.LAUNCHES[key] == 2 and sum(build.LAUNCHES.values()) == 2,
+              f"K6 backward at {label} launched {build.LAUNCHES}, want "
+              f"{key} = 2")
+        check(all(torch.equal(p, r) for p, r in zip(got, again)),
+              f"K6 backward at {label}: two launches on the same inputs "
+              f"gave different gradients")
+        del again
+        ref = [t.detach().float().requires_grad_() for t in (q, k, v)]
+        want = torch.autograd.grad(gqa_attention_ref(*ref, causal, scale),
+                                   ref, do.float())
+        errs = []
+        for nm, g, w in zip("qkv", got, want):
+            e = float_err(g.float(), w)
+            sc = float(w.abs().max())
+            check(e <= K6_BWD_TOL[name] * sc, f"K6 general backward d{nm} "
+                  f"!= plain at {label} {name}: max abs err {e} > "
+                  f"{K6_BWD_TOL[name]} x {sc}")
+            errs.append(e / sc)
+            err_abs = max(err_abs, e)
+        del ref, want, got
+        worst[name] = max(worst.get(name, 0.0), *errs)
+        log(f"[19] (b) K6 backward {label} (B={b} Hq={hq} Hkv={hkv} Sq={sq} "
+            f"Sk={sk} Dqk={dqk} Dv={dv} {name}, causal={causal}, scale "
+            f"{scale if scale else 'default'}; {key}): max |err| / max "
+            f"|plain| dq {errs[0]:.3g}, dk {errs[1]:.3g}, dv {errs[2]:.3g} "
+            f"(gate {K6_BWD_TOL[name]}); a second launch bit-identical")
+        if label not in K6_GEN_BWD_TIMED:
+            continue
+        ms = device_ms(lambda: flash_attention_bwd_cuda(
+            q, k, v, o, lse, do, causal, scale), per_graph=2, replays=5)
+        ref = [t.detach().float().requires_grad_() for t in (q, k, v)]
+        ref_out = gqa_attention_ref(*ref, causal, scale)
+        plain_ms = events_ms(lambda: torch.autograd.grad(
+            ref_out, ref, do.float(), retain_graph=True), n=3)
+        del ref, ref_out
+        lib_in = [t.detach().requires_grad_() for t in (q, k, v)]
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                *lib_in, is_causal=causal, scale=scale,
+                enable_gqa=hq != hkv)
+
+        def sdpa_fwd_bwd():
+            torch.autograd.grad(sdpa(), lib_in, do)
+
+        try:
+            lib_ms = (device_ms(sdpa_fwd_bwd, per_graph=2, replays=10)
+                      - device_ms(sdpa, per_graph=10, replays=5))
+        except RuntimeError as e:  # no SDPA backend takes the shape
+            log(f"[19] (b) SDPA's backward at {label} did not run: "
+                f"{str(e)[:200]}")
+            lib_ms = None
+        del lib_in
+        bound, by, flops = k6_gen_bwd_bound_ms(
+            b, hq, hkv, sq, sk, dqk, dv, causal, 2, BF16_FLOPS_PER_S)
+        log(f"[19] (b) K6 general backward at {label}: device "
+            f"{ms * 1e3:.1f} us/launch (CUDA graphs); plain autograd "
+            f"{plain_ms * 1e3:.1f} us in float32; SDPA's backward "
+            f"{'not measured' if lib_ms is None else f'{lib_ms * 1e3:.1f} us'}"
+            f" (its forward + backward less its forward, CUDA graphs; timed "
+            f"only); bound {bound * 1e3:.2f} us "
+            f"({flops / 1e9:.2f} GFLOP at 989 TFLOP/s; {by}; "
+            f"{bound / ms:.1%} of it)")
+        out[label] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                      "bound_by": by, "library_ms": lib_ms}
+    log(f"[19] (b) K6 backward on {len(K6_GEN_BWD_SHAPES)} cases: worst "
+        f"max |err| / max |plain| {worst['float32']:.3g} float32, "
+        f"{worst['bfloat16']:.3g} bf16")
+    out["max_abs_err"] = err_abs
+    return out
+
+
+def train_cell(tag, cfg, init, batch_at, tokens, want, plain=True):
+    """19(c): one model at its published widths trains on the card in bf16
+    (float32 masters drawn on the card): the first batch's loss and
+    gradients with the kernels against those with every kernel's plain
+    version (``plain``), every gradient finite and not all zero, then
+    ``FAMILY_STEPS`` steps of ``make_train_step``, with the kernels' launches
+    a step held to ``want``. Returns the cell's record."""
+    import gc
+
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.launch.steps import loss_and_grads, make_train_step
+    from repro_torch.models import registry
+    from repro_torch.optim import adamw_init, global_norm, schedules
+
+    bf16 = torch.bfloat16
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init(cfg, torch.Generator(device=DEVICE).manual_seed(0),
+                  device=DEVICE, dtype=torch.float32)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    n_leaves = len(list(_leaves(params)))
+    log(f"[19] (c) {tag}: {n_params / 1e9:.4f} B parameters, float32 masters "
+        f"drawn on the card in {time.perf_counter() - t0:.1f} s")
+    lfn = registry.loss_fn(cfg)
+    kernels = [k for k in build.LAUNCHES if k.startswith(("k6", "k7"))]
+    rel = ""
+    if plain:
+        build.reset_launches()
+        with plain_kernels():
+            loss_p, _, grads = loss_and_grads(lfn, params, batch_at(0), bf16)
+            gn_p = float(global_norm(grads))
+        check(not any(build.LAUNCHES[k] for k in kernels),
+              f"{tag}: the plain step launched {build.LAUNCHES}")
+        del grads
+    build.reset_launches()
+    loss_k, _, grads = loss_and_grads(lfn, params, batch_at(0), bf16)
+    gn_k = float(global_norm(grads))
+    leaves = list(_leaves(grads))
+    bad = [i for i, g in enumerate(leaves)
+           if not bool(torch.isfinite(g).all()) or not bool((g != 0).any())]
+    check(not bad, f"{tag}: {len(bad)} of {len(leaves)} parameters got a "
+          f"gradient that is not finite or is zero (leaves {bad[:10]})")
+    del grads, leaves
+    loss_k = float(loss_k)
+    if plain:
+        loss_p = float(loss_p)
+        check(abs(loss_k - loss_p) <= 1e-3 * abs(loss_p)
+              and abs(gn_k - gn_p) <= 1e-2 * gn_p,
+              f"{tag}: the kernel step (loss {loss_k}, grad norm {gn_k}) is "
+              f"off the plain step (loss {loss_p}, grad norm {gn_p})")
+        rel = (f"; with every kernel's plain version loss {loss_p:.6f} (rel "
+               f"{abs(loss_k - loss_p) / loss_p:.2e}, gate 1e-3), grad norm "
+               f"{gn_p:.5f} (rel {abs(gn_k - gn_p) / gn_p:.2e}, gate 1e-2)")
+    log(f"[19] (c) {tag} step 0 with the kernels: loss {loss_k:.6f}, grad "
+        f"norm {gn_k:.5f}; every one of {n_leaves} parameters got a "
+        f"finite, non-zero gradient{rel}")
+    opt = adamw_init(params)
+    step = make_train_step(cfg, schedule=schedules.make(
+        "cosine", 1e-4, FAMILY_STEPS, warmup=1), dtype=bf16, device=DEVICE)
+    walls, losses = [], []
+    build.reset_launches()
+    for i in range(FAMILY_STEPS):
+        batch = batch_at(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    per_step = {k: build.LAUNCHES[k] / FAMILY_STEPS for k in kernels}
+    check(all(x == x and abs(x) < 1e4 for x in losses), f"{tag}: losses "
+          f"{losses}")
+    check(per_step == {k: want.get(k, 0) for k in kernels}, f"{tag}: "
+          f"launches a step {per_step}, want {want} and no other kernel")
+    peak = torch.cuda.max_memory_allocated()
+    ms = statistics.median(walls[1:]) * 1e3
+    log(f"[19] (c) {tag}: {FAMILY_STEPS} steps bf16, losses "
+        f"{[round(x, 5) for x in losses]}; wall per step "
+        f"{[round(w * 1e3, 1) for w in walls]} ms, median of steps 2-"
+        f"{FAMILY_STEPS} {ms:.1f} ms = {tokens / ms * 1e3:.0f} tokens/s; "
+        f"peak allocated {peak / 1e9:.2f} GB; kernel launches a step "
+        f"{ {k: v for k, v in per_step.items() if v} }")
+    del params, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"ms": ms, "tokens_s": tokens / ms * 1e3, "peak_gb": peak / 1e9,
+            "launches": {k: build.LAUNCHES[k] for k in kernels}}
+
+
+def phase_family_training():
+    """19(c): jamba, deepseek-v3, xlstm-1.3b and seamless-m4t-medium, the
+    four families the port served but did not train, train on the card
+    at their published widths (depth cut as ``reduced`` says)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import encdec, lm
+
+    def lm_batches(cfg, b, s):
+        source = SyntheticLM(cfg, b, s, seed=0)
+        return lambda i: {k: torch.from_numpy(v).to(DEVICE)
+                          for k, v in source.batch_at(i).items()}
+
+    out = {}
+    # jamba: one period (7 Mamba + 1 attention), 2 experts top-2
+    full = get_config("jamba-v0.1-52b")
+    cfg = dataclasses.replace(full, n_layers=JAMBA_LAYERS, n_experts=2)
+    kinds = [m for m, _ in lm.layer_kinds(cfg)]
+    nm, na = kinds.count("mamba"), kinds.count("attn")
+    out["jamba"] = train_cell(
+        f"jamba-v0.1-52b ({cfg.n_layers} of {full.n_layers} layers: {nm} "
+        f"Mamba, {na} attention; {cfg.n_experts} of {full.n_experts} "
+        f"experts, top-{cfg.top_k}; d_model {cfg.d_model}, d_inner "
+        f"{cfg.ssm_expand * cfg.d_model}), B 2 x S 1024", cfg,
+        lm.init_params, lm_batches(cfg, 2, 1024), 2 * 1024,
+        {"k7": 2 * nm, "k7bwd": nm, "k6": 2 * na, "k6bwd": na})
+    # deepseek-v3: its 3 dense prefix layers, no MoE layer (the prefix is
+    # not under remat, as in the reference: one K6 forward a layer)
+    full = get_config("deepseek-v3-671b")
+    cfg = dataclasses.replace(full, n_layers=len(full.prefix))
+    bd = DEEPSEEK_TRAIN_BATCH
+    out["deepseek"] = train_cell(
+        f"deepseek-v3-671b ({cfg.n_layers} of {full.n_layers} layers: the "
+        f"dense prefix, MLA Dqk 192 / Dv 128, no MoE layer), B {bd} x S "
+        f"1024", cfg, lm.init_params, lm_batches(cfg, bd, 1024), bd * 1024,
+        {"k6gen_tc": cfg.n_layers, "k6bwd_gen": cfg.n_layers})
+    # xlstm-1.3b: one period (7 mLSTM + 1 sLSTM); no kernel on its path
+    full = get_config("xlstm-1.3b")
+    cfg = dataclasses.replace(full, n_layers=len(full.period))
+    out["xlstm"] = train_cell(
+        f"xlstm-1.3b ({cfg.n_layers} of {full.n_layers} layers: 7 mLSTM + 1 "
+        f"sLSTM, d_model {cfg.d_model}; chunks of 64 / 128 under "
+        f"checkpoint), B 2 x S 256", cfg, lm.init_params,
+        lm_batches(cfg, 2, 256), 2 * 256, {}, plain=False)
+    # seamless-m4t-medium, unreduced: 1024 source frames, 256 target tokens
+    cfg = get_config("seamless-m4t-medium")
+    b, s_src, s_tgt = 4, 1024, 256
+    source = SyntheticLM(cfg, b, s_tgt, seed=0)
+
+    def seamless_batch(i):
+        batch = source.batch_at(i)
+        rng = np.random.default_rng(100 + i)
+        batch["src_embeds"] = (rng.standard_normal(
+            (b, s_src, cfg.d_model)) * 0.02).astype(np.float32)
+        return {k: torch.from_numpy(v).to(DEVICE) for k, v in batch.items()}
+
+    n = cfg.n_layers
+    out["seamless"] = train_cell(
+        f"seamless-m4t-medium (unreduced: {cfg.n_enc_layers} + {n} layers), "
+        f"B {b} x S_src {s_src} / S_tgt {s_tgt} (tokens/s counts target "
+        f"tokens)", cfg, encdec.init_params, seamless_batch, b * s_tgt,
+        {"k6": cfg.n_enc_layers + n, "k6bwd": cfg.n_enc_layers + n,
+         "k6gen_tc": n, "k6bwd_gen": n})
+    return out
+
+
+def phase_every_family_trains():
+    """Phase 19: K7's backward, K6's general backward, then every family
+    the port serves trains on the card."""
+    t0 = time.perf_counter()
+    out = {"k7bwd": phase_scan_backward(),
+           "k6bwd_gen": phase_general_backward(),
+           "families": phase_family_training()}
+    log(f"[19] phase 19 {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -5309,12 +5863,13 @@ def main():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false)", file=sys.stderr)
         return 2
-    # --k3-step-times / --k6-bwd-times / --k6-gen-times / --split-times /
-    # --topology-sweep CHECKOUT: only
+    # --k3-step-times / --k6-bwd-times / --k6-gen-times /
+    # --train-kernel-times / --split-times / --topology-sweep CHECKOUT: only
     # that timing, of that checkout's port
     only = {"--k3-step-times": k3_step_times,
             "--k6-bwd-times": k6_bwd_times,
             "--k6-gen-times": k6_gen_times,
+            "--train-kernel-times": train_kernel_times,
             "--split-times": split_times,
             "--topology-sweep": topology_sweep_times}.get(
                 sys.argv[1] if len(sys.argv) == 3 else None)
@@ -5362,6 +5917,7 @@ def main():
         k6_bwd["launches"] = phase_train(drills[0])
         log(f"[17] phase 17 {time.perf_counter() - t17:.1f} s")
         families = phase_families()
+        trains = phase_every_family_trains()
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -5494,6 +6050,32 @@ def main():
         "launches": hybrid_launches["k7"], "max_abs_err": scan_err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None})
+    # K6's backward at its general form, per launch at deepseek-v3's MLA
+    # training shape, bf16; its launches those of phase 19(c)'s steps
+    # (deepseek-v3's MLA and seamless's cross-attention)
+    fam = trains["families"]
+    rec = trains["k6bwd_gen"]
+    kernels.append({
+        "name": "flash_attention_bwd_general", "route": "cuda",
+        "source": src + "flash_attention_bwd.cu",
+        "replaces": "src/repro/models/blocked_attention.py:30",
+        "launches": sum(f["launches"]["k6bwd_gen"] for f in fam.values()),
+        "max_abs_err": rec["max_abs_err"], "ms": rec["mla"]["ms"],
+        "plain_ms": rec["mla"]["plain_ms"],
+        "bound_ms": rec["mla"]["bound_ms"],
+        "bound_by": rec["mla"]["bound_by"],
+        "library_ms": rec["mla"]["library_ms"]})
+    # K7's backward, per launch at jamba's training shape, bf16; its
+    # launches those of phase 19(c)'s jamba steps
+    rec = trains["k7bwd"]
+    kernels.append({
+        "name": "selective_scan_bwd", "route": "cuda",
+        "source": src + "selective_scan_bwd.cu",
+        "replaces": ref + "selective_scan/selective_scan.py:54",
+        "launches": fam["jamba"]["launches"]["k7bwd"],
+        "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+        "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+        "bound_by": rec["bound_by"], "library_ms": None})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -79,6 +79,18 @@
 //   thread: 4 rows x D/16 columns); P and dS go through shared memory
 //   between the score products and the gradient products.
 //
+// The general form (flash_attention_bwd_gen_launch): the backward of K6's
+// general forward, at every (DQK, DV) pair it takes ((16, 16), (32, 32),
+// (64, 64), (128, 128), (24, 16) and MLA's (192, 128)), with Sq and Sk
+// apart (not causal; keys past Sk masked as the forward masks them) and
+// the caller's scale, in float32 and in bf16: the FMA kernels above,
+// templated on (DQK, DV), the row sums over DV and sized by Sq, dK and dQ
+// DQK wide (at DQK = 24 a thread's second column is masked). A
+// tensor-core form at (192, 128) needs its own tiling (a 64 x 192 float32
+// dK beside a 64 x 128 dV is ~160 registers a thread of one warpgroup
+// before S and dP) and is not written yet: at MLA's shape this FMA form is
+// far above its bound (PERF.md).
+//
 // Inputs are float32 or bf16, accumulation float32 throughout, outputs in
 // the input dtype. Any S, D in {16, 32, 64, 128}, Hq a multiple of Hkv.
 //
@@ -170,6 +182,9 @@ cudaError_t launch_delta(const void* o, const void* dout, const float* lse,
 }
 
 // ---------------------------------------- FMA form (float32, small D)
+// Templated on (DQK, DV) with Sq and Sk apart: the base forms are (D, D)
+// with Sq = Sk; the general form (flash_attention_bwd_gen_launch) every
+// pair of K6's general forward, non-causal across Sq != Sk.
 namespace simt {
 
 constexpr int kThreads = 256;
@@ -177,66 +192,103 @@ constexpr int kB = 64;       // query rows and key rows per tile
 constexpr int kBP = kB + 1;  // padded row of a 64-wide score tile
 constexpr int kT = 4;        // rows (and score columns) per thread
 
-// rows [r0, r0 + kB) of a [S, D] matrix into a [kB][D + 1] float32 tile,
-// zeros past S
+// a thread holds columns tx + 16 j, j < (D + 15) / 16, of a D-wide row;
+// at D = 24 the second column (tx + 16) is past D for tx >= 8 and masked
+template <int D>
+__device__ __forceinline__ bool col_in(int tx, int j) {
+  return D % 16 == 0 || tx + 16 * j < D;
+}
+
+// rows [r0, r0 + kB) of a [rows, D] matrix into a [kB][D + 1] float32
+// tile, zeros past `rows`
 template <typename T, int D>
 __device__ __forceinline__ void stage(float* dst, const T* src, int r0,
-                                      int S) {
+                                      int rows) {
   for (int i = threadIdx.x; i < kB * D; i += kThreads) {
     const int r = i / D, d = i % D;
     dst[r * (D + 1) + d] =
-        r0 + r < S ? to_f32(src[(size_t)(r0 + r) * D + d]) : 0.f;
+        r0 + r < rows ? to_f32(src[(size_t)(r0 + r) * D + d]) : 0.f;
   }
 }
 
-// S = A B^T and dP = C E^T over D for this thread's 4 x 4 of a 64 x 64
-// tile: rows ty + 16 i of a and c, rows tx + 16 j of b and e
-template <int D>
+// S = A B^T over DA and dP = C E^T over DC for this thread's 4 x 4 of a
+// 64 x 64 tile: rows ty + 16 i of a and c, rows tx + 16 j of b and e (a, b
+// rows DA + 1 apart, c, e rows DC + 1 apart)
+template <int DA, int DC>
 __device__ __forceinline__ void two_products(const float* a, const float* b,
                                              const float* c, const float* e,
                                              int ty, int tx,
                                              float (&s)[kT][kT],
                                              float (&dp)[kT][kT]) {
-  constexpr int DP = D + 1;
+  constexpr int AP = DA + 1, CP = DC + 1;
 #pragma unroll
   for (int i = 0; i < kT; ++i)
 #pragma unroll
     for (int j = 0; j < kT; ++j) s[i][j] = dp[i][j] = 0.f;
+  if constexpr (DA == DC) {
 #pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float av[kT], bv[kT], cv[kT], ev[kT];
+    for (int d = 0; d < DA; ++d) {
+      float av[kT], bv[kT], cv[kT], ev[kT];
 #pragma unroll
-    for (int i = 0; i < kT; ++i) {
-      av[i] = a[(ty + 16 * i) * DP + d];
-      cv[i] = c[(ty + 16 * i) * DP + d];
-      bv[i] = b[(tx + 16 * i) * DP + d];
-      ev[i] = e[(tx + 16 * i) * DP + d];
-    }
-#pragma unroll
-    for (int i = 0; i < kT; ++i)
-#pragma unroll
-      for (int j = 0; j < kT; ++j) {
-        s[i][j] = fmaf(av[i], bv[j], s[i][j]);
-        dp[i][j] = fmaf(cv[i], ev[j], dp[i][j]);
+      for (int i = 0; i < kT; ++i) {
+        av[i] = a[(ty + 16 * i) * AP + d];
+        cv[i] = c[(ty + 16 * i) * CP + d];
+        bv[i] = b[(tx + 16 * i) * AP + d];
+        ev[i] = e[(tx + 16 * i) * CP + d];
       }
+#pragma unroll
+      for (int i = 0; i < kT; ++i)
+#pragma unroll
+        for (int j = 0; j < kT; ++j) {
+          s[i][j] = fmaf(av[i], bv[j], s[i][j]);
+          dp[i][j] = fmaf(cv[i], ev[j], dp[i][j]);
+        }
+    }
+  } else {
+#pragma unroll 4
+    for (int d = 0; d < DA; ++d) {
+      float av[kT], bv[kT];
+#pragma unroll
+      for (int i = 0; i < kT; ++i) {
+        av[i] = a[(ty + 16 * i) * AP + d];
+        bv[i] = b[(tx + 16 * i) * AP + d];
+      }
+#pragma unroll
+      for (int i = 0; i < kT; ++i)
+#pragma unroll
+        for (int j = 0; j < kT; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
+    }
+#pragma unroll 4
+    for (int d = 0; d < DC; ++d) {
+      float cv[kT], ev[kT];
+#pragma unroll
+      for (int i = 0; i < kT; ++i) {
+        cv[i] = c[(ty + 16 * i) * CP + d];
+        ev[i] = e[(tx + 16 * i) * CP + d];
+      }
+#pragma unroll
+      for (int i = 0; i < kT; ++i)
+#pragma unroll
+        for (int j = 0; j < kT; ++j) dp[i][j] = fmaf(cv[i], ev[j], dp[i][j]);
+    }
   }
 }
 
 // P and dS of this thread's 4 x 4 from S, dP and its rows' LSE and Dl:
-// zero where the key is past S or after the query (causal), or the query
-// is past S
+// zero where the key is past Sk or after the query (causal), or the query
+// is past Sq
 __device__ __forceinline__ void probs(float (&s)[kT][kT],
                                       float (&dp)[kT][kT], const float* lse,
                                       const float* dl, int q0, int k0,
-                                      int ty, int tx, int S, int causal,
-                                      float scale) {
+                                      int ty, int tx, int Sq, int Sk,
+                                      int causal, float scale) {
 #pragma unroll
   for (int i = 0; i < kT; ++i) {
     const int r = ty + 16 * i, row = q0 + r;
 #pragma unroll
     for (int j = 0; j < kT; ++j) {
       const int col = k0 + tx + 16 * j;
-      const bool live = row < S && col < S && !(causal && col > row);
+      const bool live = row < Sq && col < Sk && !(causal && col > row);
       const float p = live ? expf(s[i][j] * scale - lse[r]) : 0.f;
       s[i][j] = p;
       dp[i][j] = p * (dp[i][j] - dl[r]);
@@ -244,28 +296,29 @@ __device__ __forceinline__ void probs(float (&s)[kT][kT],
   }
 }
 
-template <int D>
+template <int DQK, int DV>
 constexpr size_t dkdv_smem() {
-  return sizeof(float) *
-         (size_t)(4 * kB * (D + 1) + 2 * kB * kBP + 2 * kB);
+  return sizeof(float) * (size_t)(2 * kB * (DQK + 1) + 2 * kB * (DV + 1) +
+                                  2 * kB * kBP + 2 * kB);
 }
 
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 __global__ void __launch_bounds__(kThreads)
     dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, const T* __restrict__ dout,
                 const float* __restrict__ lse,
                 const float* __restrict__ delta, T* __restrict__ dk,
-                T* __restrict__ dv, int Hq, int Hkv, int S, int causal,
-                float scale) {
-  constexpr int DP = D + 1;
-  constexpr int ND = D / 16;  // accumulator columns per thread
+                T* __restrict__ dv, int Hq, int Hkv, int Sq, int Sk,
+                int causal, float scale) {
+  static_assert(DV % 16 == 0, "a thread owns DV / 16 dV columns");
+  constexpr int QP = DQK + 1, VP = DV + 1;
+  constexpr int NK = (DQK + 15) / 16, NV = DV / 16;  // acc columns
   extern __shared__ float smem[];
-  float* k_s = smem;              // [kB][DP]
-  float* v_s = k_s + kB * DP;     // [kB][DP]
-  float* q_s = v_s + kB * DP;     // [kB][DP]
-  float* do_s = q_s + kB * DP;    // [kB][DP]
-  float* p_s = do_s + kB * DP;    // [kB][kBP], P[q row][key]
+  float* k_s = smem;              // [kB][QP]
+  float* v_s = k_s + kB * QP;     // [kB][VP]
+  float* q_s = v_s + kB * VP;     // [kB][QP]
+  float* do_s = q_s + kB * QP;    // [kB][VP]
+  float* p_s = do_s + kB * VP;    // [kB][kBP], P[q row][key]
   float* ds_s = p_s + kB * kBP;   // [kB][kBP], dS[q row][key]
   float* lse_s = ds_s + kB * kBP; // [kB]
   float* dl_s = lse_s + kB;       // [kB]
@@ -274,33 +327,36 @@ __global__ void __launch_bounds__(kThreads)
   const int b = bk / Hkv, kvh = bk % Hkv, G = Hq / Hkv;
   const int k0 = blockIdx.y * kB;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  stage<T, D>(k_s, k + (size_t)bk * S * D, k0, S);
-  stage<T, D>(v_s, v + (size_t)bk * S * D, k0, S);
+  stage<T, DQK>(k_s, k + (size_t)bk * Sk * DQK, k0, Sk);
+  stage<T, DV>(v_s, v + (size_t)bk * Sk * DV, k0, Sk);
 
-  float acc_k[kT][ND], acc_v[kT][ND];
+  float acc_k[kT][NK], acc_v[kT][NV];
 #pragma unroll
-  for (int i = 0; i < kT; ++i)
+  for (int i = 0; i < kT; ++i) {
 #pragma unroll
-    for (int j = 0; j < ND; ++j) acc_k[i][j] = acc_v[i][j] = 0.f;
+    for (int j = 0; j < NK; ++j) acc_k[i][j] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) acc_v[i][j] = 0.f;
+  }
 
   const int q_first = causal ? k0 : 0;  // k0 is a multiple of kB
   for (int g = 0; g < G; ++g) {
     const int bh = b * Hq + kvh * G + g;
-    const T* qb = q + (size_t)bh * S * D;
-    const T* dob = dout + (size_t)bh * S * D;
-    for (int q0 = q_first; q0 < S; q0 += kB) {
+    const T* qb = q + (size_t)bh * Sq * DQK;
+    const T* dob = dout + (size_t)bh * Sq * DV;
+    for (int q0 = q_first; q0 < Sq; q0 += kB) {
       __syncthreads();  // the previous tile's readers are done
-      stage<T, D>(q_s, qb, q0, S);
-      stage<T, D>(do_s, dob, q0, S);
+      stage<T, DQK>(q_s, qb, q0, Sq);
+      stage<T, DV>(do_s, dob, q0, Sq);
       if (tid < kB) {
-        const bool in = q0 + tid < S;
-        lse_s[tid] = in ? lse[(size_t)bh * S + q0 + tid] : 0.f;
-        dl_s[tid] = in ? delta[(size_t)bh * S + q0 + tid] : 0.f;
+        const bool in = q0 + tid < Sq;
+        lse_s[tid] = in ? lse[(size_t)bh * Sq + q0 + tid] : 0.f;
+        dl_s[tid] = in ? delta[(size_t)bh * Sq + q0 + tid] : 0.f;
       }
       __syncthreads();
       float s[kT][kT], dp[kT][kT];
-      two_products<D>(q_s, k_s, do_s, v_s, ty, tx, s, dp);
-      probs(s, dp, lse_s, dl_s, q0, k0, ty, tx, S, causal, scale);
+      two_products<DQK, DV>(q_s, k_s, do_s, v_s, ty, tx, s, dp);
+      probs(s, dp, lse_s, dl_s, q0, k0, ty, tx, Sq, Sk, causal, scale);
 #pragma unroll
       for (int i = 0; i < kT; ++i)
 #pragma unroll
@@ -313,62 +369,68 @@ __global__ void __launch_bounds__(kThreads)
       // This thread: keys ty + 16 i, columns tx + 16 j.
 #pragma unroll 4
       for (int r = 0; r < kB; ++r) {
-        float pv[kT], sv[kT], ov[ND], qv[ND];
+        float pv[kT], sv[kT], ov[NV], qv[NK];
 #pragma unroll
         for (int i = 0; i < kT; ++i) {
           pv[i] = p_s[r * kBP + ty + 16 * i];
           sv[i] = ds_s[r * kBP + ty + 16 * i];
         }
 #pragma unroll
-        for (int j = 0; j < ND; ++j) {
-          ov[j] = do_s[r * DP + tx + 16 * j];
-          qv[j] = q_s[r * DP + tx + 16 * j];
-        }
+        for (int j = 0; j < NV; ++j) ov[j] = do_s[r * VP + tx + 16 * j];
 #pragma unroll
-        for (int i = 0; i < kT; ++i)
+        for (int j = 0; j < NK; ++j)
+          qv[j] = col_in<DQK>(tx, j) ? q_s[r * QP + tx + 16 * j] : 0.f;
 #pragma unroll
-          for (int j = 0; j < ND; ++j) {
+        for (int i = 0; i < kT; ++i) {
+#pragma unroll
+          for (int j = 0; j < NV; ++j)
             acc_v[i][j] = fmaf(pv[i], ov[j], acc_v[i][j]);
+#pragma unroll
+          for (int j = 0; j < NK; ++j)
             acc_k[i][j] = fmaf(sv[i], qv[j], acc_k[i][j]);
-          }
+        }
       }
     }
   }
 
-  T* dkb = dk + (size_t)bk * S * D;
-  T* dvb = dv + (size_t)bk * S * D;
+  T* dkb = dk + (size_t)bk * Sk * DQK;
+  T* dvb = dv + (size_t)bk * Sk * DV;
 #pragma unroll
   for (int i = 0; i < kT; ++i) {
     const int row = k0 + ty + 16 * i;
-    if (row >= S) continue;
+    if (row >= Sk) continue;
 #pragma unroll
-    for (int j = 0; j < ND; ++j) {
-      dkb[(size_t)row * D + tx + 16 * j] = from_f32<T>(acc_k[i][j] * scale);
-      dvb[(size_t)row * D + tx + 16 * j] = from_f32<T>(acc_v[i][j]);
-    }
+    for (int j = 0; j < NK; ++j)
+      if (col_in<DQK>(tx, j))
+        dkb[(size_t)row * DQK + tx + 16 * j] =
+            from_f32<T>(acc_k[i][j] * scale);
+#pragma unroll
+    for (int j = 0; j < NV; ++j)
+      dvb[(size_t)row * DV + tx + 16 * j] = from_f32<T>(acc_v[i][j]);
   }
 }
 
-template <int D>
+template <int DQK, int DV>
 constexpr size_t dq_smem() {
-  return sizeof(float) * (size_t)(4 * kB * (D + 1) + kB * kBP + 2 * kB);
+  return sizeof(float) * (size_t)(2 * kB * (DQK + 1) + 2 * kB * (DV + 1) +
+                                  kB * kBP + 2 * kB);
 }
 
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 __global__ void __launch_bounds__(kThreads)
     dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const T* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
-              T* __restrict__ dq, int Hq, int Hkv, int S, int causal,
+              T* __restrict__ dq, int Hq, int Hkv, int Sq, int Sk, int causal,
               float scale) {
-  constexpr int DP = D + 1;
-  constexpr int ND = D / 16;
+  constexpr int QP = DQK + 1, VP = DV + 1;
+  constexpr int NK = (DQK + 15) / 16;
   extern __shared__ float smem[];
-  float* q_s = smem;               // [kB][DP]
-  float* do_s = q_s + kB * DP;     // [kB][DP]
-  float* k_s = do_s + kB * DP;     // [kB][DP]
-  float* v_s = k_s + kB * DP;      // [kB][DP]
-  float* ds_s = v_s + kB * DP;     // [kB][kBP]
+  float* q_s = smem;               // [kB][QP]
+  float* do_s = q_s + kB * QP;     // [kB][VP]
+  float* k_s = do_s + kB * VP;     // [kB][QP]
+  float* v_s = k_s + kB * QP;      // [kB][VP]
+  float* ds_s = v_s + kB * VP;     // [kB][kBP]
   float* lse_s = ds_s + kB * kBP;  // [kB]
   float* dl_s = lse_s + kB;        // [kB]
 
@@ -377,30 +439,30 @@ __global__ void __launch_bounds__(kThreads)
   const int kvh = b * Hkv + h / (Hq / Hkv);
   const int q0 = blockIdx.y * kB;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  stage<T, D>(q_s, q + (size_t)bh * S * D, q0, S);
-  stage<T, D>(do_s, dout + (size_t)bh * S * D, q0, S);
+  stage<T, DQK>(q_s, q + (size_t)bh * Sq * DQK, q0, Sq);
+  stage<T, DV>(do_s, dout + (size_t)bh * Sq * DV, q0, Sq);
   if (tid < kB) {
-    const bool in = q0 + tid < S;
-    lse_s[tid] = in ? lse[(size_t)bh * S + q0 + tid] : 0.f;
-    dl_s[tid] = in ? delta[(size_t)bh * S + q0 + tid] : 0.f;
+    const bool in = q0 + tid < Sq;
+    lse_s[tid] = in ? lse[(size_t)bh * Sq + q0 + tid] : 0.f;
+    dl_s[tid] = in ? delta[(size_t)bh * Sq + q0 + tid] : 0.f;
   }
-  float acc[kT][ND];
+  float acc[kT][NK];
 #pragma unroll
   for (int i = 0; i < kT; ++i)
 #pragma unroll
-    for (int j = 0; j < ND; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < NK; ++j) acc[i][j] = 0.f;
 
-  const T* kb = k + (size_t)kvh * S * D;
-  const T* vb = v + (size_t)kvh * S * D;
-  const int kv_end = causal ? min(S, q0 + kB) : S;
+  const T* kb = k + (size_t)kvh * Sk * DQK;
+  const T* vb = v + (size_t)kvh * Sk * DV;
+  const int kv_end = causal ? min(Sk, q0 + kB) : Sk;
   for (int k0 = 0; k0 < kv_end; k0 += kB) {
     __syncthreads();  // the previous tile's readers are done
-    stage<T, D>(k_s, kb, k0, S);
-    stage<T, D>(v_s, vb, k0, S);
+    stage<T, DQK>(k_s, kb, k0, Sk);
+    stage<T, DV>(v_s, vb, k0, Sk);
     __syncthreads();
     float s[kT][kT], dp[kT][kT];
-    two_products<D>(q_s, k_s, do_s, v_s, ty, tx, s, dp);
-    probs(s, dp, lse_s, dl_s, q0, k0, ty, tx, S, causal, scale);
+    two_products<DQK, DV>(q_s, k_s, do_s, v_s, ty, tx, s, dp);
+    probs(s, dp, lse_s, dl_s, q0, k0, ty, tx, Sq, Sk, causal, scale);
 #pragma unroll
     for (int i = 0; i < kT; ++i)
 #pragma unroll
@@ -411,58 +473,61 @@ __global__ void __launch_bounds__(kThreads)
     // tx + 16 j
 #pragma unroll 4
     for (int c = 0; c < kB; ++c) {
-      float sv[kT], kv[ND];
+      float sv[kT], kv[NK];
 #pragma unroll
       for (int i = 0; i < kT; ++i) sv[i] = ds_s[(ty + 16 * i) * kBP + c];
 #pragma unroll
-      for (int j = 0; j < ND; ++j) kv[j] = k_s[c * DP + tx + 16 * j];
+      for (int j = 0; j < NK; ++j)
+        kv[j] = col_in<DQK>(tx, j) ? k_s[c * QP + tx + 16 * j] : 0.f;
 #pragma unroll
       for (int i = 0; i < kT; ++i)
 #pragma unroll
-        for (int j = 0; j < ND; ++j) acc[i][j] = fmaf(sv[i], kv[j], acc[i][j]);
+        for (int j = 0; j < NK; ++j) acc[i][j] = fmaf(sv[i], kv[j], acc[i][j]);
     }
   }
 
-  T* dqb = dq + (size_t)bh * S * D;
+  T* dqb = dq + (size_t)bh * Sq * DQK;
 #pragma unroll
   for (int i = 0; i < kT; ++i) {
     const int row = q0 + ty + 16 * i;
-    if (row >= S) continue;
+    if (row >= Sq) continue;
 #pragma unroll
-    for (int j = 0; j < ND; ++j)
-      dqb[(size_t)row * D + tx + 16 * j] = from_f32<T>(acc[i][j] * scale);
+    for (int j = 0; j < NK; ++j)
+      if (col_in<DQK>(tx, j))
+        dqb[(size_t)row * DQK + tx + 16 * j] = from_f32<T>(acc[i][j] * scale);
   }
 }
 
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* o, const void* dout, const float* lse,
                    float* delta, void* dq, void* dk, void* dv, int B, int Hq,
-                   int Hkv, int S, int causal, float scale,
+                   int Hkv, int Sq, int Sk, int causal, float scale,
                    cudaStream_t stream) {
   static bool dkdv_ready = false, dq_ready = false;
-  constexpr size_t s1 = dkdv_smem<D>(), s2 = dq_smem<D>();
-  cudaError_t err = allow_smem(dkdv_kernel<T, D>, s1, &dkdv_ready);
+  constexpr size_t s1 = dkdv_smem<DQK, DV>(), s2 = dq_smem<DQK, DV>();
+  cudaError_t err = allow_smem(dkdv_kernel<T, DQK, DV>, s1, &dkdv_ready);
   if (err != cudaSuccess) return err;
-  err = allow_smem(dq_kernel<T, D>, s2, &dq_ready);
+  err = allow_smem(dq_kernel<T, DQK, DV>, s2, &dq_ready);
   if (err != cudaSuccess) return err;
   const T* q_ = static_cast<const T*>(q);
   const T* k_ = static_cast<const T*>(k);
   const T* v_ = static_cast<const T*>(v);
   const T* do_ = static_cast<const T*>(dout);
-  // Dl with rows S apart, as the kernels below read it
-  err = launch_delta<T, D>(o, dout, lse, delta, nullptr, B * Hq, S, S,
-                           stream);
+  // Dl over DV with rows Sq apart, as the kernels below read it
+  err = launch_delta<T, DV>(o, dout, lse, delta, nullptr, B * Hq, Sq, Sq,
+                            stream);
   if (err != cudaSuccess) return err;
-  const int blocks = (S + kB - 1) / kB;
-  dkdv_kernel<T, D><<<dim3(B * Hkv, blocks), kThreads, s1, stream>>>(
-      q_, k_, v_, do_, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
-      Hq, Hkv, S, causal, scale);
+  dkdv_kernel<T, DQK, DV>
+      <<<dim3(B * Hkv, (Sk + kB - 1) / kB), kThreads, s1, stream>>>(
+          q_, k_, v_, do_, lse, delta, static_cast<T*>(dk),
+          static_cast<T*>(dv), Hq, Hkv, Sq, Sk, causal, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dq_kernel<T, D><<<dim3(B * Hq, blocks), kThreads, s2, stream>>>(
-      q_, k_, v_, do_, lse, delta, static_cast<T*>(dq), Hq, Hkv, S, causal,
-      scale);
+  dq_kernel<T, DQK, DV>
+      <<<dim3(B * Hq, (Sq + kB - 1) / kB), kThreads, s2, stream>>>(
+          q_, k_, v_, do_, lse, delta, static_cast<T*>(dq), Hq, Hkv, Sq, Sk,
+          causal, scale);
   return cudaGetLastError();
 }
 
@@ -869,8 +934,9 @@ cudaError_t launch_simt(const void* q, const void* k, const void* v,
                         float scale, cudaStream_t stream) {
 #define K6B_CASE(DD)                                                      \
   case DD:                                                                \
-    return simt::launch<T, DD>(q, k, v, o, dout, lse, delta, dq, dk, dv,  \
-                               B, Hq, Hkv, S, causal, scale, stream);
+    return simt::launch<T, DD, DD>(q, k, v, o, dout, lse, delta, dq, dk,  \
+                                   dv, B, Hq, Hkv, S, S, causal, scale,   \
+                                   stream);
   switch (D) {
     K6B_CASE(16)
     K6B_CASE(32)
@@ -887,6 +953,32 @@ cudaError_t launch_simt(const void* q, const void* k, const void* v,
   }
   return cudaErrorInvalidValue;
 #undef K6B_CASE
+}
+
+// The general form's backward, the FMA kernels at (DQK, DV) with Sq and Sk
+// apart and the caller's scale: every pair of K6's general forward
+// (GEN_DIMS), in float32 and in bf16 (at (192, 128) a tensor-core form
+// needs its own tiling: a 64 x 192 float32 dK and a 64 x 128 dV in one
+// warpgroup before S and dP; not done).
+template <typename T>
+cudaError_t launch_gen(const void* q, const void* k, const void* v,
+                       const void* o, const void* dout, const float* lse,
+                       float* delta, void* dq, void* dk, void* dv, int B,
+                       int Hq, int Hkv, int Sq, int Sk, int Dqk, int Dv,
+                       int causal, float scale, cudaStream_t stream) {
+#define K6B_GEN(QK, VV)                                                    \
+  if (Dqk == QK && Dv == VV)                                               \
+    return simt::launch<T, QK, VV>(q, k, v, o, dout, lse, delta, dq, dk,   \
+                                   dv, B, Hq, Hkv, Sq, Sk, causal, scale,  \
+                                   stream);
+  K6B_GEN(16, 16)
+  K6B_GEN(32, 32)
+  K6B_GEN(64, 64)
+  K6B_GEN(128, 128)
+  K6B_GEN(24, 16)
+  K6B_GEN(192, 128)
+  return cudaErrorInvalidValue;
+#undef K6B_GEN
 }
 
 }  // namespace
@@ -918,4 +1010,31 @@ extern "C" int flash_attention_bwd_launch(
   else
     err = cudaErrorInvalidValue;
   return (int)err;
+}
+
+// The general form's backward (namespace simt, FMA): q [B, Hq, Sq, Dqk],
+// k [B, Hkv, Sk, Dqk], v [B, Hkv, Sk, Dv], o and do [B, Hq, Sq, Dv], lse
+// float32 [B, Hq, Sq] (the general forward's, natural log, of the logits
+// times `scale`), scratch float32 [2, B, Hq, ceil(Sq / 64) * 64] (the row
+// sums use its first B Hq Sq values); dq, dk, dv like q, k, v; causal only
+// with Sq == Sk; (Dqk, Dv) one of launch_gen's pairs.
+extern "C" int flash_attention_bwd_gen_launch(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const void* lse, void* scratch, void* dq, void* dk,
+    void* dv, int B, int Hq, int Hkv, int Sq, int Sk, int Dqk, int Dv,
+    int causal, int dtype, float scale, void* stream) {
+  if (B < 1 || Hkv < 1 || Hq % Hkv != 0 || Sq < 1 || Sk < 1 ||
+      (causal && Sq != Sk))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  float* sc = static_cast<float*>(scratch);
+  if (dtype == 1)
+    return (int)launch_gen<__nv_bfloat16>(q, k, v, o, dout, l, sc, dq, dk,
+                                          dv, B, Hq, Hkv, Sq, Sk, Dqk, Dv,
+                                          causal, scale, st);
+  if (dtype == 0)
+    return (int)launch_gen<float>(q, k, v, o, dout, l, sc, dq, dk, dv, B, Hq,
+                                  Hkv, Sq, Sk, Dqk, Dv, causal, scale, st);
+  return (int)cudaErrorInvalidValue;
 }

@@ -31,8 +31,8 @@ from typing import Dict
 LAUNCHES: Dict[str, int] = {"k1": 0, "k2": 0, "k3": 0, "k3run": 0,
                              "k3cyc": 0, "k3batch": 0, "k4": 0, "k5": 0,
                              "k6": 0, "k6gen": 0, "k6gen_tc": 0,
-                             "k6bwd": 0,
-                             "k7": 0}
+                             "k6bwd": 0, "k6bwd_gen": 0,
+                             "k7": 0, "k7bwd": 0}
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -69,6 +69,8 @@ _ENTRY_POINTS = {
     },
     "flash_attention_bwd": {
         "flash_attention_bwd_launch": [_P] * 10 + [_I] * 7 + [_P],
+        "flash_attention_bwd_gen_launch": [_P] * 10 + [_I] * 9
+        + [ctypes.c_float, _P],
     },
     "addr_map": {
         "addr_map_launch": [_P] * 6 + [_I] * 12 + [_P],
@@ -78,6 +80,9 @@ _ENTRY_POINTS = {
         "selective_scan_config": [_P],
         "selective_scan_sweep_launch": [_P] * 7 + [_I] * 6 + [_P],
         "selective_scan_sweep_configs": [_P, _I],
+    },
+    "selective_scan_bwd": {
+        "selective_scan_bwd_launch": [_P] * 15 + [_I] * 7 + [_P],
     },
 }
 

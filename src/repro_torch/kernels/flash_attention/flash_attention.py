@@ -17,6 +17,10 @@ forward launches K6 with the log-sum-exp output, its backward the
 backward kernels. ``flash_attention_cuda`` called directly while grad
 mode is on and an input requires grad raises (``build.refuse_grad``):
 its output, filled through a raw pointer, would carry no ``grad_fn``.
+The backward of the general form (any call that is not a base form) is
+the FMA kernels of ``csrc/flash_attention_bwd.cu`` at (Dqk, Dv) with Sq
+and Sk apart and the forward's scale (``flash_attention_bwd_gen_launch``),
+counted under ``LAUNCHES["k6bwd_gen"]``; its scratch is sized by Sq.
 
 K6's general form takes every call that the base forms do not: MLA's
 prefill (Dqk 192, Dv 128), cross-attention (Sq != Sk, not causal) and an
@@ -26,9 +30,7 @@ the tensor-core kernel (``flash_attention_gen_tc_launch``, on ``wgmma``
 and TMA), counted under ``LAUNCHES["k6gen_tc"]``; float32, and bf16 at the
 small widths, the FMA kernel (``flash_attention_gen_launch``), counted
 under ``LAUNCHES["k6gen"]``. There is no fallback between the two: a
-launch that fails raises. ``FlashAttention`` takes only the base shapes,
-which its backward covers, and raises on the others. A shape that no form
-takes raises.
+launch that fails raises. A shape that no form takes raises.
 """
 
 from __future__ import annotations
@@ -170,60 +172,76 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, out: torch.Tensor,
                              lse: torch.Tensor, dout: torch.Tensor,
-                             causal: bool = True
+                             causal: bool = True,
+                             scale: Optional[float] = None
                              ) -> Tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
-    """Launch K6's backward: (dq [B, Hq, S, D], dk, dv [B, Hkv, S, D]) in
-    q's dtype from the forward's inputs, its output ``out``, its ``lse``
-    (float32 [B, Hq, S]) and the output's gradient ``dout``."""
-    b, hq, hkv, s, d = _check("flash_attention_bwd", q, k, v)
+    """Launch K6's backward: (dq [B, Hq, Sq, Dqk], dk [B, Hkv, Sk, Dqk],
+    dv [B, Hkv, Sk, Dv]) in q's dtype from the forward's inputs, its
+    output ``out``, its ``lse`` (float32 [B, Hq, Sq]), the output's
+    gradient ``dout`` and the forward's ``scale`` (1/sqrt(Dqk) by
+    default). A base form (:func:`is_base_form`) launches
+    ``flash_attention_bwd_launch`` (``LAUNCHES["k6bwd"]``), anything else
+    the general form's FMA kernels (``flash_attention_bwd_gen_launch``,
+    ``LAUNCHES["k6bwd_gen"]``)."""
+    base = is_base_form(q, k, v, scale)
+    if base:
+        b, hq, hkv, sq, d = _check("flash_attention_bwd", q, k, v)
+        dv_ = d
+    else:
+        b, hq, hkv, sq, sk, dqk, dv_ = _check_general("flash_attention_bwd",
+                                                      q, k, v, causal)
     build.require_cuda("flash_attention_bwd", dtype=q.dtype, out=out,
                        dout=dout)
     build.require_cuda("flash_attention_bwd", dtype=torch.float32, lse=lse)
-    if out.shape != q.shape or dout.shape != q.shape \
-            or lse.shape != (b, hq, s):
+    if out.shape != (b, hq, sq, dv_) or dout.shape != out.shape \
+            or lse.shape != (b, hq, sq):
         raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)} and "
-                         f"dout {tuple(dout.shape)} must be q's "
-                         f"{tuple(q.shape)}, lse {tuple(lse.shape)} "
-                         f"[B, Hq, S]")
+                         f"dout {tuple(dout.shape)} must be [B={b}, Hq={hq}, "
+                         f"Sq={sq}, Dv={dv_}], lse {tuple(lse.shape)} "
+                         f"[B, Hq, Sq]")
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out),
                     ("dout", dout)):
         if t.data_ptr() % 16:
             raise ValueError(f"flash_attention_bwd: {name} must start on a "
                              f"16-byte boundary (the kernels' TMA and "
                              f"16-byte loads)")
-    scratch = torch.empty((2, b, hq, -(-s // BWD_ROWS) * BWD_ROWS),
+    scratch = torch.empty((2, b, hq, -(-sq // BWD_ROWS) * BWD_ROWS),
                           dtype=torch.float32, device=q.device)
     dq, dk, dv = (torch.empty_like(q), torch.empty_like(k),
                   torch.empty_like(v))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
     lib = build.load()["flash_attention_bwd"]
-    err = lib.flash_attention_bwd_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        dout.data_ptr(), lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), b, hq, hkv, s, d, int(causal),
-        DTYPES[q.dtype], build.stream_of(q))
-    build.check(err, "flash_attention_bwd")
-    build.LAUNCHES["k6bwd"] += 1
+    if base:
+        err = lib.flash_attention_bwd_launch(
+            *ptrs, b, hq, hkv, sq, d, int(causal), DTYPES[q.dtype],
+            build.stream_of(q))
+        build.check(err, "flash_attention_bwd")
+        build.LAUNCHES["k6bwd"] += 1
+        return dq, dk, dv
+    scale = 1.0 / math.sqrt(dqk) if scale is None else float(scale)
+    err = lib.flash_attention_bwd_gen_launch(
+        *ptrs, b, hq, hkv, sq, sk, dqk, dv_, int(causal), DTYPES[q.dtype],
+        scale, build.stream_of(q))
+    build.check(err, "flash_attention_bwd (general form)")
+    build.LAUNCHES["k6bwd_gen"] += 1
     return dq, dk, dv
 
 
 class FlashAttention(torch.autograd.Function):
     """K6 with a backward: the forward keeps (q, k, v, out, lse) and the
-    backward launches ``flash_attention_bwd_cuda``."""
+    scale, and the backward launches ``flash_attention_bwd_cuda``, a base
+    form's kernels or the general form's."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, scale: Optional[float] = None):
-        if not is_base_form(q, k, v, scale):
-            raise NotImplementedError(
-                f"K6's backward takes one length, one head width in "
-                f"{HEAD_DIMS} and the scale 1/sqrt(D) (got q "
-                f"{tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}, "
-                f"scale {scale}); the general form has no backward yet, "
-                f"queued in ROADMAP.md §1")
         lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-        out = flash_attention_cuda(q, k, v, causal, lse=lse)
+        out = flash_attention_cuda(q, k, v, causal, lse=lse, scale=scale)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal = causal
+        ctx.scale = scale
         return out
 
     @staticmethod
@@ -233,5 +251,5 @@ class FlashAttention(torch.autograd.Function):
         if dout.data_ptr() % 16:  # a view into the middle of a buffer
             dout = dout.clone()
         dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, lse, dout,
-                                              ctx.causal)
+                                              ctx.causal, ctx.scale)
         return dq, dk, dv, None, None

@@ -8,8 +8,8 @@ log-sum-exp, then K6's backward kernels); otherwise it is K6's plain
 launch. Both take any sequence length: the kernels mask a ragged last
 block, so the Pallas wrapper's rule that S be a multiple of
 ``min(128, S)`` does not apply. A call that is not one of K6's base forms
-(Dqk != Dv, Sk != Sq, or another scale) launches K6's general form; under
-grad it raises, since only the base forms have a backward.
+(Dqk != Dv, Sk != Sq, or another scale) launches K6's general form, and
+under grad its backward.
 """
 
 from __future__ import annotations

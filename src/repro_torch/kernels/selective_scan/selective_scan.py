@@ -1,18 +1,24 @@
-"""Wrapper of the K7 CUDA kernel (``csrc/selective_scan.cu``).
+"""Wrappers of K7 (``csrc/selective_scan.cu``) and of its backward
+(``csrc/selective_scan_bwd.cu``).
 
-``selective_scan_cuda`` takes CUDA tensors only (``ops.py`` sends CPU
-tensors to the plain version in ``ref.py``), allocates y and h_final,
-launches one kernel on PyTorch's current stream, never synchronises, and
-raises on a launch error. One call is one K7 launch in
-``build.LAUNCHES["k7"]``.
-It has no backward: called while grad mode is on with an input that
-requires grad, it raises (``build.refuse_grad``) rather than return an
-output detached from the graph.
+``selective_scan_cuda`` and ``selective_scan_bwd_cuda`` take CUDA tensors
+only (``ops.py`` sends CPU tensors to the plain version in ``ref.py``),
+allocate their outputs and scratch, launch on PyTorch's current stream,
+never synchronise, and raise on a launch error. A forward call is one K7
+launch in ``build.LAUNCHES["k7"]``; a backward call is one
+``LAUNCHES["k7bwd"]`` (its two kernels: the reverse scan, then the sums of
+the per-block partials of dB, dC and dA).
+
+``SelectiveScan`` binds the two as a ``torch.autograd.Function``: its
+forward is K7, its backward K7's backward kernels. ``selective_scan_cuda``
+called directly while grad mode is on and an input requires grad raises
+(``build.refuse_grad``): its output, filled through a raw pointer, would
+carry no ``grad_fn``.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -21,6 +27,10 @@ from repro_torch.kernels import build
 #: d_state values the kernel is instantiated for (the tiny configs', jamba's)
 STATE_SIZES = (8, 16)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the backward's channels a CTA and steps a chunk (its scratch layout);
+#: the C entry point refuses other values
+BWD_CHANNELS = 64
+BWD_CHUNK = 8
 
 
 def selective_scan_cuda(x: torch.Tensor, dt: torch.Tensor, bc: torch.Tensor,
@@ -63,3 +73,85 @@ def selective_scan_cuda(x: torch.Tensor, dt: torch.Tensor, bc: torch.Tensor,
     build.check(err, "selective_scan")
     build.LAUNCHES["k7"] += 1
     return y, h
+
+
+def selective_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor,
+                            bc: torch.Tensor, cc: torch.Tensor,
+                            a: torch.Tensor, dy: torch.Tensor,
+                            dh: Optional[torch.Tensor] = None
+                            ) -> Tuple[torch.Tensor, ...]:
+    """Launch K7's backward: from K7's inputs (as ``selective_scan_cuda``
+    takes them), the gradient of y ``dy`` (x's dtype, [B, T, D]) and
+    optionally of h_final ``dh`` (float32 [B, D, S]; None is zeros),
+    returns (dx, ddt [B, T, D], dbc, dcc [B, T, S] in the inputs' dtype,
+    da float32 [D, S]). The float32 scratch it allocates: h at every
+    ``BWD_CHUNK``-th step [B, ceil(T / BWD_CHUNK), D, S], the per-block
+    partials of dB and dC [B, ceil(D / BWD_CHANNELS), T, 2 S] and each
+    batch row's dA [B, D, S]."""
+    if x.dtype not in DTYPES:
+        raise ValueError(f"selective_scan_bwd: dtype {x.dtype} not "
+                         f"supported (float32 or bfloat16)")
+    build.require_cuda("selective_scan_bwd", dtype=x.dtype, x=x, dt=dt,
+                       bc=bc, cc=cc, dy=dy)
+    build.require_cuda("selective_scan_bwd", dtype=torch.float32, a=a)
+    if x.dim() != 3 or bc.dim() != 3:
+        raise ValueError(f"selective_scan_bwd: x {tuple(x.shape)} must be "
+                         f"[B, T, D] and bc {tuple(bc.shape)} [B, T, S]")
+    b, t, d = x.shape
+    s = bc.shape[2]
+    if dt.shape != x.shape or dy.shape != x.shape or bc.shape != (b, t, s) \
+            or cc.shape != bc.shape or a.shape != (d, s):
+        raise ValueError(f"selective_scan_bwd: dt {tuple(dt.shape)}, dy "
+                         f"{tuple(dy.shape)}, bc {tuple(bc.shape)}, cc "
+                         f"{tuple(cc.shape)}, a {tuple(a.shape)} do not fit "
+                         f"x [B={b}, T={t}, D={d}] and S={s}")
+    if dh is not None:
+        build.require_cuda("selective_scan_bwd", dtype=torch.float32, dh=dh)
+        if dh.shape != (b, d, s):
+            raise ValueError(f"selective_scan_bwd: dh {tuple(dh.shape)} must "
+                             f"be [B={b}, D={d}, S={s}]")
+    if s not in STATE_SIZES:
+        raise ValueError(f"selective_scan_bwd: d_state {s} not one of "
+                         f"{STATE_SIZES}")
+    dx, ddt = torch.empty_like(x), torch.empty_like(dt)
+    dbc, dcc = torch.empty_like(bc), torch.empty_like(cc)
+    da = torch.empty((d, s), dtype=torch.float32, device=x.device)
+    if b * t * d == 0:
+        for g in (dx, ddt, dbc, dcc, da):
+            g.zero_()
+        return dx, ddt, dbc, dcc, da
+    f32 = dict(dtype=torch.float32, device=x.device)
+    hs = torch.empty((b, -(-t // BWD_CHUNK), d, s), **f32)
+    part = torch.empty((b, -(-d // BWD_CHANNELS), t, 2 * s), **f32)
+    pa = torch.empty((b, d, s), **f32)
+    lib = build.load()["selective_scan_bwd"]
+    err = lib.selective_scan_bwd_launch(
+        x.data_ptr(), dt.data_ptr(), bc.data_ptr(), cc.data_ptr(),
+        a.data_ptr(), dy.data_ptr(), None if dh is None else dh.data_ptr(),
+        hs.data_ptr(), part.data_ptr(), pa.data_ptr(), dx.data_ptr(),
+        ddt.data_ptr(), dbc.data_ptr(), dcc.data_ptr(), da.data_ptr(), b, t,
+        d, s, BWD_CHANNELS, BWD_CHUNK, DTYPES[x.dtype], build.stream_of(x))
+    build.check(err, "selective_scan_bwd")
+    build.LAUNCHES["k7bwd"] += 1
+    return dx, ddt, dbc, dcc, da
+
+
+class SelectiveScan(torch.autograd.Function):
+    """K7 with a backward: the forward launches K7 and keeps (x, dt, bc,
+    cc, a); the backward launches ``selective_scan_bwd_cuda`` with the
+    gradients of y and of h_final (None where the loss does not reach
+    them)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, bc, cc, a):
+        y, h = selective_scan_cuda(x, dt, bc, cc, a)
+        ctx.save_for_backward(x, dt, bc, cc, a)
+        ctx.set_materialize_grads(False)
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        x, dt, bc, cc, a = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        return selective_scan_bwd_cuda(
+            x, dt, bc, cc, a, dy, None if dh is None else dh.contiguous())

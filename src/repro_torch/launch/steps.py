@@ -73,16 +73,18 @@ def make_train_step(cfg: ArchConfig, schedule: Optional[Callable] = None,
     error-feedback int8 compression when ``grad_compression`` (the error
     tree in ``opt_state["err"]``), the learning rate ``schedule(count)``
     (3e-4 without one), then AdamW, decaying the leaves the reference
-    decays (``lm.weight_decay_mask``). Metrics: ``loss``, ``ce_loss``,
-    ``aux_loss`` and ``tokens`` (of the last microbatch), ``grad_norm``,
-    ``lr``.
+    decays (``encdec.weight_decay_mask`` for an encoder-decoder config,
+    ``lm.weight_decay_mask`` for the others). Metrics: ``loss``,
+    ``ce_loss``, ``aux_loss`` (decoder-only) and ``tokens`` (of the last
+    microbatch), ``grad_norm``, ``lr``. Every config trains, as in the
+    reference.
 
     The parameters and optimizer state are updated IN PLACE and returned
     (the reference donates them); the batch's arrays move to the step's
-    device. Refuses, on every device, a config ``lm.check_trainable``
-    refuses (a Mamba layer: K7 has no backward yet)."""
+    device."""
     lfn = registry.loss_fn(cfg)
     dev = resolve_device(device)
+    decay_mask = (encdec if cfg.is_encdec else lm).weight_decay_mask
 
     def train_step(params, opt_state, batch):
         batch = _batch_to(batch, dev)
@@ -117,7 +119,7 @@ def make_train_step(cfg: ArchConfig, schedule: Optional[Callable] = None,
               else torch.tensor(3e-4, dtype=F32, device=dev))
         params, new_opt, om = adamw.update(params, grads, opt_state, lr,
                                            opt_cfg,
-                                           lm.weight_decay_mask(cfg, params))
+                                           decay_mask(cfg, params))
         if err is not None:
             new_opt["err"] = err
         return params, new_opt, {"loss": loss, **metrics, **om}

@@ -134,14 +134,33 @@ def decode_train(cfg: ArchConfig, params: Params, enc_out: torch.Tensor,
 def seq2seq_loss(cfg: ArchConfig, params: Params, src_embeds: torch.Tensor,
                  tgt_tokens: torch.Tensor, labels: torch.Tensor, dtype=F32
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """The reference's sequence-to-sequence loss, forward only: its
-    training is not ported (``registry.loss_fn`` refuses it)."""
+    """The reference's sequence-to-sequence loss: encode ``src_embeds``,
+    decode ``tgt_tokens`` teacher-forced, ``chunked_softmax_xent`` of the
+    head against ``labels``. Returns (loss, {"ce_loss", "tokens"}). On the
+    card its backward runs K6's backward in the encoder (a base form) and
+    K6's general backward in the decoder's cross-attention (S_tgt rows
+    against S_src keys)."""
     enc_out = encode(cfg, params, src_embeds.to(dtype))
     x = decode_train(cfg, params, enc_out, tgt_tokens, dtype)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     loss, count = chunked_softmax_xent(x, params["lm_head"], labels,
                                        cfg.loss_chunk)
     return loss, {"ce_loss": loss, "tokens": count}
+
+
+def weight_decay_mask(cfg: ArchConfig, params: Params) -> Params:
+    """A tree of bools like ``params``: the leaves the reference's AdamW
+    decays. Its rule is ndim >= 2 on its own tree, whose encoder and
+    decoder layers are stacked ``[L, ...]``; so every leaf of an encoder
+    or decoder layer is decayed (norm scales and biases too), and elsewhere
+    (the embedding, the head, the two final norms) only matrices."""
+    def mark(tree, layer):
+        if isinstance(tree, dict):
+            return {k: mark(v, layer) for k, v in tree.items()}
+        return layer or tree.dim() >= 2
+
+    return {k: ([mark(p, True) for p in v] if k in ("enc", "dec")
+                else mark(v, False)) for k, v in params.items()}
 
 
 def init_dec_caches(cfg: ArchConfig, batch: int, max_seq: int, dtype=F32,

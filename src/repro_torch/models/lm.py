@@ -9,11 +9,10 @@ attention, Mamba, mLSTM and sLSTM mixers, dense SwiGLU, MoE or no FFN.
 That covers every decoder-only config: qwen3-14b, qwen2-72b, minicpm-2b,
 starcoder2-7b, llava-next-34b (through ``embeds``), phi3.5-moe, jamba,
 deepseek-v3 and xlstm. Encoder-decoder models are ``models.encdec``'s.
-The training loss (``lm_loss``) takes the GQA families with attention,
-dense and MoE FFNs; ``check_trainable`` refuses, on every device, a Mamba
-layer (K7 has no backward on the card yet), MLA (K6's general form has
-none) and the mLSTM/sLSTM mixers (their chunked remat is not ported):
-queued in ROADMAP.md §1.
+The training loss (``lm_loss``) takes every one of them: on the card a
+Mamba layer trains through K7's backward, MLA through K6's general
+backward, and the mLSTM/sLSTM mixers through their chunked remat
+(``scan_utils.chunked_scan``).
 
 While grad is enabled and its input or parameters require grad (not in
 serving), ``forward`` checkpoints each group of the period as
@@ -98,33 +97,6 @@ def check_supported(cfg: ArchConfig) -> None:
             raise NotImplementedError(
                 f"{cfg.name}: {cfg.attn_type} attention is not ported "
                 f"(ported: {', '.join(ATTN_TYPES)}); " + _ROADMAP)
-
-
-def check_trainable(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` where ``lm_loss`` cannot train: an
-    encoder-decoder model, a Mamba layer (its kernel, K7, has no backward
-    yet), MLA (K6's general form, Dqk != Dv, has no backward yet) and the
-    mLSTM/sLSTM mixers (their chunked remat is not ported). Refused on
-    every device, so that a config that trains on the CPU also trains on
-    the card."""
-    if cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: training an encoder-decoder model (seq2seq_loss) "
-            f"is not ported yet; " + _ROADMAP)
-    check_supported(cfg)
-    kinds = {m for m, _ in layer_kinds(cfg)}
-    if "mamba" in kinds:
-        raise NotImplementedError(
-            f"{cfg.name}: training a Mamba layer needs K7's backward "
-            f"(selective scan), not ported yet; " + _ROADMAP)
-    if "attn" in kinds and cfg.attn_type == "mla":
-        raise NotImplementedError(
-            f"{cfg.name}: training MLA needs K6's backward at Dqk != Dv, "
-            f"not ported yet; " + _ROADMAP)
-    if kinds & {"mlstm", "slstm"}:
-        raise NotImplementedError(
-            f"{cfg.name}: training the mLSTM/sLSTM mixers needs their "
-            f"chunked remat, not ported yet; " + _ROADMAP)
 
 
 def weight_decay_mask(cfg: ArchConfig, params: Params) -> Params:
@@ -381,7 +353,7 @@ def lm_loss(cfg: ArchConfig, params: Params,
     head, ``chunked_softmax_xent`` over ``cfg.loss_chunk``, plus
     ``aux_weight`` times the MoE aux loss. Returns (total, {"ce_loss",
     "aux_loss", "tokens"})."""
-    check_trainable(cfg)
+    check_supported(cfg)
     x, _, aux = forward(cfg, params, tokens, embeds, dtype=dtype)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     loss, count = chunked_softmax_xent(x, head_matrix(cfg, params), labels,

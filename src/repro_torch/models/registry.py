@@ -1,10 +1,9 @@
 """Arch-id -> model entry points (init / loss / decode / caches),
 family-dispatched: encoder-decoder configs to ``models.encdec``, every
 other to ``models.lm``. The entry points run on the CUDA card unless given
-``device="cpu"``, and raise when there is no card. Training takes the
-families ``lm.check_trainable`` admits; the others (encoder-decoder,
-Mamba, MLA, xLSTM) raise ``NotImplementedError`` (queued in ROADMAP.md
-§1).
+``device="cpu"``, and raise when there is no card. Every config trains:
+``loss_fn`` is ``encdec.seq2seq_loss`` for an encoder-decoder config and
+``lm.lm_loss`` for the others, as the reference's.
 """
 
 from __future__ import annotations
@@ -38,11 +37,16 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None,
 
 
 def loss_fn(cfg: ArchConfig) -> Callable[..., Any]:
-    """Returns loss(params, batch, dtype) -> (scalar, metrics); the batch
-    holds ``tokens`` or ``embeds``, and ``labels``. Raises, on every
-    device, for the families ``lm.check_trainable`` refuses (an
-    encoder-decoder config among them)."""
-    lm.check_trainable(cfg)
+    """Returns loss(params, batch, dtype) -> (scalar, metrics). Batch keys:
+    decoder-only ``tokens`` or ``embeds``, and ``labels``; encoder-decoder
+    ``src_embeds``, ``tgt_tokens`` and ``labels``."""
+    if cfg.is_encdec:
+        def f_encdec(params, batch, dtype):
+            return encdec.seq2seq_loss(cfg, params, batch["src_embeds"],
+                                       batch["tgt_tokens"], batch["labels"],
+                                       dtype)
+        return f_encdec
+    lm.check_supported(cfg)
 
     def f(params, batch, dtype):
         return lm.lm_loss(cfg, params, batch.get("tokens"), batch["labels"],

@@ -10,10 +10,14 @@ both with the Mamba-style up/down projection and a SiLU-gated z path):
 
 The states are float32 whatever the compute dtype, as in the reference
 (q, k and v enter the mLSTM scan in float32). The full-sequence forms scan
-over time with ``scan_utils.scan``; no kernel runs here (the
+over time with ``scan_utils.chunked_scan`` in the reference's chunks (64
+steps for mLSTM, 128 for sLSTM; under grad each chunk is recomputed in the
+backward, so it keeps one carry a chunk); no kernel runs here (the
 reference has no Pallas kernel for these mixers either). The decode forms
 update the state dict ``{"c", "n", "m"}`` IN PLACE and return it (the
-reference returns a new one), in the reference's order of operations.
+reference returns a new one), in the reference's order of operations. A
+step that builds an autograd graph (training) replaces its carry instead
+of updating it in place, with the same arithmetic.
 """
 
 from __future__ import annotations
@@ -26,9 +30,13 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import F32, truncated_normal
-from repro_torch.models.scan_utils import scan
+from repro_torch.models.scan_utils import chunked_scan
 
 Params = Dict[str, torch.Tensor]
+#: the reference's remat chunks (``src/repro/models/xlstm.py``: 64 steps
+#: for mLSTM, whose carry is [B, H, dh, dh], 128 for sLSTM)
+MLSTM_CHUNK = 64
+SLSTM_CHUNK = 128
 
 
 def _dims(cfg: ArchConfig, kind: str) -> Tuple[int, int, int]:
@@ -75,18 +83,30 @@ def init_slstm(gen: torch.Generator, cfg: ArchConfig, device=None,
     }
 
 
+def _in_graph(*tensors) -> bool:
+    """Whether a step builds an autograd graph: then it must not update its
+    carry in place (autograd keeps the old carry for the backward)."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def _mlstm_step(carry, inp):
     """One mLSTM step on float32 [B, H, ...] tensors; the carry is updated
-    in place."""
+    in place, or, when the step builds a graph, replaced (the same
+    arithmetic, the same bits)."""
     c, n, m = carry
     qt, kt, vt, li, lf = inp
     m_new = torch.maximum(lf + m, li)                          # [B, H]
     i_p = torch.exp(li - m_new)[..., None]                     # [B, H, 1]
     f_p = torch.exp(lf + m - m_new)[..., None]
-    n.mul_(f_p).add_(i_p * kt)                                 # [B, H, dh]
-    c.mul_(f_p[..., None]).add_(
-        i_p[..., None] * (vt[..., :, None] * kt[..., None, :]))
-    m.copy_(m_new)
+    vk = vt[..., :, None] * kt[..., None, :]
+    if _in_graph(c, n, m, qt, kt, vt, li, lf):
+        n = n * f_p + i_p * kt
+        c = c * f_p[..., None] + i_p[..., None] * vk
+        m = m_new
+    else:
+        n.mul_(f_p).add_(i_p * kt)                             # [B, H, dh]
+        c.mul_(f_p[..., None]).add_(i_p[..., None] * vk)
+        m.copy_(m_new)
     num = torch.einsum("bhde,bhe->bhd", c, qt)
     den = torch.clamp(torch.einsum("bhd,bhd->bh", n, qt).abs()[..., None],
                       min=1.0)
@@ -133,10 +153,10 @@ def mlstm_full(p: Params, x: torch.Tensor, cfg: ArchConfig
     def to_t(a):
         return a.transpose(0, 1).to(F32)
 
-    (c, n, m), hs = scan(
+    (c, n, m), hs = chunked_scan(
         _mlstm_step, (state["c"], state["n"], state["m"]),
         (to_t(q), to_t(k), to_t(v), log_i.transpose(0, 1),
-         log_f.transpose(0, 1)))
+         log_f.transpose(0, 1)), chunk=MLSTM_CHUNK)
     y = hs.transpose(0, 1).reshape(b, s, di).to(x.dtype) * F.silu(z)
     return y @ p["w_out"].to(x.dtype), {"c": c, "n": n, "m": m}
 
@@ -154,8 +174,8 @@ def mlstm_decode(p: Params, x: torch.Tensor, state: Dict[str, torch.Tensor],
         F32)
     v = (xi1 @ p["w_v"].to(x.dtype)).reshape(b, h, dh).to(F32)
     log_i, log_f = _mlstm_gates(p, xi1, h)
-    _, y = _mlstm_step((state["c"], state["n"], state["m"]),
-                       (q, k, v, log_i, log_f))
+    (state["c"], state["n"], state["m"]), y = _mlstm_step(
+        (state["c"], state["n"], state["m"]), (q, k, v, log_i, log_f))
     y = y.reshape(b, 1, di).to(x.dtype) * F.silu(z)
     return y @ p["w_out"].to(x.dtype), state
 
@@ -169,15 +189,20 @@ def _slstm_pre(p: Params, x: torch.Tensor):
 
 def _slstm_step(carry, inp):
     """One sLSTM step on float32 [B, di] tensors; the carry is updated in
-    place."""
+    place, or replaced when the step builds a graph."""
     c, n, m = carry
     li, lf, z_in = inp
     m_new = torch.maximum(lf + m, li)
     i_p = torch.exp(li - m_new)
     f_p = torch.exp(lf + m - m_new)
-    c.mul_(f_p).add_(i_p * z_in)
-    n.mul_(f_p).add_(i_p)
-    m.copy_(m_new)
+    if _in_graph(c, n, m, li, lf, z_in):
+        c = c * f_p + i_p * z_in
+        n = n * f_p + i_p
+        m = m_new
+    else:
+        c.mul_(f_p).add_(i_p * z_in)
+        n.mul_(f_p).add_(i_p)
+        m.copy_(m_new)
     return (c, n, m), c / torch.clamp(n, min=1.0)
 
 
@@ -187,9 +212,10 @@ def slstm_full(p: Params, x: torch.Tensor, cfg: ArchConfig
     b = x.shape[0]
     i_pre, log_f, zt, ot = _slstm_pre(p, x)                   # [B, S, di]
     state = slstm_state(b, cfg, x.device)
-    (c, n, m), hs = scan(
+    (c, n, m), hs = chunked_scan(
         _slstm_step, (state["c"], state["n"], state["m"]),
-        (i_pre.transpose(0, 1), log_f.transpose(0, 1), zt.transpose(0, 1)))
+        (i_pre.transpose(0, 1), log_f.transpose(0, 1), zt.transpose(0, 1)),
+        chunk=SLSTM_CHUNK)
     y = (hs.transpose(0, 1) * ot).to(x.dtype)
     return y @ p["w_out"].to(x.dtype), {"c": c, "n": n, "m": m}
 
@@ -199,7 +225,7 @@ def slstm_decode(p: Params, x: torch.Tensor, state: Dict[str, torch.Tensor],
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x [B, 1, d] -> (out [B, 1, d], the state, updated in place)."""
     i_pre, log_f, zt, ot = _slstm_pre(p, x[:, 0])
-    _, h_t = _slstm_step((state["c"], state["n"], state["m"]),
-                         (i_pre, log_f, zt))
+    (state["c"], state["n"], state["m"]), h_t = _slstm_step(
+        (state["c"], state["n"], state["m"]), (i_pre, log_f, zt))
     y = (h_t * ot).to(x.dtype)
     return y[:, None] @ p["w_out"].to(x.dtype), state

@@ -4,11 +4,12 @@ GQA, a query/key width apart from the value width (MLA), a key length
 apart from the query length (cross-attention, not causal), causal, an
 explicit scale, the reference in blocks smaller than the sequence (its
 online-softmax recurrence over several blocks), and lengths that are no
-multiple of a block (which the port takes in one call); then the shape
-rules of K6's wrapper and of its autograd Function, which the card
-enforces, and the kernel the wrapper picks for each shape and dtype (the
-tensor-core or the FMA general form, or a base form) with the lengths,
-widths and scale it passes on.
+multiple of a block (which the port takes in one call); the general
+form's gradients (autograd through the plain version against ``jax.vjp``
+of the reference's); then the shape rules of K6's wrapper, the kernel the
+wrapper picks for each shape and dtype (the tensor-core or the FMA general
+form, or a base form) with the lengths, widths and scale it passes on, and
+the general backward entry point that ``FlashAttention`` calls.
 
 Tolerance: float32 1e-5 (the same softmax in another summation order);
 bfloat16 2e-2, as K6's.
@@ -91,6 +92,44 @@ def test_blocked_attention_matches_reference(case):
                                want, **F32)
 
 
+#: the general form's gradients: (B, Hq, Hkv, Sq, Sk, Dqk, Dv, causal,
+#: scale): MLA's tiny widths causal, a GQA cross-attention (Sq != Sk), MLA's
+#: widths across Sq != Sk, another scale
+GRAD_CASES = {
+    "mla_causal": (2, 4, 4, 24, 24, 24, 16, True, None),
+    "cross": (2, 4, 2, 8, 40, 16, 16, False, None),
+    "cross_mla_widths": (1, 4, 1, 16, 40, 24, 16, False, None),
+    "scale": (1, 4, 4, 32, 32, 16, 16, True, 0.3),
+}
+
+
+@pytest.mark.parametrize("case", list(GRAD_CASES))
+def test_general_form_gradients_match_reference(case):
+    """Autograd through ``gqa_attention_ref`` (the plain version of K6's
+    general backward, which the card's kernels are held to) against
+    ``jax.vjp`` of the reference's ``blocked_attention`` (in blocks of 8
+    queries and 8 keys, so its recurrence crosses blocks), dq, dk and dv
+    within 1e-5 x the gradient's max |value|, float32."""
+    import jax
+
+    b, hq, hkv, sq, sk, dqk, dv, causal, scale = GRAD_CASES[case]
+    q, k, v = inputs(b, hq, hkv, sq, sk, dqk, dv, seed=5)
+    do = np.random.default_rng(6).standard_normal(
+        (b, hq, sq, dv)).astype(np.float32)
+    _, vjp = jax.vjp(lambda q, k, v: jax_blocked(
+        q, k, v, causal=causal, scale=scale, block_q=8, block_k=8),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(do))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    got = torch.autograd.grad(gqa_attention_ref(tq, tk, tv, causal, scale),
+                              (tq, tk, tv), torch.from_numpy(do))
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g.numpy(), w, rtol=0,
+                                   atol=1e-5 * np.abs(w).max())
+
+
 def test_bfloat16_matches_reference():
     q, k, v = inputs(2, 4, 4, 32, 32, 24, 16, seed=4)
     tb = [torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)]
@@ -106,27 +145,6 @@ def test_causal_needs_equal_lengths():
         gqa_attention_ref(q, k, v, True)
 
 
-def test_k6_wrapper_refuses_shapes_no_form_takes(monkeypatch):
-    """With the device check bypassed, the wrapper's shape rules raise
-    before anything is built: a (Dqk, Dv) pair with no form, causal with
-    Sq != Sk; the backward's Function refuses every general shape (its
-    backward covers the base forms only)."""
-    monkeypatch.setattr(build, "require_cuda", lambda *a, **kw: None)
-    monkeypatch.setattr(build, "load", lambda: pytest.fail("built"))
-    q, k, v = (torch.from_numpy(a) for a in inputs(1, 2, 2, 8, 8, 48, 32))
-    with pytest.raises(ValueError, match="not one of K6's forms"):
-        k6.flash_attention_cuda(q, k, v, False)
-    q, k, v = (torch.from_numpy(a) for a in inputs(1, 2, 2, 8, 16, 16, 16))
-    with pytest.raises(ValueError, match="Sq == Sk"):
-        k6.flash_attention_cuda(q, k, v, True)
-    for shapes, scale in (((1, 2, 2, 8, 8, 24, 16), None),
-                          ((1, 2, 2, 8, 16, 16, 16), None),
-                          ((1, 2, 2, 8, 8, 16, 16), 0.5)):
-        q, k, v = (torch.from_numpy(a) for a in inputs(*shapes))
-        with pytest.raises(NotImplementedError, match="K6's backward"):
-            k6.FlashAttention.apply(q, k, v, False, scale)
-
-
 class _Recorder:
     """Stands in for K6's loaded library: records each entry point called
     with its arguments and returns 0 (no error)."""
@@ -138,6 +156,50 @@ class _Recorder:
         if not name.startswith("flash_attention"):
             raise AttributeError(name)
         return lambda *args: self.calls.append((name, args)) or 0
+
+
+def test_k6_wrapper_refuses_shapes_no_form_takes(monkeypatch):
+    """With the device check bypassed, the wrapper's shape rules raise
+    before anything is built: a (Dqk, Dv) pair with no form, causal with
+    Sq != Sk. Then, with the library replaced by a recorder, the backward
+    of ``FlashAttention`` on each general shape (MLA's tiny widths, Sq !=
+    Sk, another scale) calls the general backward entry point once with
+    (Sq, Sk, Dqk, Dv) and the forward's scale, and counts it under
+    ``k6bwd_gen``."""
+    monkeypatch.setattr(build, "require_cuda", lambda *a, **kw: None)
+    monkeypatch.setattr(build, "load", lambda: pytest.fail("built"))
+    q, k, v = (torch.from_numpy(a) for a in inputs(1, 2, 2, 8, 8, 48, 32))
+    with pytest.raises(ValueError, match="not one of K6's forms"):
+        k6.flash_attention_cuda(q, k, v, False)
+    q, k, v = (torch.from_numpy(a) for a in inputs(1, 2, 2, 8, 16, 16, 16))
+    with pytest.raises(ValueError, match="Sq == Sk"):
+        k6.flash_attention_cuda(q, k, v, True)
+    lib = _Recorder()
+    monkeypatch.setattr(build, "load", lambda: {
+        "flash_attention": lib, "flash_attention_bwd": lib})
+    monkeypatch.setattr(build, "stream_of", lambda t: 7)
+    for shapes, causal, scale in (((1, 2, 2, 8, 8, 24, 16), True, None),
+                                  ((1, 4, 2, 8, 16, 16, 16), False, None),
+                                  ((1, 2, 2, 8, 8, 16, 16), False, 0.5)):
+        monkeypatch.setattr(build, "LAUNCHES",
+                            dict.fromkeys(build.LAUNCHES, 0))
+        lib.calls.clear()
+        b, hq, hkv, sq, sk, dqk, dv = shapes
+        q, k, v = (torch.from_numpy(a).requires_grad_()
+                   for a in inputs(*shapes))
+        out = k6.FlashAttention.apply(q, k, v, causal, scale)
+        out.sum().backward()
+        assert [c[0] for c in lib.calls] == [
+            "flash_attention_gen_launch", "flash_attention_bwd_gen_launch"]
+        assert build.LAUNCHES == {**dict.fromkeys(build.LAUNCHES, 0),
+                                  "k6gen": 1, "k6bwd_gen": 1}
+        assert q.grad.shape == q.shape and k.grad.shape == k.shape \
+            and v.grad.shape == v.shape
+        args = lib.calls[1][1]
+        assert args[:3] == (q.data_ptr(), k.data_ptr(), v.data_ptr())
+        assert args[10:19] == (b, hq, hkv, sq, sk, dqk, dv, int(causal), 0)
+        want = 1.0 / math.sqrt(dqk) if scale is None else scale
+        assert args[19] == want and args[20] == 7
 
 
 #: (dtype, shapes as in ``inputs``, causal, scale) -> (entry point, the

@@ -5,12 +5,14 @@ steps with per-slot positions (self-attention over the cache, then
 cross-attention over the whole source: one query row, K5's plain version
 on the CPU), the enc-dec branches of ``make_prefill`` and
 ``make_decode_step``, the teacher-forced ``decode_train`` (cross-attention
-over many rows through ``blocked_attention``) and ``seq2seq_loss`` in the
-forward, and the parameter and cache bridges, which round-trip every leaf.
-The reference's norm scales are perturbed before they cross.
+over many rows through ``blocked_attention``), ``seq2seq_loss`` and its
+gradients, two train steps against the reference's jitted step, the
+training CLI on it, and the parameter and cache bridges, which round-trip
+every leaf. The reference's norm scales are perturbed before they cross.
 
 Tolerances: float32 1e-5 for hidden states and K/V, 2e-4 for logits and
-the loss (as tests/test_torch_models.py); bridges exact.
+the loss (as tests/test_torch_models.py); gradients 2e-4 x a leaf's max
+|g| and train steps as tests/test_torch_train.py's; bridges exact.
 """
 
 import dataclasses
@@ -215,18 +217,157 @@ def test_cache_bridge_round_trips_every_leaf(seamless_tiny):
 
 
 def test_training_refused_and_serve_main_exits(seamless_tiny):
-    """Its training raises, naming the queue; the serve CLI exits for an
-    encoder-decoder config, as the reference's does."""
+    """Its training is no longer refused: ``registry.loss_fn`` is the
+    sequence-to-sequence loss on a ``src_embeds``/``tgt_tokens``/
+    ``labels`` batch, equal to ``seq2seq_loss``, and ``make_train_step``
+    builds; the serve CLI still exits for an encoder-decoder config, as the
+    reference's does."""
     from repro_torch.launch import serve
     from repro_torch.launch.steps import make_train_step
 
-    _, tcfg, _, _ = seamless_tiny
-    for call in (lambda: tregistry.loss_fn(tcfg),
-                 lambda: make_train_step(tcfg, device="cpu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md §1"):
-            call()
+    _, tcfg, tree, src = seamless_tiny
+    params = encdec_params_from_numpy(tcfg, tree)
+    tgt = np.arange(24, dtype=np.int32).reshape(2, 12) % tcfg.vocab
+    batch = {"src_embeds": torch.from_numpy(src),
+             "tgt_tokens": torch.from_numpy(tgt),
+             "labels": torch.from_numpy((tgt + 1) % tcfg.vocab)}
+    loss, metrics = tregistry.loss_fn(tcfg)(params, batch, torch.float32)
+    want, _ = tencdec.seq2seq_loss(tcfg, params, *batch.values())
+    assert float(loss) == float(want) and int(metrics["tokens"]) == 24
+    assert callable(make_train_step(tcfg, device="cpu"))
     with pytest.raises(SystemExit, match="encoder-decoder"):
         serve.main(["--arch", SEAMLESS, "--tiny", "--device", "cpu"])
+
+
+def seq2seq_batch(tcfg, src, seed=3, s_tgt=12):
+    rng = np.random.default_rng(seed)
+    tgt = rng.integers(0, tcfg.vocab, size=(src.shape[0], s_tgt)).astype(
+        np.int32)
+    labels = rng.integers(0, tcfg.vocab, size=tgt.shape).astype(np.int32)
+    labels[0, :3] = -100
+    return {"src_embeds": src, "tgt_tokens": tgt, "labels": labels}
+
+
+def assert_leaves_close(got, want, rel):
+    flat_got = jax.tree_util.tree_leaves_with_path(got)
+    flat_want = jax.tree_util.tree_leaves_with_path(want)
+    assert [p for p, _ in flat_got] == [p for p, _ in flat_want]
+    for (path, g), (_, w) in zip(flat_got, flat_want):
+        w = np.asarray(w, np.float32)
+        assert g.shape == w.shape, path
+        np.testing.assert_allclose(np.asarray(g, np.float32), w, rtol=0,
+                                   atol=rel * max(np.abs(w).max(), 1e-12),
+                                   err_msg=str(path))
+
+
+def test_seq2seq_loss_and_grads_match_reference(seamless_tiny):
+    """``registry.loss_fn`` of the encoder-decoder config through
+    ``loss_and_grads`` against ``jax.value_and_grad`` of the reference's
+    ``seq2seq_loss``, S_src 20 against S_tgt 12: the loss within 1e-5
+    relative, every gradient leaf (the port's per-layer lists stacked as
+    the reference's [L, ...]) within 2e-4 x its max |g|, float32."""
+    from repro_torch.launch.steps import loss_and_grads
+
+    jcfg, tcfg, tree, src = seamless_tiny
+    batch = seq2seq_batch(tcfg, src)
+    (wl, wm), wg = jax.jit(jax.value_and_grad(
+        lambda p: jencdec.seq2seq_loss(
+            jcfg, p, *(jnp.asarray(batch[k]) for k in
+                       ("src_embeds", "tgt_tokens", "labels"))),
+        has_aux=True))(jax.tree.map(jnp.asarray, tree))
+    params = encdec_params_from_numpy(tcfg, tree)
+    gl, gm, gg = loss_and_grads(
+        tregistry.loss_fn(tcfg), params,
+        {k: torch.from_numpy(v) for k, v in batch.items()}, torch.float32)
+    assert float(gl) == pytest.approx(float(wl), rel=1e-5)
+    assert int(gm["tokens"]) == int(wm["tokens"]) == 21
+    assert_leaves_close(encdec_params_to_numpy(tcfg, gg), np_tree(wg), 2e-4)
+
+
+def test_train_steps_match_reference(seamless_tiny):
+    """Two steps of ``make_train_step`` (cosine schedule with warm-up,
+    float32) against the reference's jitted step on tiny seamless: every
+    metric within 1e-5 relative, parameters within 1e-6, both AdamW
+    moments within 1e-5 x their leaf's max |value|. The reference decays
+    every leaf of ndim >= 2 of its stacked tree, so every leaf of an
+    encoder or decoder layer (``encdec.weight_decay_mask``), and the step
+    here runs with weight decay 0.1 so that the mask shows."""
+    from repro.launch.steps import make_train_step as jax_make_train_step
+    from repro.optim import adamw as jadamw
+    from repro.optim import schedules as jsched
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw as tadamw
+    from repro_torch.optim import schedules as tsched
+
+    jcfg, tcfg, tree, src = seamless_tiny
+    jopt = jadamw.AdamWConfig(weight_decay=0.1)
+    topt = tadamw.AdamWConfig(weight_decay=0.1)
+    jstep = jax.jit(jax_make_train_step(
+        jcfg, schedule=jsched.make("cosine", 1e-3, 10, warmup=1),
+        opt_cfg=jopt, dtype=jnp.float32))
+    tstep = make_train_step(
+        tcfg, schedule=tsched.make("cosine", 1e-3, 10, warmup=1),
+        opt_cfg=topt, dtype=torch.float32, device="cpu")
+    jp = jax.tree.map(jnp.asarray, tree)
+    jo = jadamw.init(jp)
+    tp = encdec_params_from_numpy(tcfg, tree)
+    to = tadamw.init(tp)
+    mask = tencdec.weight_decay_mask(tcfg, tp)
+    assert all(all(tadamw.tree_leaves(layer)) for layer in mask["dec"])
+    assert mask["embed"]["table"] and not mask["final_norm"]["scale"]
+    for step in range(2):
+        batch = seq2seq_batch(tcfg, src, seed=10 + step)
+        jp, jo, jm = jstep(jp, jo, {k: jnp.asarray(v)
+                                    for k, v in batch.items()})
+        tp, to, tm = tstep(tp, to, batch)
+        assert set(tm) == set(jm)
+        for k in jm:
+            assert float(tm[k]) == pytest.approx(float(jm[k]), rel=1e-5,
+                                                 abs=1e-7), k
+    assert int(to["count"]) == int(jo["count"]) == 2
+    np.testing.assert_allclose(
+        np.concatenate([a.ravel() for a in jax.tree.leaves(
+            encdec_params_to_numpy(tcfg, tp))]),
+        np.concatenate([np.asarray(a).ravel() for a in jax.tree.leaves(jp)]),
+        rtol=0, atol=1e-6)
+    for key in ("m", "v"):
+        assert_leaves_close(encdec_params_to_numpy(tcfg, to[key]),
+                            np_tree(jo[key]), 1e-5)
+
+
+def test_train_cli_runs_seamless_as_a_direct_loop(tmp_path, capsys):
+    """``python -m repro_torch.launch.train --arch seamless-m4t-medium
+    --tiny --steps 2 --device cpu`` runs, and the losses it checkpoints
+    each step (at full precision) equal those of a direct loop of
+    ``make_train_step`` over the same seed, schedule and batches."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import AdamWConfig, adamw_init, schedules
+
+    ckpt = tmp_path / "ckpt"
+    train.main(["--arch", SEAMLESS, "--tiny", "--steps", "2", "--device",
+                "cpu", "--batch", "2", "--seq", "16", "--log-every", "1",
+                "--checkpoint-every", "1", "--ckpt-dir", str(ckpt)])
+    out = capsys.readouterr().out
+    assert "done: 2 steps" in out
+    cli = []
+    for step in (1, 2):
+        with open(ckpt / f"step_{step:09d}" / "manifest.json") as f:
+            import json
+            cli.append(json.load(f)["extra"]["loss"])
+    cfg = get_config(SEAMLESS).tiny()
+    params = tregistry.init_params(cfg, 0, device="cpu")
+    opt = adamw_init(params)
+    step_fn = make_train_step(cfg, schedule=schedules.make("cosine", 3e-4, 2),
+                              opt_cfg=AdamWConfig(), dtype=torch.float32,
+                              device="cpu")
+    source = SyntheticLM(cfg, 2, 16, seed=0)
+    direct = []
+    for i in range(2):
+        params, opt, m = step_fn(params, opt, source.batch_at(i))
+        direct.append(float(m["loss"]))
+    assert cli == direct
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

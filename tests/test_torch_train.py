@@ -3,10 +3,11 @@
 The same seeded numpy inputs go through both packages on the CPU, in
 float32: the LR schedules, AdamW and the int8 error-feedback compression
 on a small tree, the synthetic data pipeline, the chunked cross entropy
-and its gradients, ``lm_loss`` and its gradients on three tiny models
+and its gradients, ``lm_loss`` and its gradients on six tiny models
 (minicpm-2b with a tied head, qwen3-14b with GQA and qk-norm,
-phi3.5-moe with the MoE aux loss) and under each activation
-checkpointing form, two steps of ``make_train_step`` against the
+phi3.5-moe with the MoE aux loss, jamba's Mamba layers, deepseek-v3's
+MLA, xlstm's mLSTM/sLSTM, also across its remat chunk) and under each
+activation checkpointing form, every config's loss and train step built, two steps of ``make_train_step`` against the
 reference's jitted step, and the training CLI's crash and resume.
 
 Tolerances: schedules and the optimizer on a small tree 1e-6 relative
@@ -71,7 +72,8 @@ ROOT = Path(__file__).resolve().parents[1]
 REL = 1e-5        # losses
 GRAD = 2e-4       # gradients, x the leaf's max |g|
 OPT = 1e-6        # schedules and the optimizer on a small tree
-TRAIN_ARCHS = ["minicpm-2b", "qwen3-14b", "phi3.5-moe-42b-a6.6b"]
+TRAIN_ARCHS = ["minicpm-2b", "qwen3-14b", "phi3.5-moe-42b-a6.6b",
+               "jamba-v0.1-52b", "deepseek-v3-671b", "xlstm-1.3b"]
 
 
 def leaves_with_path(tree):
@@ -273,17 +275,18 @@ def perturbed_params(jcfg, seed):
     return jax.tree_util.tree_map_with_path(bump, tree)
 
 
-def check_lm_loss(arch, remat="none"):
+def check_lm_loss(arch, remat="none", s=24):
     import dataclasses
 
     jcfg = dataclasses.replace(JAX_ARCHS[arch].tiny(), remat=remat)
     tcfg = dataclasses.replace(ARCHS[arch].tiny(), remat=remat)
     tree = perturbed_params(jcfg, 1)
-    toks, labels = lm_inputs(jcfg, 2)
+    toks, labels = lm_inputs(jcfg, 2, s=s)
 
     def jf(p):
         return jlm.lm_loss(jcfg, p, jnp.asarray(toks), jnp.asarray(labels))
-    (jl, jm), jg = jax.value_and_grad(jf, has_aux=True)(
+    # jitted: the same gradients, compiled once instead of op by op
+    (jl, jm), jg = jax.jit(jax.value_and_grad(jf, has_aux=True))(
         jax.tree.map(jnp.asarray, tree))
     params = lm_params_from_numpy(tcfg, tree, device="cpu")
     tl, tm, tg = loss_and_grads(
@@ -301,8 +304,20 @@ def check_lm_loss(arch, remat="none"):
 
 @pytest.mark.parametrize("arch", TRAIN_ARCHS)
 def test_lm_loss_and_grads_match_reference(arch):
+    """Every decoder-only family: dense GQA (minicpm, qwen3), MoE
+    (phi3.5-moe), Mamba + MoE (jamba: on the card K7's backward), MLA +
+    MoE (deepseek-v3: K6's general backward) and mLSTM/sLSTM (xlstm); the
+    MoE aux loss is > 0 exactly where a layer has an MoE FFN."""
     tm = check_lm_loss(arch)
-    assert (float(tm["aux_loss"]) > 0) == (arch.startswith("phi"))
+    moe = any(f == "moe" for _, f in tlm.layer_kinds(ARCHS[arch].tiny()))
+    assert (float(tm["aux_loss"]) > 0) == moe
+
+
+def test_xlstm_lm_loss_crosses_the_remat_chunk():
+    """xlstm at S = 70: its mLSTM layers scan a chunk of 64 under
+    checkpoint and a tail of 6 (``scan_utils.chunked_scan``), the loss
+    and every gradient against the reference's own chunked scan."""
+    check_lm_loss("xlstm-1.3b", s=70)
 
 
 @pytest.mark.parametrize("remat", ["full", "dots"])
@@ -313,14 +328,17 @@ def test_activation_checkpointing_keeps_loss_and_grads(remat):
 
 
 def test_lm_loss_and_train_step_refuse_untrainable_families():
-    for arch in ("jamba-v0.1-52b", "deepseek-v3-671b", "xlstm-1.3b",
-                 "seamless-m4t-medium"):
+    """No family is refused any more: every registry config builds its
+    ``loss_fn`` (``seq2seq_loss`` for the encoder-decoder, ``lm_loss`` for
+    the others) and its ``make_train_step``, as the reference's do; and
+    ``lm_loss`` still refuses the encoder-decoder config, which is
+    ``models.encdec``'s."""
+    for arch in ARCHS:
         cfg = ARCHS[arch].tiny()
-        match = "K7's backward" if arch.startswith("jamba") else "ROADMAP"
-        with pytest.raises(NotImplementedError, match=match):
-            tlm.lm_loss(cfg, None, None, None)
-        with pytest.raises(NotImplementedError, match=match):
-            make_train_step(cfg, device="cpu")
+        assert callable(tregistry.loss_fn(cfg)), arch
+        assert callable(make_train_step(cfg, device="cpu")), arch
+    with pytest.raises(NotImplementedError, match="encoder-decoder"):
+        tlm.lm_loss(ARCHS["seamless-m4t-medium"].tiny(), None, None, None)
 
 
 # ------------------------------------------------------------- the step ----

@@ -1,7 +1,8 @@
 """The xLSTM mixers and tiny xlstm-1.3b of the PyTorch port against the
 reference package: the port's scan against the reference's
 ``chunked_scan`` with T = 150 in chunks of 64 (two chunks and a tail) and
-short of one chunk, ``mlstm_full`` and
+short of one chunk, the port's own ``chunked_scan`` (its remat) against
+its one loop ``scan``, values and gradients, ``mlstm_full`` and
 ``slstm_full`` (output and final float32 state), their one-token decodes
 from a carried state (updated in place), tiny xlstm's forward, prefill
 logits and states and decode steps, and its ``serve_loop`` (tokens, join
@@ -131,6 +132,54 @@ def test_chunked_scan_matches_reference(t):
     assert gy.shape == (t,)
     np.testing.assert_array_equal(gc.numpy(), np.asarray(wc))
     np.testing.assert_array_equal(gy.numpy(), np.asarray(wy))
+
+
+@pytest.mark.parametrize("t", [40, 64, 150], ids=["below_a_chunk",
+                                                  "one_chunk",
+                                                  "two_chunks_and_a_tail"])
+def test_chunked_remat_scan_matches_scan(t):
+    """``chunked_scan`` (chunks of 64 under checkpoint, then a plain tail)
+    against the one loop ``scan`` through the mLSTM step: under
+    ``torch.no_grad()`` (serving) the carry and ys bit for bit, the carry
+    updated in place as ``scan`` updates it; with grad, the same values
+    bit for bit and every input's gradient, the initial carry's included,
+    within 1e-6 x its max |g| (the backward recomputes each chunk's steps,
+    the same operations, and adds them in the same order)."""
+    rng = np.random.default_rng(t)
+    b, h, dh = 2, 2, 4
+    xs = [rng.standard_normal((t, b, h, dh)).astype(np.float32)
+          for _ in range(3)]
+    xs += [rng.standard_normal((t, b, h)).astype(np.float32),
+           np.log(1 / (1 + np.exp(-rng.standard_normal((t, b, h)) - 2)))
+           .astype(np.float32)]
+    init = [rng.standard_normal((b, h, dh, dh)).astype(np.float32),
+            rng.standard_normal((b, h, dh)).astype(np.float32),
+            rng.standard_normal((b, h)).astype(np.float32)]
+    weight = torch.from_numpy(rng.standard_normal((t, b, h, dh)).astype(
+        np.float32))
+
+    def run(scan, grad):
+        ins = [torch.from_numpy(a.copy()).requires_grad_(grad)
+               for a in xs + init]
+        carry, ys = scan(txlstm._mlstm_step, tuple(ins[5:]), tuple(ins[:5]))
+        if not grad:
+            return carry, ys, ins[5:]
+        loss = (ys * weight).sum() + sum(c.sum() for c in carry)
+        return carry, ys, torch.autograd.grad(loss, ins)
+
+    chunked = functools.partial(tscan.chunked_scan, chunk=64)
+    with torch.no_grad():
+        wc, wy, _ = run(tscan.scan, False)
+        gc, gy, given = run(chunked, False)
+    assert torch.equal(gy, wy) and all(map(torch.equal, gc, wc))
+    assert all(c is g for c, g in zip(gc, given))  # updated in place
+    wc, wy, wg = run(tscan.scan, True)
+    gc, gy, gg = run(chunked, True)
+    assert gy.shape == (t, b, h, dh)
+    assert torch.equal(gy, wy) and all(map(torch.equal, gc, wc))
+    for g, w in zip(gg, wg):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0,
+                                   atol=1e-6 * float(w.abs().max()))
 
 
 @pytest.fixture(scope="module")
