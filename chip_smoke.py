@@ -13,13 +13,14 @@ Phases (any failed check exits non-zero):
    forms and the k-banks-a-thread form), K6's kernels and its backward's,
    K5's D = 128 kernels and K7's production kernels from the ``-Xptxas
    -v`` logs (K6's tensor-core kernels at (64, 64), (128, 128) and (192,
-   128) with no spill; K7's backward's eight kernels and the twelve FMA
+   128) with no spill; the six tensor-core kernels of K6's backward, dK/dV
+   and dQ at the same pairs, K7's backward's eight kernels and the six FMA
    instances of K6's backward that only its general form takes, none
    spilling), the count of ``HGMMA`` instructions in
    ``cuobjdump -sass`` of each of those three kernels (at least one a k
    step of a tile's two products; none in K6's FMA kernels) and of each
-   tensor-core kernel of K6's backward (at least one a k step of a tile's
-   products, and no global atomic), and K7's bf16
+   of the six tensor-core kernels of K6's backward (at least one a k step
+   of a tile's products, and no global atomic), and K7's bf16
    S = 16 kernel's ``MUFU.EX2`` count (at least one
    per element of a thread's chunk: exp on the SFUs) and instructions per
    ``EX2``; no global atomic in ``cuobjdump -sass`` of K7's backward;
@@ -28,18 +29,20 @@ Phases (any failed check exits non-zero):
    {1, 4}, channels in {1, 2}, S in {1, 3}, T in {1, 2}, and channels of
    4, 16, 32 and 64 banks (both arbiter reduction paths); two 500-cycle K3
    rollouts that feed the kernel's outputs back in; then K3's persistent
-   form ``fused_run`` against ``fused_run_plain``, the whole ``SimState``
-   bit for bit (sink slots stripped), on the four traces at 3000 cycles
-   (conv2d also cut into launches of 7 steps), on a DVFS schedule with an
-   open-page FR-FCFS segment, on a two-tier topology (64 banks, block
-   barriers), on 512 banks at 1500 cycles (bank-queue rings in device
-   memory), at queue 8192 / respQueue 8192 (and the response ring), at
-   queue 16384 / respQueue 16384 (and the request ring) and on a schedule
-   of 4096 one-cycle segments (longer than a launch holds: launches over
-   slices of it, more than one); then lanes above
-   1024 banks (k = B / 1024 banks a thread): 2 channels x 2 ranks x 16 x
-   32 (two channels of 1024), 1 x 2 x 32 x 32 (one channel of 2048), 2 x
-   4 x 16 x 32 (4096 banks, k = 4), 2 x 4 x 32 x 32 (8192 banks, k = 8),
+   form ``fused_run`` against ``fused_run_plain`` (its steps replayed
+   from CUDA graphs where a step's successor lies in its segment), the
+   whole ``SimState`` bit for bit (sink slots stripped), on the four
+   traces at 3000 cycles (conv2d also cut into launches of 7 steps), on a
+   DVFS schedule with an open-page FR-FCFS segment, on a two-tier
+   topology (64 banks, block barriers), on 512 banks at 1500 cycles
+   (bank-queue rings in device memory), at queue 8192 / respQueue 8192
+   (and the response ring), at queue 16384 / respQueue 16384 (and the
+   request ring) and on a schedule of 4096 one-cycle segments at 2000
+   (longer than a launch holds: launches over slices of it, more than
+   one); then lanes above 1024 banks (k = B / 1024 banks a thread): 2
+   channels x 2 ranks x 16 x 32 (two channels of 1024), 1 x 2 x 32 x 32
+   (one channel of 2048), 2 x 4 x 16 x 32 (4096 banks, k = 4), 2 x 4 x
+   32 x 32 (8192 banks, k = 8),
    8 x 8 x 32 x 32 (65 536 banks, k = 64, the bank-queue heads and counts
    in device memory too) and 16 x 8 x 32 x 32 (131 072 banks, k = 128),
    K3's per-step form against plain at lanes 1 and 2, and ``fused_run``
@@ -307,15 +310,22 @@ Phases (any failed check exits non-zero):
    (each float32 and bf16) and (1, 4096, 256, 16) with dt A near 0; a
    second launch bit-identical; its device time at jamba's shape (CUDA
    events) beside its plain version and the bound (no library call
-   computes it); (b) K6's backward at its general form (the FMA kernels
-   of ``flash_attention_bwd_gen_launch``, under ``k6bwd_gen``) against
+   computes it); (b) K6's backward at its general form (bf16 at (64,
+   64), (128, 128) and (192, 128): the tensor-core kernels of
+   ``flash_attention_bwd_gen_tc_launch``, under ``k6bwd_gen_tc``; float32
+   and the tiny widths: the FMA kernels of
+   ``flash_attention_bwd_gen_launch``, under ``k6bwd_gen``) against
    autograd through ``gqa_attention_ref`` (phase 17's gates) at MLA's
    (2, 128/128, 1024, 192/128) causal bf16 (float32 on 16 heads), the
    cross shape (4, 16/16, Sq 256, Sk 1000, 64), the tiny (24, 16), an
-   explicit scale 0.5 and GQA across Sq != Sk, and seamless's encoder
-   shape through the base form's backward; each launch under its form's
-   key, a second launch bit-identical; device times at MLA's and the
-   cross shape beside the bound, the plain version and SDPA's backward;
+   explicit scale 0.5, GQA across Sq != Sk at (192, 128) and at (128,
+   128) with a scale of 0.2, (192, 128) at lengths that leave the dQ
+   kernel's second warpgroup past Sq (causal S 130; GQA Sq 40 against Sk
+   133, scale 0.3), and seamless's encoder shape through the base form's
+   backward; each launch under its form's key, a second
+   launch bit-identical; device times at MLA's and the cross shape, and
+   each of the three kernels' by the profiler, beside the bound, the
+   plain version and SDPA's backward;
    (c) four families at their published widths, float32 masters drawn on
    the card, bf16 compute, each freed before the next: jamba-v0.1 (8 of
    32 layers, 2 of 16 experts top-2; B 2 x S 1024), deepseek-v3 (its 3
@@ -328,7 +338,8 @@ Phases (any failed check exits non-zero):
    (cosine), each kernel's launches a step held to the model's layers
    (jamba: K7 14, K7's backward 7, K6 2, K6's backward 1; deepseek: the
    general form 3, its backward 3; seamless: K6 24, K6's backward 24, the
-   general form 12, its backward 12), the median wall of steps 2-3,
+   general form 12, its backward 12; both general forms on the tensor
+   cores), the median wall of steps 2-3,
    tokens/s and peak allocated memory.
 
 ``python3 chip_smoke.py --split-times CHECKOUT`` runs only the split
@@ -347,9 +358,10 @@ shapes, of the port in another checkout (A B B A, as below).
 
 ``python3 chip_smoke.py --k6-gen-times CHECKOUT`` runs only K6's general
 form at MLA's shape, its base forms at qwen3-14b's and minicpm-2b's bf16
-shapes (device µs a launch) and deepseek-v3's 4-layer prefill of 2 x 1024
-(wall ms, three runs), of the port in another checkout (A B B A, as
-below).
+shapes, K6's general backward at MLA's and the cross shape and its base
+forms' backward at minicpm-2b's and qwen3-14b's bf16 shapes (device µs a
+launch) and deepseek-v3's 4-layer prefill of 2 x 1024 (wall ms, three
+runs), of the port in another checkout (A B B A, as below).
 
 ``python3 chip_smoke.py --train-kernel-times CHECKOUT`` runs only K7's
 forward at jamba's training shape and K6's base-form backward at
@@ -361,6 +373,7 @@ single-lane persistent K3's time per step (four traces at 100k cycles,
 three launches each) of the port in another checkout, so that two
 checkouts compare on one card, each in its own process (A B B A).
 
+Before them the script prints each phase's wall in seconds and the total.
 The second-to-last lines are the kernel JSON object and the card line of
 ``nvidia-smi``; the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -545,10 +558,15 @@ def phase_device():
         if name == "flash_attention_bwd":
             gen = {r[0]: r[3] for r in rows if "simt::" in r[0] and any(
                 f"{p}>" in r[0] for p in K6_BWD_GEN_NEW)}
-            check(len(gen) == 12 and all(v == "0/0" for v in gen.values()),
+            check(len(gen) == 6 and all(v == "0/0" for v in gen.values()),
                   f"the general backward's FMA instances new in its "
-                  f"template, spill stores/loads: {gen} (want 12, none "
+                  f"template, spill stores/loads: {gen} (want 6, none "
                   f"spilling)")
+            tc = {r[0]: r[3] for r in rows if "tc::" in r[0]}
+            check(sorted(tc) == sorted(K6_BWD_TC_KERNELS) and all(
+                v == "0/0" for v in tc.values()), f"K6's backward's "
+                f"tensor-core kernels, spill stores/loads: {tc} (want "
+                f"{sorted(K6_BWD_TC_KERNELS)}, none spilling)")
         if name == "selective_scan_bwd":
             check(len(rows) == 8 and all(r[3] == "0/0" for r in rows),
                   f"K7's backward kernels, spill stores/loads: "
@@ -566,11 +584,16 @@ def phase_device():
 
 
 #: the (DQK, DV) pairs of K6's backward's FMA template that only the
-#: general form instantiates: MLA's two and bf16 at the tensor-core base
-#: widths (their dK/dV and dQ kernels, float32 and bf16: 12 kernels)
+#: general form instantiates: the tests' (24, 16) in float32 and bf16 and
+#: MLA's (192, 128) in float32 (their dK/dV and dQ kernels: 6 kernels;
+#: bf16 at the tensor-core pairs takes the tc kernels)
 K6_BWD_GEN_NEW = ("float, 24, 16", "__nv_bfloat16, 24, 16",
-                  "float, 192, 128", "__nv_bfloat16, 192, 128",
-                  "__nv_bfloat16, 64, 64", "__nv_bfloat16, 128, 128")
+                  "float, 192, 128")
+#: K6's backward's tensor-core kernels, (DQK, DV): the base forms' D 64 and
+#: 128 and MLA's (192, 128), base and general forms alike
+K6_BWD_TC_KERNELS = {f"tc::{fn}<{qk}, {vv}>": (fn, qk, vv)
+                     for fn in ("dkdv_kernel", "dq_kernel")
+                     for qk, vv in ((64, 64), (128, 128), (192, 128))}
 
 
 def k7_bwd_sass(lib):
@@ -617,29 +640,28 @@ def k6_fwd_sass(out_dir):
 
 
 def k6_bwd_sass(out_dir):
-    """K6's backward, tensor-core form: its dK/dV and dQ kernels at D 64
-    and 128 each hold HGMMA (every product on wgmma: two SS score products
-    and one or two RS gradient products a tile, D / 16 and 4 k steps each)
-    and no global atomic; the FFMAs left are the softmax's scale and
-    subtract, not a product's loop over D."""
+    """K6's backward, tensor-core form: its dK/dV and dQ kernels at (64,
+    64), (128, 128) and (192, 128) each hold HGMMA (every product on wgmma:
+    two SS score products over DQK / 16 and DV / 16 k steps and one or two
+    RS gradient products of 4 k steps a tile) and no global atomic; the
+    FFMAs left are the softmax's scale and subtract, not a product's loop
+    over D."""
     funcs = sass_functions(out_dir / "libflash_attention_bwd.so")
     rows = []
-    for fn in ("dkdv_kernel", "dq_kernel"):
-        for d in (64, 128):
-            name = f"tc::{fn}<{d}>"
-            ops = funcs.get(name)
-            check(ops is not None, f"{name} not in libflash_attention_bwd.so"
-                  f": {sorted(funcs)[:6]} ...")
-            want = (2 * d // 16 + (8 if fn == "dkdv_kernel" else 4))
-            n = {k: sum(op.startswith(k) for op in ops)
-                 for k in ("HGMMA", "FFMA", "RED.", "ATOMG")}
-            check(n["HGMMA"] >= want, f"{name}: {n['HGMMA']} HGMMA, fewer "
-                  f"than one a k step of a tile's products ({want})")
-            check(n["RED."] == n["ATOMG"] == 0, f"{name}: {n['RED.']} RED and "
-                  f"{n['ATOMG']} ATOMG instructions: the backward must use "
-                  f"no global atomics")
-            rows.append(f"{name} HGMMA {n['HGMMA']} (a tile's k steps "
-                        f"{want}), FFMA {n['FFMA']}, global atomics 0")
+    for name, (fn, qk, vv) in K6_BWD_TC_KERNELS.items():
+        ops = funcs.get(name)
+        check(ops is not None, f"{name} not in libflash_attention_bwd.so"
+              f": {sorted(funcs)[:6]} ...")
+        want = qk // 16 + vv // 16 + (8 if fn == "dkdv_kernel" else 4)
+        n = {k: sum(op.startswith(k) for op in ops)
+             for k in ("HGMMA", "FFMA", "RED.", "ATOMG")}
+        check(n["HGMMA"] >= want, f"{name}: {n['HGMMA']} HGMMA, fewer "
+              f"than one a k step of a tile's products ({want})")
+        check(n["RED."] == n["ATOMG"] == 0, f"{name}: {n['RED.']} RED and "
+              f"{n['ATOMG']} ATOMG instructions: the backward must use "
+              f"no global atomics")
+        rows.append(f"{name} HGMMA {n['HGMMA']} (a tile's k steps "
+                    f"{want}), FFMA {n['FFMA']}, global atomics 0")
     log("[1] libflash_attention_bwd.so: " + "; ".join(rows))
 
 
@@ -984,13 +1006,12 @@ def long_schedule(cfg, segments):
         values=RuntimeParams(*[v[idx] for v in pts])).validate()
 
 
-def run_fused(cfg, trace, cycles, params=None, budget=None, kernel=True,
+def run_fused(cfg, trace, cycles, params=None, budget=None,
               cycle_skip=True):
     """The fused event-horizon loop (``cycle_skip=False``: its per-cycle
-    form) on a fresh state on the card: ``fused_run_cuda`` launches
-    (``kernel``) or ``fused_run_plain``, until ``cycles``. Returns (topo,
-    view, trace, state, steps, launches)."""
-    from repro_torch.core.engine import _sched_i32, fused_run_plain
+    form) on a fresh state on the card: ``fused_run_cuda`` launches until
+    ``cycles``. Returns (topo, view, trace, state, steps, launches)."""
+    from repro_torch.core.engine import _sched_i32
     from repro_torch.core.simulator import ScheduleView, init_state
     from repro_torch.kernels.bank_fsm.fused import fused_run_cuda
 
@@ -999,10 +1020,10 @@ def run_fused(cfg, trace, cycles, params=None, budget=None, kernel=True,
                                          else params), DEVICE)
     tr = trace.to(DEVICE)
     state = init_state(topo, view, tr.num_requests, device=DEVICE)
-    fn = fused_run_cuda if kernel else fused_run_plain
     t = steps = launches = 0
     while t < cycles:
-        t, n = fn(topo, view, tr, state, t, cycles, budget, cycle_skip)
+        t, n = fused_run_cuda(topo, view, tr, state, t, cycles, budget,
+                              cycle_skip)
         steps += n
         launches += 1
     return topo, view, tr, state, steps, launches
@@ -1050,7 +1071,8 @@ def phase_fused_run():
     queues = rings + ("response ring", "request ring")
     # (label, config, trace, params, cycles, kernel budgets, what the
     # launch must keep in device memory); the plain loop runs once a case
-    # (its result does not depend on the budget)
+    # (its result does not depend on the budget), its steps replayed from
+    # CUDA graphs (``run_plain_lane``: the eager steps take ~11 ms each)
     cases = [(name, cfg, BENCHMARKS[name](), None, 3_000,
               (None, 7) if name == "conv2d" else (None,), ())
              for name in sorted(BENCHMARKS)]
@@ -1089,8 +1111,8 @@ def phase_fused_run():
                       400, (None, 7), placed))
     for label, cfg, trace, params, cycles, budgets, placed in cases:
         t0 = time.perf_counter()
-        *_, p_state, p_steps, _ = run_fused(cfg, trace, cycles, params,
-                                            kernel=False)
+        p_state, p_steps = run_plain_lane(
+            run_fused(cfg, trace, 0, params)[:4], cycles, True)
         t_p = time.perf_counter() - t0
         keep_plain(label, True, cycles, p_state, p_steps)
         topo, view, tr, state, _, _ = run_fused(cfg, trace, 0, params)
@@ -3057,7 +3079,6 @@ def phase_stream(drills):
     from repro_torch.kernels.bank_fsm.fused import fused_run_batch_cuda
     from repro_torch.traces import BENCHMARKS
 
-    t_phase = time.perf_counter()
     cfg = MemSimConfig(queue_size=golden.QUEUE_SIZE)
     trace = BENCHMARKS["conv2d"]()
     out = {}
@@ -3268,7 +3289,6 @@ def phase_stream(drills):
             f"{warm['compile_s']:.3f}; t_complete digests equal")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    log(f"[16] phase 16 took {time.perf_counter() - t_phase:.1f} s")
     return out
 
 
@@ -4567,7 +4587,6 @@ def phase_train(drill):
     from repro_torch.models import lm, registry
     from repro_torch.optim import adamw_init, global_norm, schedules
 
-    t_phase = time.perf_counter()
     bf16 = torch.bfloat16
     cfg = get_config("minicpm-2b")
     check(cfg.n_layers == 40 and cfg.d_model == 2304 and cfg.n_heads == 36
@@ -4687,7 +4706,6 @@ def phase_train(drill):
 
     # (c) the fault-tolerance drill of the training CLI, in child processes
     drill.finish()
-    log(f"[17] phase 17 (b)-(c) {time.perf_counter() - t_phase:.1f} s")
     return launches["k6bwd"]
 
 
@@ -5277,9 +5295,14 @@ K7_BWD_TIMED = (2, 1024, 8192, 16)
 #: version: label, b, hq, hkv, sq, sk, dqk, dv, causal, dtype, scale (None:
 #: 1/sqrt(dqk)). deepseek-v3's MLA training shape (bf16; float32 on fewer
 #: heads), seamless's cross-attention (S_tgt 256 against a ragged source),
-#: the tests' tiny MLA widths, an explicit scale, GQA across Sq != Sk; and
-#: seamless's encoder shape, which is a base form (K6's tensor-core
-#: backward)
+#: the tests' tiny MLA widths, an explicit scale, GQA across Sq != Sk at
+#: MLA's widths and at (128, 128) with a scale; MLA's widths at a length
+#: whose last 128-row dQ tile leaves its second warpgroup past Sq (Sq mod
+#: 128 in (0, 64]: the dQ kernel's row guard, a Q/dO box wholly past Sq and
+#: the causal early stop at a ragged length); and seamless's encoder shape,
+#: which is a base form (K6's tensor-core backward). bf16 at a pair of
+#: TC_DIMS runs the general form's tensor-core kernels, float32 and the
+#: tiny widths its FMA kernels
 K6_GEN_BWD_SHAPES = [
     ("mla", 2, 128, 128, 1024, 1024, 192, 128, True, "bfloat16", None),
     ("mla_f32", 1, 16, 16, 1024, 1024, 192, 128, True, "float32", None),
@@ -5290,9 +5313,15 @@ K6_GEN_BWD_SHAPES = [
     ("scale", 2, 4, 4, 64, 64, 64, 64, True, "bfloat16", 0.5),
     ("scale_f32", 2, 8, 2, 33, 50, 16, 16, False, "float32", 0.5),
     ("gqa_cross_mla", 1, 8, 2, 200, 333, 192, 128, False, "bfloat16", None),
+    ("gqa_cross_128", 2, 8, 4, 150, 410, 128, 128, False, "bfloat16", 0.2),
+    ("mla_130", 1, 4, 4, 130, 130, 192, 128, True, "bfloat16", None),
+    ("gqa_cross_mla_40", 1, 8, 2, 40, 133, 192, 128, False, "bfloat16",
+     0.3),
     ("seamless_enc", 4, 16, 16, 1024, 1024, 64, 64, False, "bfloat16",
      None)]
 K6_GEN_BWD_TIMED = ("mla", "cross")
+#: the general backward's launch key by form (``general_form``)
+GEN_BWD_KEY = {"tc": "k6bwd_gen_tc", "fma": "k6bwd_gen"}
 #: phase 19(c): steps timed after the comparison step, the cosine schedule
 FAMILY_STEPS = 3
 #: deepseek-v3's training batch (2 x 1024; 1 if its peak passes 75 GB)
@@ -5445,7 +5474,8 @@ def phase_general_backward():
     import torch.nn.functional as F
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention.flash_attention import (
-        flash_attention_bwd_cuda, flash_attention_cuda, is_base_form)
+        flash_attention_bwd_cuda, flash_attention_cuda, general_form,
+        is_base_form)
     from repro_torch.kernels.flash_attention.ref import gqa_attention_ref
 
     gen = torch.Generator().manual_seed(20)
@@ -5464,7 +5494,7 @@ def phase_general_backward():
         build.reset_launches()
         got = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal, scale)
         again = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal, scale)
-        key = "k6bwd" if base else "k6bwd_gen"
+        key = "k6bwd" if base else GEN_BWD_KEY[general_form(dt_, dqk, dv)]
         check(build.LAUNCHES[key] == 2 and sum(build.LAUNCHES.values()) == 2,
               f"K6 backward at {label} launched {build.LAUNCHES}, want "
               f"{key} = 2")
@@ -5493,8 +5523,13 @@ def phase_general_backward():
             f"(gate {K6_BWD_TOL[name]}); a second launch bit-identical")
         if label not in K6_GEN_BWD_TIMED:
             continue
-        ms = device_ms(lambda: flash_attention_bwd_cuda(
-            q, k, v, o, lse, do, causal, scale), per_graph=2, replays=5)
+
+        def bwd():
+            return flash_attention_bwd_cuda(q, k, v, o, lse, do, causal,
+                                            scale)
+
+        parts, seen = k6_bwd_split(bwd)
+        ms = device_ms(bwd, per_graph=2, replays=5)
         ref = [t.detach().float().requires_grad_() for t in (q, k, v)]
         ref_out = gqa_attention_ref(*ref, causal, scale)
         plain_ms = events_ms(lambda: torch.autograd.grad(
@@ -5521,7 +5556,10 @@ def phase_general_backward():
         bound, by, flops = k6_gen_bwd_bound_ms(
             b, hq, hkv, sq, sk, dqk, dv, causal, 2, BF16_FLOPS_PER_S)
         log(f"[19] (b) K6 general backward at {label}: device "
-            f"{ms * 1e3:.1f} us/launch (CUDA graphs); plain autograd "
+            f"{ms * 1e3:.1f} us/launch (CUDA graphs; row sums "
+            f"{parts['delta_kernel']:.1f} + dK/dV {parts['dkdv_kernel']:.1f}"
+            f" + dQ {parts['dq_kernel']:.1f} us by the profiler, {seen} or "
+            f"more of 10 launches recorded); plain autograd "
             f"{plain_ms * 1e3:.1f} us in float32; SDPA's backward "
             f"{'not measured' if lib_ms is None else f'{lib_ms * 1e3:.1f} us'}"
             f" (its forward + backward less its forward, CUDA graphs; timed "
@@ -5670,7 +5708,7 @@ def phase_family_training():
         f"deepseek-v3-671b ({cfg.n_layers} of {full.n_layers} layers: the "
         f"dense prefix, MLA Dqk 192 / Dv 128, no MoE layer), B {bd} x S "
         f"1024", cfg, lm.init_params, lm_batches(cfg, bd, 1024), bd * 1024,
-        {"k6gen_tc": cfg.n_layers, "k6bwd_gen": cfg.n_layers})
+        {"k6gen_tc": cfg.n_layers, "k6bwd_gen_tc": cfg.n_layers})
     # xlstm-1.3b: one period (7 mLSTM + 1 sLSTM); no kernel on its path
     full = get_config("xlstm-1.3b")
     cfg = dataclasses.replace(full, n_layers=len(full.period))
@@ -5697,19 +5735,16 @@ def phase_family_training():
         f"B {b} x S_src {s_src} / S_tgt {s_tgt} (tokens/s counts target "
         f"tokens)", cfg, encdec.init_params, seamless_batch, b * s_tgt,
         {"k6": cfg.n_enc_layers + n, "k6bwd": cfg.n_enc_layers + n,
-         "k6gen_tc": n, "k6bwd_gen": n})
+         "k6gen_tc": n, "k6bwd_gen_tc": n})
     return out
 
 
 def phase_every_family_trains():
     """Phase 19: K7's backward, K6's general backward, then every family
     the port serves trains on the card."""
-    t0 = time.perf_counter()
-    out = {"k7bwd": phase_scan_backward(),
-           "k6bwd_gen": phase_general_backward(),
-           "families": phase_family_training()}
-    log(f"[19] phase 19 {time.perf_counter() - t0:.1f} s")
-    return out
+    return {"k7bwd": phase_scan_backward(),
+            "k6bwd_gen": phase_general_backward(),
+            "families": phase_family_training()}
 
 
 def k3_step_times():
@@ -5797,7 +5832,10 @@ K6_BASE_TIMED = [("qwen3", 2, 40, 8, 1024, 128), ("minicpm", 4, 36, 36, 1024,
 def k6_gen_times():
     """K6's general form at MLA's prefill shape (phase 18(a)), its base
     forms at ``K6_BASE_TIMED`` (device µs a launch, CUDA graphs, bf16
-    causal) and deepseek-v3 cut to 4 layers prefilling 2 x 1024 (phase
+    causal), K6's general backward at ``K6_GEN_BWD_TIMED`` (phase 19(b)'s
+    MLA and cross shapes) and its base forms' backward at ``K6_BWD_TIMED``
+    (phase 17's minicpm-2b and qwen3-14b bf16 shapes; device µs a launch,
+    CUDA graphs) and deepseek-v3 cut to 4 layers prefilling 2 x 1024 (phase
     18(b)'s cell: wall ms of 3 prefills after a warm-up, and the K6
     launches of one), of the port imported from ``sys.path``: run once per
     checkout, each in its own process, to compare two checkouts on one
@@ -5808,7 +5846,7 @@ def k6_gen_times():
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention.flash_attention import (
-        flash_attention_cuda)
+        flash_attention_bwd_cuda, flash_attention_cuda)
     from repro_torch.launch.steps import make_prefill
     from repro_torch.models import lm
 
@@ -5828,6 +5866,25 @@ def k6_gen_times():
         ms = device_ms(lambda: flash_attention_cuda(q, k, v, True),
                        per_graph=20)
         cells.append(f"base {label} {ms * 1e3:.1f}")
+    bwd = [(f"general bwd {label}", b, hq, hkv, sq, sk, dqk, dv, causal,
+            scale)
+           for label, b, hq, hkv, sq, sk, dqk, dv, causal, _, scale
+           in K6_GEN_BWD_SHAPES if label in K6_GEN_BWD_TIMED]
+    bwd += [(f"base bwd {label}", b, hq, hkv, s, s, d, d, causal, None)
+            for label, b, hq, hkv, s, d, name, causal in K6_BWD_SHAPES
+            if label in K6_BWD_TIMED]
+    for label, b, hq, hkv, sq, sk, dqk, dv, causal, scale in bwd:
+        q, k = randn(gen, (b, hq, sq, dqk), bf16), randn(gen, (b, hkv, sk,
+                                                               dqk), bf16)
+        v, do = randn(gen, (b, hkv, sk, dv), bf16), randn(gen, (b, hq, sq,
+                                                                dv), bf16)
+        lse = torch.empty((b, hq, sq), dtype=torch.float32, device=DEVICE)
+        with torch.no_grad():
+            o = flash_attention_cuda(q, k, v, causal, lse=lse, scale=scale)
+        ms = device_ms(lambda: flash_attention_bwd_cuda(
+            q, k, v, o, lse, do, causal, scale), per_graph=2, replays=10)
+        cells.append(f"{label} {ms * 1e3:.1f}")
+        del o, lse, do
     del q, k, v
     log(f"k6 gen times {where}: " + "; ".join(cells) + " us/launch")
     cfg = dataclasses.replace(get_config("deepseek-v3-671b"),
@@ -5888,36 +5945,43 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     t_start = time.perf_counter()
     drills = []  # 17(c)'s drill, started in phase 16
+    walls = []
+
+    def timed(fn, *args):  # a phase's wall, printed after the run
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls.append(f"{fn.__name__} {time.perf_counter() - t0:.1f}")
+        return out
+
     try:
-        card = phase_device()
-        errs = phase_kernels()
-        errs["k3run"] = phase_fused_run()
-        errs["k3cyc"] = phase_cycle_run()
-        k3run_launches = phase_main_path()
-        split_launches = phase_per_cycle()
-        times = phase_times()
-        run_times, run_plain_ms, cyc_times, cyc_plain_ms = phase_run_times()
-        phase_trace()
-        attn_errs = phase_attention_kernels()
-        llm_launches = phase_serve()
-        attn_times = phase_attention_times()
-        scan_err = phase_scan_kernel()
-        hybrid_launches = phase_jamba()
-        k4_launches, k4_err = phase_addr_map()
-        hybrid_times = phase_hybrid_times()
-        batch = phase_batch()
-        sessions = phase_sessions(run_plain_ms, batch["plain_ms"])
-        topologies = phase_topologies()
-        stream = phase_stream(drills)
+        card = timed(phase_device)
+        errs = timed(phase_kernels)
+        errs["k3run"] = timed(phase_fused_run)
+        errs["k3cyc"] = timed(phase_cycle_run)
+        k3run_launches = timed(phase_main_path)
+        split_launches = timed(phase_per_cycle)
+        times = timed(phase_times)
+        run_times, run_plain_ms, cyc_times, cyc_plain_ms = timed(
+            phase_run_times)
+        timed(phase_trace)
+        attn_errs = timed(phase_attention_kernels)
+        llm_launches = timed(phase_serve)
+        attn_times = timed(phase_attention_times)
+        scan_err = timed(phase_scan_kernel)
+        hybrid_launches = timed(phase_jamba)
+        k4_launches, k4_err = timed(phase_addr_map)
+        hybrid_times = timed(phase_hybrid_times)
+        batch = timed(phase_batch)
+        sessions = timed(phase_sessions, run_plain_ms, batch["plain_ms"])
+        topologies = timed(phase_topologies)
+        stream = timed(phase_stream, drills)
         waited = drills[0].join_first()
         log(f"[17] waited {waited:.1f} s for 17(c)'s first two children "
             f"to end before 17(a)")
-        t17 = time.perf_counter()
-        k6_bwd = phase_attention_backward()
-        k6_bwd["launches"] = phase_train(drills[0])
-        log(f"[17] phase 17 {time.perf_counter() - t17:.1f} s")
-        families = phase_families()
-        trains = phase_every_family_trains()
+        k6_bwd = timed(phase_attention_backward)
+        k6_bwd["launches"] = timed(phase_train, drills[0])
+        families = timed(phase_families)
+        trains = timed(phase_every_family_trains)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -6052,14 +6116,17 @@ def main():
         "bound_by": bound_by, "library_ms": None})
     # K6's backward at its general form, per launch at deepseek-v3's MLA
     # training shape, bf16; its launches those of phase 19(c)'s steps
-    # (deepseek-v3's MLA and seamless's cross-attention)
+    # (deepseek-v3's MLA and seamless's cross-attention), all on the
+    # tensor-core form (the FMA form, float32 and the tiny widths, is held
+    # to its plain version in 19(b) and runs on no training path here)
     fam = trains["families"]
     rec = trains["k6bwd_gen"]
     kernels.append({
         "name": "flash_attention_bwd_general", "route": "cuda",
         "source": src + "flash_attention_bwd.cu",
         "replaces": "src/repro/models/blocked_attention.py:30",
-        "launches": sum(f["launches"]["k6bwd_gen"] for f in fam.values()),
+        "launches": sum(f["launches"]["k6bwd_gen_tc"]
+                        for f in fam.values()),
         "max_abs_err": rec["max_abs_err"], "ms": rec["mla"]["ms"],
         "plain_ms": rec["mla"]["plain_ms"],
         "bound_ms": rec["mla"]["bound_ms"],
@@ -6076,6 +6143,7 @@ def main():
         "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
         "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
         "bound_by": rec["bound_by"], "library_ms": None})
+    log("walls (s): " + "; ".join(walls))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -22,77 +22,92 @@
 // deterministic: two launches on the same inputs give the same bits, and a
 // resumed training run keeps its trajectory.
 //
-// Three kernels, launched in order on one stream by
-// flash_attention_bwd_launch:
+// Three kernels, launched in order on one stream by each entry point:
 //
 // 1. delta_kernel (both forms): Dl = rowsum(dO * O) in float32, a row
 //    read by D / 8 (bf16) or D / 4 (float32) threads in 16-byte loads, a
 //    memory pass (~38 MB at minicpm's shape). For the tensor-core form it
 //    also writes the forward's LSE (natural log) times log2 e, and both
-//    arrays are padded to Sp = ceil(S / 64) * 64 rows a head with zeros, so
-//    that a 64-row tile of either is one aligned bulk copy.
+//    arrays are padded to Sp = ceil(Sq / 64) * 64 rows a head with zeros,
+//    so that a 64-row tile of either is one aligned bulk copy.
 // 2. a dK/dV kernel: one CTA a (b, kv head, key block); it loops over the
 //    G q heads of its group and, for each, over the query tiles from the
 //    diagonal on (all of them when not causal), accumulating dK and dV in
 //    registers across the whole group; dK is scaled once and each tile is
 //    written once.
-// 3. a dQ kernel: one CTA a (b, q head, query block), looping over the key
-//    tiles up to the diagonal (all of them when not causal).
+// 3. a dQ kernel: one CTA a (b, q head, query block of 64 rows, 128 at
+//    (192, 128)), looping over the key tiles up to the diagonal (all of
+//    them when not causal).
 //
-// Two forms, chosen by dtype and head size as K6's forward chooses
+// Two forms, chosen by dtype and widths as K6's forward chooses
 // (csrc/flash_attention.cu):
 //
-// * tc, bfloat16 with D in {64, 128}: every product on wgmma, operands
-//   brought by TMA, every tile 64 rows. A warpgroup (128 threads) owns 64
-//   output rows: at D 128 a thread holds dK and dV (64 + 64 floats) beside
-//   S^T and dP^T (32 + 32) within 255 registers, with no producer warp and
-//   no setmaxnreg. Each kernel's CTA is one warpgroup: three CTAs an SM at
-//   D 64 (a 3-stage ring; 67 KB of shared memory for dK/dV, 65 KB for dQ),
-//   two at D 128 (2 stages; 98 KB, 97 KB). The CTA's first thread issues
-//   the loads: its fixed operands once (K and V for dK/dV, Q and dO for dQ)
-//   and a ring of 64-row tiles (Q, dO and their LSE and Dl rows for dK/dV;
-//   K and V for dQ) in 128-byte-swizzled shared memory, tracked by "full"
-//   mbarriers (TMA bytes) and "empty" ones (the warpgroup's 128 arrivals);
-//   while tile t runs its score products, the stage of tile t - 1 is
-//   refilled with the tile that many stages on. The 3-D tensor maps
-//   [B*H, S, D] zero-fill a ragged tile inside its own head.
-//   dK/dV, a tile of 64 queries: S^T = K Q^T and dP^T = V dO^T as SS
-//   m64n64k16 (both operands K-major); P^T = 2^(S^T scale log2 e - LSE
-//   log2 e) and dS^T = P^T (dP^T - Dl) in float32 in the accumulator
-//   registers; dV += P^T dO and dK += dS^T Q as RS m64nDk16: P^T and dS^T
-//   rounded to bf16 in registers are the A operand as they lie (the
-//   accumulator layout is the A layout), and dO and Q are the B operand
-//   read MN-major with the transpose bit, from the same swizzled copy that
-//   served as the K-major B a moment before. P^T and dS^T never touch
-//   shared memory.
+// * tc, bfloat16 at (DQK, DV) in {(64, 64), (128, 128), (192, 128)}: every
+//   product on wgmma, operands brought by TMA, every tile 64 rows, one
+//   template on (DQK, DV) for the base forms and the general form. A
+//   warpgroup (128 threads) owns 64 output rows: at D 128 a thread holds
+//   dK and dV (64 + 64 floats) beside S^T and dP^T (32 + 32) within 255
+//   registers, with no producer warp and no setmaxnreg. At the equal widths
+//   each kernel's CTA is one warpgroup: three CTAs an SM at D 64 (a 3-stage
+//   ring; 67 KB of shared memory for dK/dV, 65 KB for dQ), two at D 128 (2
+//   stages; 98 KB, 97 KB). The CTA's first thread issues the loads: its
+//   fixed operands once (K and V for dK/dV, Q and dO for dQ) and a ring of
+//   64-row tiles (Q, dO and their LSE and Dl rows for dK/dV; K and V for
+//   dQ) in 128-byte-swizzled shared memory, 64-column blocks of [64][64],
+//   tracked by "full" mbarriers (TMA bytes) and "empty" ones (every
+//   consumer thread's arrival); while tile t runs its score products, the
+//   stage of tile t - 1 is refilled with the tile that many stages on. The
+//   3-D tensor maps [B*H, Sq or Sk, D] zero-fill a ragged tile inside its
+//   own head.
+//   dK/dV, a tile of 64 queries: S^T = K Q^T (over DQK) and dP^T = V dO^T
+//   (over DV) as SS m64n64k16 (both operands K-major); P^T = 2^(S^T scale
+//   log2 e - LSE log2 e) and dS^T = P^T (dP^T - Dl) in float32 in the
+//   accumulator registers; dV += P^T dO and dK += dS^T Q as RS m64nNk16:
+//   P^T and dS^T rounded to bf16 in registers are the A operand as they lie
+//   (the accumulator layout is the A layout), and dO and Q are the B
+//   operand read MN-major with the transpose bit, from the same swizzled
+//   copy that served as the K-major B a moment before. P^T and dS^T never
+//   touch shared memory.
 //   dQ, a tile of 64 keys: S = Q K^T and dP = dO V^T as SS m64n64k16, P and
-//   dS in registers, dQ += dS K as RS m64nDk16 with K read MN-major.
-//   Only tiles on the causal diagonal or past S are masked (P = 0 for keys
-//   past S, rows past S and keys after the query); rows past S are never
-//   stored.
-// * simt, float32 (any D) and bfloat16 with D in {16, 32}: the float32 FMA
-//   units (67 TFLOP/s peak). TF32 on the tensor cores cannot hold the
-//   float32 gate of 1e-4 x max |plain|, and D 16 is not worth a tensor-core
-//   form. A CTA of 256 threads a 64-row block holds its fixed operands in
-//   shared memory as float32 rows padded to D + 1 (so 16 threads reading 16
-//   rows at one column hit 16 banks) and its accumulators in registers (a
-//   thread: 4 rows x D/16 columns); P and dS go through shared memory
-//   between the score products and the gradient products.
+//   dS in registers, dQ += dS K as RS m64nDQKk16 with K read MN-major.
+//   Only tiles on the causal diagonal or past Sq or Sk are masked (P = 0
+//   for keys past Sk, rows past Sq and keys after the query); rows past Sq
+//   and keys past Sk are never stored.
+//   At MLA's (192, 128) one warpgroup's dK (96 floats a thread) and dV (64)
+//   beside S^T, dP^T and the packed P^T, dS^T (96) would spill, so each
+//   kernel's CTA is two warpgroups and one CTA an SM (3-stage rings; 163 KB
+//   for dK/dV, 201 KB for dQ). dK/dV: both warpgroups take the CTA's 64
+//   keys and compute S^T and dP^T themselves (a tile's score products run
+//   twice: 1.5x the products of one warpgroup, no exchange and no barrier
+//   between the two); the first accumulates dV (n128) and dK[:, 0:64]
+//   (n64), the second dK[:, 64:192] (n128, from Q's second 64-column
+//   block). dQ: a warpgroup a 64-row half of a 128-row query block (dQ on
+//   m64n192k16), so a CTA reads each K and V tile once for both halves;
+//   when causal, the upper half's last key tile lies past its diagonal and
+//   it only waits that tile out.
+// * simt, float32 (any widths) and bfloat16 at (16, 16), (32, 32) and the
+//   tests' (24, 16): the float32 FMA units (67 TFLOP/s peak). TF32 on the
+//   tensor cores cannot hold the float32 gate of 1e-4 x max |plain|, and D
+//   16 is not worth a tensor-core form. A CTA of 256 threads a 64-row block
+//   holds its fixed operands in shared memory as float32 rows padded to D +
+//   1 (so 16 threads reading 16 rows at one column hit 16 banks) and its
+//   accumulators in registers (a thread: 4 rows x D/16 columns); P and dS
+//   go through shared memory between the score products and the gradient
+//   products.
 //
-// The general form (flash_attention_bwd_gen_launch): the backward of K6's
-// general forward, at every (DQK, DV) pair it takes ((16, 16), (32, 32),
-// (64, 64), (128, 128), (24, 16) and MLA's (192, 128)), with Sq and Sk
-// apart (not causal; keys past Sk masked as the forward masks them) and
-// the caller's scale, in float32 and in bf16: the FMA kernels above,
-// templated on (DQK, DV), the row sums over DV and sized by Sq, dK and dQ
-// DQK wide (at DQK = 24 a thread's second column is masked). A
-// tensor-core form at (192, 128) needs its own tiling (a 64 x 192 float32
-// dK beside a 64 x 128 dV is ~160 registers a thread of one warpgroup
-// before S and dP) and is not written yet: at MLA's shape this FMA form is
-// far above its bound (PERF.md).
+// The general form: the backward of K6's general forward, at every (DQK,
+// DV) pair it takes ((16, 16), (32, 32), (64, 64), (128, 128), (24, 16)
+// and MLA's (192, 128)), with Sq and Sk apart (not causal; keys past Sk
+// masked as the forward masks them) and the caller's scale, the row sums
+// over DV and sized by Sq, dK and dQ DQK wide. bf16 at the three pairs
+// above runs the tc kernels (flash_attention_bwd_gen_tc_launch); float32,
+// and bf16 at the small widths, the FMA kernels templated on (DQK, DV)
+// (flash_attention_bwd_gen_launch; at DQK = 24 a thread's second column is
+// masked).
 //
 // Inputs are float32 or bf16, accumulation float32 throughout, outputs in
-// the input dtype. Any S, D in {16, 32, 64, 128}, Hq a multiple of Hkv.
+// the input dtype. Base forms: any S, D in {16, 32, 64, 128}, Hq a
+// multiple of Hkv.
 //
 // ABI: q, o, do [B, Hq, S, D]; k, v [B, Hkv, S, D] (one dtype, contiguous,
 // 16-byte aligned: TMA and the row sums' 16-byte loads);
@@ -533,50 +548,74 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 }  // namespace simt
 
-// ------------------------------------- tensor-core form (bf16, D 64/128)
+// --------------------------- tensor-core form (bf16, (64, 64), (128, 128),
+// (192, 128))
 namespace tc {
 
 constexpr int kWG = 128;        // threads of a warpgroup
 constexpr int kBlk = 64;        // rows of every tile: keys or queries
 constexpr int kRowBytes = 128;  // one swizzled row of 64 bf16
 
-// Shared memory of the dK/dV kernel, from a 1024-byte-aligned base: K and
-// V [half][64][64], then Q[stage] and dO[stage] [half][64][64], then the
-// LSE (log2) and Dl rows [stage][64] float32, then the mbarriers.
-// At D 64 three stages keep a CTA under a third of the SM's shared memory,
-// so three CTAs share an SM and hide each other's waits (deeper rings with
-// two CTAs an SM were slower).
-template <int D>
+// Warpgroups a CTA: one at the equal widths; two at (192, 128), where one
+// warpgroup's dK and dV (96 + 64 floats a thread) beside S^T and dP^T
+// (32 + 32) would spill. The dK/dV kernel's two warpgroups share a CTA's 64
+// keys and split the output columns (dV and dK[:, 0:64], dK[:, 64:192]),
+// each computing S^T and dP^T itself; the dQ kernel's take 64 query rows
+// each, so a CTA reads each K and V tile once for 128 rows.
+template <int DQK, int DV>
+constexpr int kWGs = DQK + DV > 256 ? 2 : 1;
+
+// CTAs an SM: three at (64, 64), two at (128, 128), one at (192, 128)
+template <int DQK, int DV>
+constexpr int kCtas = DQK == 64 ? 3 : (DQK == 128 ? 2 : 1);
+
+// ring stages: three where a CTA has the SM's shared memory to itself or a
+// third of it, two at (128, 128)
+template <int DQK>
+constexpr int kRing = DQK == 128 ? 2 : 3;
+
+// Shared memory of the dK/dV kernel, from a 1024-byte-aligned base: K
+// [DQK / 64][64][64] and V [DV / 64][64][64], then Q[stage] and dO[stage]
+// in the same 64-column blocks, then the LSE (log2) and Dl rows [stage][64]
+// float32, then the mbarriers. At D 64 three stages keep a CTA under a
+// third of the SM's shared memory, so three CTAs share an SM and hide each
+// other's waits (deeper rings with two CTAs an SM were slower).
+template <int DQK, int DV>
 struct DkdvLayout {
-  static constexpr int kStages = D == 64 ? 3 : 2;
-  static constexpr int kTile = kBlk * D * 2;  // one 64-row tile, bytes
-  static constexpr int kV = kTile;            // K at 0
-  static constexpr int kQ = 2 * kTile;
-  static constexpr int kDO = kQ + kStages * kTile;
-  static constexpr int kLse = kDO + kStages * kTile;
+  static constexpr int kStages = kRing<DQK>;
+  static constexpr int kQTile = kBlk * DQK * 2;  // a 64-row tile of Q or K
+  static constexpr int kVTile = kBlk * DV * 2;   // of dO or V
+  static constexpr int kV = kQTile;              // K at 0
+  static constexpr int kQ = kV + kVTile;
+  static constexpr int kDO = kQ + kStages * kQTile;
+  static constexpr int kLse = kDO + kStages * kVTile;
   static constexpr int kDl = kLse + kStages * kBlk * 4;
   static constexpr int kBars = kDl + kStages * kBlk * 4;
   static constexpr int kBytes = kBars + 8 * (1 + 2 * kStages) + 1024;
+  static_assert(kCtas<DQK, DV> * kBytes <= 232448, "over the SM's 227 KB");
 };
 
-// Shared memory of the dQ kernel: Q and dO [half][64][64], then K[stage]
-// and V[stage] [half][64][64], then the mbarriers; three stages and three
-// CTAs an SM at D 64, as above.
-template <int D>
+// Shared memory of the dQ kernel: Q[warpgroup] and dO[warpgroup], then
+// K[stage] and V[stage], each in 64-column blocks of [64][64], then the
+// mbarriers
+template <int DQK, int DV>
 struct DqLayout {
-  static constexpr int kStages = D == 64 ? 3 : 2;
-  static constexpr int kTile = kBlk * D * 2;
-  static constexpr int kDO = kTile;  // Q at 0
-  static constexpr int kK = 2 * kTile;
-  static constexpr int kV = kK + kStages * kTile;
-  static constexpr int kBars = kV + kStages * kTile;
+  static constexpr int kStages = kRing<DQK>;
+  static constexpr int kW = kWGs<DQK, DV>;
+  static constexpr int kQTile = kBlk * DQK * 2;
+  static constexpr int kVTile = kBlk * DV * 2;
+  static constexpr int kDO = kW * kQTile;  // Q at 0
+  static constexpr int kK = kDO + kW * kVTile;
+  static constexpr int kV = kK + kStages * kQTile;
+  static constexpr int kBars = kV + kStages * kVTile;
   static constexpr int kBytes = kBars + 8 * (1 + 2 * kStages) + 1024;
+  static_assert(kCtas<DQK, DV> * kBytes <= 232448, "over the SM's 227 KB");
 };
 
 // C[64 x 64] = A B^T over D: the 64-row tiles at `a` and `b`, both
-// K-major; in steps of 16 columns, a step inside a 64-column half moving
+// K-major; in steps of 16 columns, a step inside a 64-column block moving
 // the start by 32 bytes (the swizzle is applied to the absolute address),
-// the next half the next [64][64] block
+// the next block the next [64][64]
 template <int D>
 __device__ __forceinline__ void scores(float (&c)[32], uint32_t a,
                                        uint32_t b) {
@@ -589,18 +628,20 @@ __device__ __forceinline__ void scores(float (&c)[32], uint32_t a,
   }
 }
 
-// C[64 x D] += A[64 x 64] B[64 x D]: A from registers (a[kk], the bf16 pairs
-// of k step kk), B the 64-row tile at `b` read MN-major: 16 rows a step
-// (2048 bytes), its 64-column halves 64 rows apart (LBO)
-template <int D>
-__device__ __forceinline__ void grads(float (&c)[D / 2],
+// C[64 x N] += A[64 x 64] B[64 x N]: A from registers (a[kk], the bf16
+// pairs of k step kk), B the 64-row tile at `b` read MN-major: 16 rows a
+// step (2048 bytes), its 64-column blocks 64 rows apart (LBO)
+template <int N>
+__device__ __forceinline__ void grads(float (&c)[N / 2],
                                       const uint32_t (&a)[4][4], uint32_t b) {
   using namespace hopper;
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
     const uint64_t db = desc_sw128(b + kk * 16 * kRowBytes,
                                    kBlk * kRowBytes);
-    if constexpr (D == 128)
+    if constexpr (N == 192)
+      wgmma_rs_n192(c, a[kk], db);
+    else if constexpr (N == 128)
       wgmma_rs_n128(c, a[kk], db);
     else
       wgmma_rs_n64(c, a[kk], db);
@@ -617,8 +658,11 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map,
                         bh);
 }
 
-template <int D>
-__global__ void __launch_bounds__(kWG, D == 64 ? 3 : 2)
+template <int N>
+using Cols = std::integral_constant<int, N>;
+
+template <int DQK, int DV>
+__global__ void __launch_bounds__((kWG * kWGs<DQK, DV>), (kCtas<DQK, DV>))
     dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
                 const __grid_constant__ CUtensorMap map_k,
                 const __grid_constant__ CUtensorMap map_v,
@@ -626,11 +670,11 @@ __global__ void __launch_bounds__(kWG, D == 64 ? 3 : 2)
                 const float* __restrict__ lse2,
                 const float* __restrict__ delta,
                 __nv_bfloat16* __restrict__ dk,
-                __nv_bfloat16* __restrict__ dv, int Hq, int Hkv, int S,
-                int Sp, int causal, float scale, float scale_log2) {
-  using L = DkdvLayout<D>;
+                __nv_bfloat16* __restrict__ dv, int Hq, int Hkv, int Sq,
+                int Sk, int Sp, int causal, float scale, float scale_log2) {
+  using L = DkdvLayout<DQK, DV>;
   using namespace hopper;
-  constexpr int kSt = L::kStages;
+  constexpr int kSt = L::kStages, kW = kWGs<DQK, DV>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t pad = ((smem_u32(smem_raw) + 1023) & ~1023u) -
                        smem_u32(smem_raw);
@@ -645,7 +689,7 @@ __global__ void __launch_bounds__(kWG, D == 64 ? 3 : 2)
   const int b = bk / Hkv, kvh = bk % Hkv, G = Hq / Hkv;
   const int k0 = blockIdx.y * kBlk;     // the grid's first blocks are the
   const int q_first = causal ? k0 : 0;  // longest: most query tiles
-  const int nq = (S - q_first + kBlk - 1) / kBlk;  // query tiles a head
+  const int nq = (Sq - q_first + kBlk - 1) / kBlk;  // query tiles a head
   const int n_tiles = G * nq;
   const int tid = threadIdx.x;
 
@@ -654,9 +698,9 @@ __global__ void __launch_bounds__(kWG, D == 64 ? 3 : 2)
     const int bh = b * Hq + kvh * G + t / nq;
     const int q0 = q_first + (t % nq) * kBlk;
     const uint32_t bar = full + 8 * s;
-    mbar_expect_tx(bar, 2 * L::kTile + 2 * kBlk * 4);
-    load_tile<D>(base + L::kQ + s * L::kTile, &map_q, bar, q0, bh);
-    load_tile<D>(base + L::kDO + s * L::kTile, &map_do, bar, q0, bh);
+    mbar_expect_tx(bar, L::kQTile + L::kVTile + 2 * kBlk * 4);
+    load_tile<DQK>(base + L::kQ + s * L::kQTile, &map_q, bar, q0, bh);
+    load_tile<DV>(base + L::kDO + s * L::kVTile, &map_do, bar, q0, bh);
     bulk_load(base + L::kLse + s * kBlk * 4, lse2 + (size_t)bh * Sp + q0,
               kBlk * 4, bar);
     bulk_load(base + L::kDl + s * kBlk * 4, delta + (size_t)bh * Sp + q0,
@@ -667,113 +711,139 @@ __global__ void __launch_bounds__(kWG, D == 64 ? 3 : 2)
     mbar_init(kv_full, 1);
     for (int s = 0; s < kSt; ++s) {
       mbar_init(full + 8 * s, 1);
-      mbar_init(empty + 8 * s, kWG);
+      mbar_init(empty + 8 * s, kWG * kW);
     }
     mbar_fence_init();
-    mbar_expect_tx(kv_full, 2 * L::kTile);
-    load_tile<D>(base, &map_k, kv_full, k0, bk);
-    load_tile<D>(base + L::kV, &map_v, kv_full, k0, bk);
+    mbar_expect_tx(kv_full, L::kQTile + L::kVTile);
+    load_tile<DQK>(base, &map_k, kv_full, k0, bk);
+    load_tile<DV>(base + L::kV, &map_v, kv_full, k0, bk);
     for (int t = 0; t < kSt && t < n_tiles; ++t) load(t);
   }
   __syncthreads();
 
-  const int w = tid / 32, lane = tid % 32;
+  const int w = (tid / 32) % 4, lane = tid % 32;
   const int kr = k0 + 16 * w + lane / 4;  // this thread's keys kr, kr + 8
-  float acc_k[D / 2], acc_v[D / 2];
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
-  mbar_wait(kv_full, 0);
 
-  for (int t = 0; t < n_tiles; ++t) {
-    const int s = t % kSt;
-    const int q0 = q_first + (t % nq) * kBlk;
-    const uint32_t q_t = base + L::kQ + s * L::kTile,
-                   do_t = base + L::kDO + s * L::kTile;
-    float st[32], dpt[32];  // S^T and dP^T: rows keys, columns queries
-    mbar_wait(full + 8 * s, (t / kSt) & 1);
-    wg_fence();
-    scores<D>(st, base, q_t);
-    scores<D>(dpt, base + L::kV, do_t);
-    wg_commit();
-    // while the products run: refill the stage tile t - 1 released
-    if (tid == 0 && t >= 1 && t + kSt - 1 < n_tiles) {
-      mbar_wait(empty + 8 * ((t - 1) % kSt), ((t - 1) / kSt) & 1);
-      load(t + kSt - 1);
-    }
-    __syncwarp();
-    wg_wait_all();
-    reg_fence(st);
-    reg_fence(dpt);
+  // one warpgroup's tiles: dK's columns [KC, KC + KN) and, with kDV, dV
+  auto run = [&](auto kc, auto kn, auto with_dv) {
+    constexpr int KC = decltype(kc)::value, KN = decltype(kn)::value;
+    constexpr bool kDV = decltype(with_dv)::value;
+    float acc_k[KN / 2], acc_v[kDV ? DV / 2 : 1];
+#pragma unroll
+    for (int i = 0; i < KN / 2; ++i) acc_k[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < (kDV ? DV / 2 : 1); ++i) acc_v[i] = 0.f;
+    mbar_wait(kv_full, 0);
 
-    // P^T and dS^T in the accumulator layout, packed to bf16 as the A
-    // operand: value i = 8 kk + 2 j (+1) of k step kk is key kr + 8 (j % 2),
-    // query q0 + 16 kk + 8 (j / 2) + 2 (lane % 4) (+1)
-    const float* lse_t = lse_s + s * kBlk;
-    const float* dl_t = dl_s + s * kBlk;
-    const bool mask = (causal && k0 + kBlk - 1 > q0) || q0 + kBlk > S ||
-                      k0 + kBlk > S;
-    uint32_t pT[4][4], dsT[4][4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int i = 8 * kk + 2 * j;
-        const int key = kr + 8 * (j % 2);
-        const int c = 16 * kk + 8 * (j / 2) + 2 * (lane % 4);
-        float p[2], d[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float x = ex2(st[i + e] * scale_log2 - lse_t[c + e]);
-          if (mask) {
-            const int qr = q0 + c + e;
-            if (qr >= S || key >= S || (causal && key > qr)) x = 0.f;
-          }
-          p[e] = x;
-          d[e] = x * (dpt[i + e] - dl_t[c + e]);
-        }
-        pT[kk][j] = pack_bf16(p[0], p[1]);
-        dsT[kk][j] = pack_bf16(d[0], d[1]);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % kSt;
+      const int q0 = q_first + (t % nq) * kBlk;
+      const uint32_t q_t = base + L::kQ + s * L::kQTile,
+                     do_t = base + L::kDO + s * L::kVTile;
+      float st[32], dpt[32];  // S^T and dP^T: rows keys, columns queries
+      mbar_wait(full + 8 * s, (t / kSt) & 1);
+      wg_fence();
+      scores<DQK>(st, base, q_t);
+      scores<DV>(dpt, base + L::kV, do_t);
+      wg_commit();
+      // while the products run: refill the stage tile t - 1 released
+      if (tid == 0 && t >= 1 && t + kSt - 1 < n_tiles) {
+        mbar_wait(empty + 8 * ((t - 1) % kSt), ((t - 1) / kSt) & 1);
+        load(t + kSt - 1);
       }
+      __syncwarp();
+      wg_wait_all();
+      reg_fence(st);
+      reg_fence(dpt);
 
-    // dV += P^T dO, dK += dS^T Q (Q and dO read MN-major)
-    wg_fence();
-    grads<D>(acc_v, pT, do_t);
-    grads<D>(acc_k, dsT, q_t);
-    wg_commit();
-    wg_wait_all();
-    reg_fence(acc_v);
-    reg_fence(acc_k);
-    mbar_arrive(empty + 8 * s);
-  }
-
-  __nv_bfloat16* dkb = dk + (size_t)bk * S * D;
-  __nv_bfloat16* dvb = dv + (size_t)bk * S * D;
+      // P^T and dS^T in the accumulator layout, packed to bf16 as the A
+      // operand: value i = 8 kk + 2 j (+1) of k step kk is key kr + 8 (j %
+      // 2), query q0 + 16 kk + 8 (j / 2) + 2 (lane % 4) (+1)
+      const float* lse_t = lse_s + s * kBlk;
+      const float* dl_t = dl_s + s * kBlk;
+      const bool mask = (causal && k0 + kBlk - 1 > q0) || q0 + kBlk > Sq ||
+                        k0 + kBlk > Sk;
+      uint32_t pT[4][4], dsT[4][4];
 #pragma unroll
-  for (int i = 0; i < D / 2; i += 2) {
-    const int row = kr + 8 * ((i / 2) % 2);
-    const int col = 8 * (i / 4) + 2 * (lane % 4);
-    if (row < S) {
-      *reinterpret_cast<uint32_t*>(dkb + (size_t)row * D + col) =
-          pack_bf16(acc_k[i] * scale, acc_k[i + 1] * scale);
-      *reinterpret_cast<uint32_t*>(dvb + (size_t)row * D + col) =
-          pack_bf16(acc_v[i], acc_v[i + 1]);
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int i = 8 * kk + 2 * j;
+          const int key = kr + 8 * (j % 2);
+          const int c = 16 * kk + 8 * (j / 2) + 2 * (lane % 4);
+          float p[2], d[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float x = ex2(st[i + e] * scale_log2 - lse_t[c + e]);
+            if (mask) {
+              const int qr = q0 + c + e;
+              if (qr >= Sq || key >= Sk || (causal && key > qr)) x = 0.f;
+            }
+            p[e] = x;
+            d[e] = x * (dpt[i + e] - dl_t[c + e]);
+          }
+          pT[kk][j] = pack_bf16(p[0], p[1]);
+          dsT[kk][j] = pack_bf16(d[0], d[1]);
+        }
+
+      // dV += P^T dO, dK[:, KC:KC + KN] += dS^T Q[:, KC:KC + KN] (Q and dO
+      // read MN-major)
+      wg_fence();
+      if constexpr (kDV) grads<DV>(acc_v, pT, do_t);
+      grads<KN>(acc_k, dsT, q_t + (KC / 64) * kBlk * kRowBytes);
+      wg_commit();
+      wg_wait_all();
+      if constexpr (kDV) reg_fence(acc_v);
+      reg_fence(acc_k);
+      mbar_arrive(empty + 8 * s);
     }
+
+    __nv_bfloat16* dkb = dk + (size_t)bk * Sk * DQK + KC;
+#pragma unroll
+    for (int i = 0; i < KN / 2; i += 2) {
+      const int row = kr + 8 * ((i / 2) % 2);
+      const int col = 8 * (i / 4) + 2 * (lane % 4);
+      if (row < Sk)
+        *reinterpret_cast<uint32_t*>(dkb + (size_t)row * DQK + col) =
+            pack_bf16(acc_k[i] * scale, acc_k[i + 1] * scale);
+    }
+    if constexpr (kDV) {
+      __nv_bfloat16* dvb = dv + (size_t)bk * Sk * DV;
+#pragma unroll
+      for (int i = 0; i < DV / 2; i += 2) {
+        const int row = kr + 8 * ((i / 2) % 2);
+        const int col = 8 * (i / 4) + 2 * (lane % 4);
+        if (row < Sk)
+          *reinterpret_cast<uint32_t*>(dvb + (size_t)row * DV + col) =
+              pack_bf16(acc_v[i], acc_v[i + 1]);
+      }
+    }
+  };
+
+  if constexpr (kW == 1) {
+    run(Cols<0>{}, Cols<DQK>{}, std::true_type{});
+  } else {
+    static_assert(DQK == 192 && DV == 128, "two warpgroups: MLA's widths");
+    if (tid < kWG)
+      run(Cols<0>{}, Cols<64>{}, std::true_type{});
+    else
+      run(Cols<64>{}, Cols<128>{}, std::false_type{});
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kWG, D == 64 ? 3 : 2)
+template <int DQK, int DV>
+__global__ void __launch_bounds__((kWG * kWGs<DQK, DV>), (kCtas<DQK, DV>))
     dq_kernel(const __grid_constant__ CUtensorMap map_q,
               const __grid_constant__ CUtensorMap map_k,
               const __grid_constant__ CUtensorMap map_v,
               const __grid_constant__ CUtensorMap map_do,
               const float* __restrict__ lse2,
               const float* __restrict__ delta,
-              __nv_bfloat16* __restrict__ dq, int Hq, int Hkv, int S, int Sp,
-              int causal, float scale, float scale_log2) {
-  using L = DqLayout<D>;
+              __nv_bfloat16* __restrict__ dq, int Hq, int Hkv, int Sq, int Sk,
+              int Sp, int causal, float scale, float scale_log2) {
+  using L = DqLayout<DQK, DV>;
   using namespace hopper;
-  constexpr int kSt = L::kStages;
+  constexpr int kSt = L::kStages, kW = L::kW, kRows = kBlk * kW;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t q_full = base + L::kBars, full = q_full + 8,
@@ -783,145 +853,188 @@ __global__ void __launch_bounds__(kWG, D == 64 ? 3 : 2)
   const int b = bh / Hq, h = bh % Hq;
   const int kvh = b * Hkv + h / (Hq / Hkv);
   // the grid's first blocks are the last query blocks: the most key tiles
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlk;
-  const int kv_end = causal ? min(S, q0 + kBlk) : S;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;
+  const int kv_end = causal ? min(Sk, q0 + kRows) : Sk;
   const int n_tiles = (kv_end + kBlk - 1) / kBlk;
   const int tid = threadIdx.x;
 
   auto load = [&](int t) {  // one thread: key tile t into stage t % kSt
     const int s = t % kSt;
     const uint32_t bar = full + 8 * s;
-    mbar_expect_tx(bar, 2 * L::kTile);
-    load_tile<D>(base + L::kK + s * L::kTile, &map_k, bar, t * kBlk, kvh);
-    load_tile<D>(base + L::kV + s * L::kTile, &map_v, bar, t * kBlk, kvh);
+    mbar_expect_tx(bar, L::kQTile + L::kVTile);
+    load_tile<DQK>(base + L::kK + s * L::kQTile, &map_k, bar, t * kBlk, kvh);
+    load_tile<DV>(base + L::kV + s * L::kVTile, &map_v, bar, t * kBlk, kvh);
   };
 
   if (tid == 0) {
     mbar_init(q_full, 1);
     for (int s = 0; s < kSt; ++s) {
       mbar_init(full + 8 * s, 1);
-      mbar_init(empty + 8 * s, kWG);
+      mbar_init(empty + 8 * s, kWG * kW);
     }
     mbar_fence_init();
-    mbar_expect_tx(q_full, 2 * L::kTile);
-    load_tile<D>(base, &map_q, q_full, q0, bh);
-    load_tile<D>(base + L::kDO, &map_do, q_full, q0, bh);
+    mbar_expect_tx(q_full, kW * (L::kQTile + L::kVTile));
+    for (int g = 0; g < kW; ++g) {
+      load_tile<DQK>(base + g * L::kQTile, &map_q, q_full, q0 + g * kBlk, bh);
+      load_tile<DV>(base + L::kDO + g * L::kVTile, &map_do, q_full,
+                    q0 + g * kBlk, bh);
+    }
     for (int t = 0; t < kSt && t < n_tiles; ++t) load(t);
   }
   __syncthreads();
 
-  const int w = tid / 32, lane = tid % 32;
-  const int r0 = q0 + 16 * w + lane / 4;  // this thread's rows r0, r0 + 8
-  float lse_r[2], dl_r[2];                // rows < Sp: the padded arrays
+  const int wg = kW == 1 ? 0 : tid / kWG, w = (tid / 32) % 4,
+            lane = tid % 32;
+  const int qw = q0 + wg * kBlk;          // this warpgroup's first row
+  const int r0 = qw + 16 * w + lane / 4;  // this thread's rows r0, r0 + 8
+  const uint32_t q_s = base + wg * L::kQTile,
+                 do_s = base + L::kDO + wg * L::kVTile;
+  // the warpgroup's key tiles: causal, the upper one of two stops a tile
+  // early; it waits out the CTA's last tile without a product
+  const int n_own = causal ? (min(Sk, qw + kBlk) + kBlk - 1) / kBlk
+                           : n_tiles;
+  float lse_r[2], dl_r[2];  // rows < Sp: the padded arrays
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
-    lse_r[hr] = lse2[(size_t)bh * Sp + r0 + 8 * hr];
-    dl_r[hr] = delta[(size_t)bh * Sp + r0 + 8 * hr];
+    const int row = r0 + 8 * hr;
+    const bool in = kW == 1 || row < Sp;
+    lse_r[hr] = in ? lse2[(size_t)bh * Sp + row] : 0.f;
+    dl_r[hr] = in ? delta[(size_t)bh * Sp + row] : 0.f;
   }
-  float acc[D / 2];
+  float acc[DQK / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DQK / 2; ++i) acc[i] = 0.f;
   mbar_wait(q_full, 0);
 
   for (int t = 0; t < n_tiles; ++t) {
     const int s = t % kSt;
     const int k0 = t * kBlk;
-    const uint32_t k_t = base + L::kK + s * L::kTile,
-                   v_t = base + L::kV + s * L::kTile;
+    const bool live = kW == 1 || t < n_own;
+    const uint32_t k_t = base + L::kK + s * L::kQTile,
+                   v_t = base + L::kV + s * L::kVTile;
     float sc[32], dp[32];  // S and dP: rows queries, columns keys
     mbar_wait(full + 8 * s, (t / kSt) & 1);
-    wg_fence();
-    scores<D>(sc, base, k_t);
-    scores<D>(dp, base + L::kDO, v_t);
-    wg_commit();
+    if (live) {
+      wg_fence();
+      scores<DQK>(sc, q_s, k_t);
+      scores<DV>(dp, do_s, v_t);
+      wg_commit();
+    }
     if (tid == 0 && t >= 1 && t + kSt - 1 < n_tiles) {
       mbar_wait(empty + 8 * ((t - 1) % kSt), ((t - 1) / kSt) & 1);
       load(t + kSt - 1);
     }
     __syncwarp();
-    wg_wait_all();
-    reg_fence(sc);
-    reg_fence(dp);
+    if (live) {
+      wg_wait_all();
+      reg_fence(sc);
+      reg_fence(dp);
 
-    // dS in the accumulator layout, packed to bf16 as the A operand: value
-    // i = 8 kk + 2 j (+1) is row r0 + 8 (j % 2), key k0 + 16 kk + 8 (j / 2)
-    // + 2 (lane % 4) (+1)
-    const bool mask = (causal && k0 + kBlk - 1 > q0) || k0 + kBlk > S ||
-                      q0 + kBlk > S;
-    uint32_t ds[4][4];
+      // dS in the accumulator layout, packed to bf16 as the A operand:
+      // value i = 8 kk + 2 j (+1) is row r0 + 8 (j % 2), key k0 + 16 kk +
+      // 8 (j / 2) + 2 (lane % 4) (+1)
+      const bool mask = (causal && k0 + kBlk - 1 > qw) || k0 + kBlk > Sk ||
+                        qw + kBlk > Sq;
+      uint32_t ds[4][4];
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
+      for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int i = 8 * kk + 2 * j, hr = j % 2;
-        const int row = r0 + 8 * hr;
-        const int key = k0 + 16 * kk + 8 * (j / 2) + 2 * (lane % 4);
-        float d[2];
+        for (int j = 0; j < 4; ++j) {
+          const int i = 8 * kk + 2 * j, hr = j % 2;
+          const int row = r0 + 8 * hr;
+          const int key = k0 + 16 * kk + 8 * (j / 2) + 2 * (lane % 4);
+          float d[2];
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float x = ex2(sc[i + e] * scale_log2 - lse_r[hr]);
-          if (mask && (row >= S || key + e >= S || (causal && key + e > row)))
-            x = 0.f;
-          d[e] = x * (dp[i + e] - dl_r[hr]);
+          for (int e = 0; e < 2; ++e) {
+            float x = ex2(sc[i + e] * scale_log2 - lse_r[hr]);
+            if (mask &&
+                (row >= Sq || key + e >= Sk || (causal && key + e > row)))
+              x = 0.f;
+            d[e] = x * (dp[i + e] - dl_r[hr]);
+          }
+          ds[kk][j] = pack_bf16(d[0], d[1]);
         }
-        ds[kk][j] = pack_bf16(d[0], d[1]);
-      }
 
-    // dQ += dS K (K read MN-major)
-    wg_fence();
-    grads<D>(acc, ds, k_t);
-    wg_commit();
-    wg_wait_all();
-    reg_fence(acc);
+      // dQ += dS K (K read MN-major)
+      wg_fence();
+      grads<DQK>(acc, ds, k_t);
+      wg_commit();
+      wg_wait_all();
+      reg_fence(acc);
+    }
     mbar_arrive(empty + 8 * s);
   }
 
-  __nv_bfloat16* dqb = dq + (size_t)bh * S * D;
+  __nv_bfloat16* dqb = dq + (size_t)bh * Sq * DQK;
 #pragma unroll
-  for (int i = 0; i < D / 2; i += 2) {
+  for (int i = 0; i < DQK / 2; i += 2) {
     const int row = r0 + 8 * ((i / 2) % 2);
     const int col = 8 * (i / 4) + 2 * (lane % 4);
-    if (row < S)
-      *reinterpret_cast<uint32_t*>(dqb + (size_t)row * D + col) =
+    if (row < Sq)
+      *reinterpret_cast<uint32_t*>(dqb + (size_t)row * DQK + col) =
           pack_bf16(acc[i] * scale, acc[i + 1] * scale);
   }
 }
 
-template <int D>
+template <int DQK, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* o, const void* dout, const float* lse,
                    float* scratch, void* dq, void* dk, void* dv, int B,
-                   int Hq, int Hkv, int S, int causal, float scale,
+                   int Hq, int Hkv, int Sq, int Sk, int causal, float scale,
                    cudaStream_t stream) {
   static bool dkdv_ready = false, dq_ready = false;
-  constexpr int s1 = DkdvLayout<D>::kBytes, s2 = DqLayout<D>::kBytes;
-  cudaError_t err = allow_smem(dkdv_kernel<D>, s1, &dkdv_ready);
+  constexpr int s1 = DkdvLayout<DQK, DV>::kBytes;
+  constexpr int s2 = DqLayout<DQK, DV>::kBytes;
+  constexpr int kThreads = kWG * kWGs<DQK, DV>;
+  cudaError_t err = allow_smem(dkdv_kernel<DQK, DV>, s1, &dkdv_ready);
   if (err != cudaSuccess) return err;
-  err = allow_smem(dq_kernel<D>, s2, &dq_ready);
+  err = allow_smem(dq_kernel<DQK, DV>, s2, &dq_ready);
   if (err != cudaSuccess) return err;
   CUtensorMap mq, mk, mv, mdo;
-  if (!hopper::encode(&mq, q, B * Hq, S, D, kBlk) ||
-      !hopper::encode(&mk, k, B * Hkv, S, D, kBlk) ||
-      !hopper::encode(&mv, v, B * Hkv, S, D, kBlk) ||
-      !hopper::encode(&mdo, dout, B * Hq, S, D, kBlk))
+  if (!hopper::encode(&mq, q, B * Hq, Sq, DQK, kBlk) ||
+      !hopper::encode(&mk, k, B * Hkv, Sk, DQK, kBlk) ||
+      !hopper::encode(&mv, v, B * Hkv, Sk, DV, kBlk) ||
+      !hopper::encode(&mdo, dout, B * Hq, Sq, DV, kBlk))
     return cudaErrorInvalidValue;
-  const int Sp = (S + kBlk - 1) / kBlk * kBlk;
+  const int Sp = (Sq + kBlk - 1) / kBlk * kBlk;
   float* delta = scratch;
   float* lse2 = scratch + (size_t)B * Hq * Sp;
-  err = launch_delta<__nv_bfloat16, D>(o, dout, lse, delta, lse2, B * Hq, S,
-                                       Sp, stream);
+  err = launch_delta<__nv_bfloat16, DV>(o, dout, lse, delta, lse2, B * Hq,
+                                        Sq, Sp, stream);
   if (err != cudaSuccess) return err;
-  const int blocks = (S + kBlk - 1) / kBlk;
-  dkdv_kernel<D><<<dim3(B * Hkv, blocks), kWG, s1, stream>>>(
-      mq, mk, mv, mdo, lse2, delta, static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), Hq, Hkv, S, Sp, causal, scale,
-      scale * 1.4426950408889634f);
+  const float scale_log2 = scale * 1.4426950408889634f;
+  dkdv_kernel<DQK, DV>
+      <<<dim3(B * Hkv, (Sk + kBlk - 1) / kBlk), kThreads, s1, stream>>>(
+          mq, mk, mv, mdo, lse2, delta, static_cast<__nv_bfloat16*>(dk),
+          static_cast<__nv_bfloat16*>(dv), Hq, Hkv, Sq, Sk, Sp, causal,
+          scale, scale_log2);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dq_kernel<D><<<dim3(B * Hq, blocks), kWG, s2, stream>>>(
-      mq, mk, mv, mdo, lse2, delta, static_cast<__nv_bfloat16*>(dq), Hq,
-      Hkv, S, Sp, causal, scale, scale * 1.4426950408889634f);
+  constexpr int kRows = kBlk * kWGs<DQK, DV>;
+  dq_kernel<DQK, DV>
+      <<<dim3(B * Hq, (Sq + kRows - 1) / kRows), kThreads, s2, stream>>>(
+          mq, mk, mv, mdo, lse2, delta, static_cast<__nv_bfloat16*>(dq), Hq,
+          Hkv, Sq, Sk, Sp, causal, scale, scale_log2);
   return cudaGetLastError();
+}
+
+// bf16 at the pairs the tensor cores take: the base widths 64 and 128 and
+// MLA's (192, 128)
+inline cudaError_t launch_pair(const void* q, const void* k, const void* v,
+                               const void* o, const void* dout,
+                               const float* lse, float* scratch, void* dq,
+                               void* dk, void* dv, int B, int Hq, int Hkv,
+                               int Sq, int Sk, int Dqk, int Dv, int causal,
+                               float scale, cudaStream_t stream) {
+#define K6B_TC(QK, VV)                                                      \
+  if (Dqk == QK && Dv == VV)                                                \
+    return launch<QK, VV>(q, k, v, o, dout, lse, scratch, dq, dk, dv, B,    \
+                          Hq, Hkv, Sq, Sk, causal, scale, stream);
+  K6B_TC(64, 64)
+  K6B_TC(128, 128)
+  K6B_TC(192, 128)
+  return cudaErrorInvalidValue;
+#undef K6B_TC
 }
 
 }  // namespace tc
@@ -955,11 +1068,10 @@ cudaError_t launch_simt(const void* q, const void* k, const void* v,
 #undef K6B_CASE
 }
 
-// The general form's backward, the FMA kernels at (DQK, DV) with Sq and Sk
-// apart and the caller's scale: every pair of K6's general forward
-// (GEN_DIMS), in float32 and in bf16 (at (192, 128) a tensor-core form
-// needs its own tiling: a 64 x 192 float32 dK and a 64 x 128 dV in one
-// warpgroup before S and dP; not done).
+// The general form's FMA backward at (DQK, DV) with Sq and Sk apart and
+// the caller's scale: float32 at every pair of K6's general forward
+// (GEN_DIMS; TF32 could not hold float32's gate), bf16 at the pairs the
+// tensor cores do not take (tc::launch_pair takes the rest).
 template <typename T>
 cudaError_t launch_gen(const void* q, const void* k, const void* v,
                        const void* o, const void* dout, const float* lse,
@@ -973,12 +1085,19 @@ cudaError_t launch_gen(const void* q, const void* k, const void* v,
                                    stream);
   K6B_GEN(16, 16)
   K6B_GEN(32, 32)
-  K6B_GEN(64, 64)
-  K6B_GEN(128, 128)
   K6B_GEN(24, 16)
-  K6B_GEN(192, 128)
+  if constexpr (std::is_same<T, float>::value) {  // bf16 at these: tc form
+    K6B_GEN(64, 64)
+    K6B_GEN(128, 128)
+    K6B_GEN(192, 128)
+  }
   return cudaErrorInvalidValue;
 #undef K6B_GEN
+}
+
+bool general_args_ok(int B, int Hq, int Hkv, int Sq, int Sk, int causal) {
+  return B >= 1 && Hkv >= 1 && Hq % Hkv == 0 && Sq >= 1 && Sk >= 1 &&
+         !(causal && Sq != Sk);
 }
 
 }  // namespace
@@ -995,12 +1114,9 @@ extern "C" int flash_attention_bwd_launch(
   const float* l = static_cast<const float*>(lse);
   float* sc = static_cast<float*>(scratch);
   cudaError_t err;
-  if (dtype == 1 && D == 128)
-    err = tc::launch<128>(q, k, v, o, dout, l, sc, dq, dk, dv, B, Hq, Hkv,
-                          S, causal, scale, st);
-  else if (dtype == 1 && D == 64)
-    err = tc::launch<64>(q, k, v, o, dout, l, sc, dq, dk, dv, B, Hq, Hkv, S,
-                         causal, scale, st);
+  if (dtype == 1 && (D == 64 || D == 128))
+    err = tc::launch_pair(q, k, v, o, dout, l, sc, dq, dk, dv, B, Hq, Hkv, S,
+                          S, D, D, causal, scale, st);
   else if (dtype == 1)
     err = launch_simt<__nv_bfloat16>(q, k, v, o, dout, l, sc, dq, dk, dv, B,
                                      Hq, Hkv, S, D, causal, scale, st);
@@ -1012,19 +1128,18 @@ extern "C" int flash_attention_bwd_launch(
   return (int)err;
 }
 
-// The general form's backward (namespace simt, FMA): q [B, Hq, Sq, Dqk],
-// k [B, Hkv, Sk, Dqk], v [B, Hkv, Sk, Dv], o and do [B, Hq, Sq, Dv], lse
+// The general form's FMA backward (namespace simt): q [B, Hq, Sq, Dqk], k
+// [B, Hkv, Sk, Dqk], v [B, Hkv, Sk, Dv], o and do [B, Hq, Sq, Dv], lse
 // float32 [B, Hq, Sq] (the general forward's, natural log, of the logits
 // times `scale`), scratch float32 [2, B, Hq, ceil(Sq / 64) * 64] (the row
 // sums use its first B Hq Sq values); dq, dk, dv like q, k, v; causal only
-// with Sq == Sk; (Dqk, Dv) one of launch_gen's pairs.
+// with Sq == Sk; (Dqk, Dv) one of launch_gen's pairs for the dtype.
 extern "C" int flash_attention_bwd_gen_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* scratch, void* dq, void* dk,
     void* dv, int B, int Hq, int Hkv, int Sq, int Sk, int Dqk, int Dv,
     int causal, int dtype, float scale, void* stream) {
-  if (B < 1 || Hkv < 1 || Hq % Hkv != 0 || Sq < 1 || Sk < 1 ||
-      (causal && Sq != Sk))
+  if (!general_args_ok(B, Hq, Hkv, Sq, Sk, causal))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
@@ -1037,4 +1152,22 @@ extern "C" int flash_attention_bwd_gen_launch(
     return (int)launch_gen<float>(q, k, v, o, dout, l, sc, dq, dk, dv, B, Hq,
                                   Hkv, Sq, Sk, Dqk, Dv, causal, scale, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// The general form's tensor-core backward (namespace tc), bf16 only: the
+// same ABI as flash_attention_bwd_gen_launch without the dtype (scratch
+// [2, B, Hq, ceil(Sq / 64) * 64]: the row sums and the log2 LSE, each
+// padded to 64 rows a head); (Dqk, Dv) in {(64, 64), (128, 128), (192,
+// 128)}.
+extern "C" int flash_attention_bwd_gen_tc_launch(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const void* lse, void* scratch, void* dq, void* dk,
+    void* dv, int B, int Hq, int Hkv, int Sq, int Sk, int Dqk, int Dv,
+    int causal, float scale, void* stream) {
+  if (!general_args_ok(B, Hq, Hkv, Sq, Sk, causal))
+    return (int)cudaErrorInvalidValue;
+  return (int)tc::launch_pair(
+      q, k, v, o, dout, static_cast<const float*>(lse),
+      static_cast<float*>(scratch), dq, dk, dv, B, Hq, Hkv, Sq, Sk, Dqk, Dv,
+      causal, scale, static_cast<cudaStream_t>(stream));
 }

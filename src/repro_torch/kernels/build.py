@@ -31,7 +31,7 @@ from typing import Dict
 LAUNCHES: Dict[str, int] = {"k1": 0, "k2": 0, "k3": 0, "k3run": 0,
                              "k3cyc": 0, "k3batch": 0, "k4": 0, "k5": 0,
                              "k6": 0, "k6gen": 0, "k6gen_tc": 0,
-                             "k6bwd": 0, "k6bwd_gen": 0,
+                             "k6bwd": 0, "k6bwd_gen": 0, "k6bwd_gen_tc": 0,
                              "k7": 0, "k7bwd": 0}
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -70,6 +70,8 @@ _ENTRY_POINTS = {
     "flash_attention_bwd": {
         "flash_attention_bwd_launch": [_P] * 10 + [_I] * 7 + [_P],
         "flash_attention_bwd_gen_launch": [_P] * 10 + [_I] * 9
+        + [ctypes.c_float, _P],
+        "flash_attention_bwd_gen_tc_launch": [_P] * 10 + [_I] * 8
         + [ctypes.c_float, _P],
     },
     "addr_map": {

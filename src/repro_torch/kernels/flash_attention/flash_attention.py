@@ -17,10 +17,14 @@ forward launches K6 with the log-sum-exp output, its backward the
 backward kernels. ``flash_attention_cuda`` called directly while grad
 mode is on and an input requires grad raises (``build.refuse_grad``):
 its output, filled through a raw pointer, would carry no ``grad_fn``.
-The backward of the general form (any call that is not a base form) is
-the FMA kernels of ``csrc/flash_attention_bwd.cu`` at (Dqk, Dv) with Sq
-and Sk apart and the forward's scale (``flash_attention_bwd_gen_launch``),
-counted under ``LAUNCHES["k6bwd_gen"]``; its scratch is sized by Sq.
+The backward of the general form (any call that is not a base form) takes
+(Dqk, Dv) with Sq and Sk apart and the forward's scale, and picks its
+kernels as the forward does (:func:`general_form`): bf16 at a pair of
+``TC_DIMS`` the tensor-core kernels of ``csrc/flash_attention_bwd.cu``
+(``flash_attention_bwd_gen_tc_launch``, on ``wgmma`` and TMA), counted
+under ``LAUNCHES["k6bwd_gen_tc"]``; float32, and bf16 at the small widths,
+its FMA kernels (``flash_attention_bwd_gen_launch``), counted under
+``LAUNCHES["k6bwd_gen"]``. Its scratch is sized by Sq.
 
 K6's general form takes every call that the base forms do not: MLA's
 prefill (Dqk 192, Dv 128), cross-attention (Sq != Sk, not causal) and an
@@ -182,8 +186,10 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     gradient ``dout`` and the forward's ``scale`` (1/sqrt(Dqk) by
     default). A base form (:func:`is_base_form`) launches
     ``flash_attention_bwd_launch`` (``LAUNCHES["k6bwd"]``), anything else
-    the general form's FMA kernels (``flash_attention_bwd_gen_launch``,
-    ``LAUNCHES["k6bwd_gen"]``)."""
+    the general form's kernels for :func:`general_form`: the tensor-core
+    ones (``flash_attention_bwd_gen_tc_launch``, ``LAUNCHES["k6bwd_gen_tc"]``)
+    or the FMA ones (``flash_attention_bwd_gen_launch``,
+    ``LAUNCHES["k6bwd_gen"]``). No fallback between the two."""
     base = is_base_form(q, k, v, scale)
     if base:
         b, hq, hkv, sq, d = _check("flash_attention_bwd", q, k, v)
@@ -222,10 +228,17 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
         build.LAUNCHES["k6bwd"] += 1
         return dq, dk, dv
     scale = 1.0 / math.sqrt(dqk) if scale is None else float(scale)
+    if general_form(q.dtype, dqk, dv_) == "tc":
+        err = lib.flash_attention_bwd_gen_tc_launch(
+            *ptrs, b, hq, hkv, sq, sk, dqk, dv_, int(causal), scale,
+            build.stream_of(q))
+        build.check(err, "flash_attention_bwd (general form, tensor cores)")
+        build.LAUNCHES["k6bwd_gen_tc"] += 1
+        return dq, dk, dv
     err = lib.flash_attention_bwd_gen_launch(
         *ptrs, b, hq, hkv, sq, sk, dqk, dv_, int(causal), DTYPES[q.dtype],
         scale, build.stream_of(q))
-    build.check(err, "flash_attention_bwd (general form)")
+    build.check(err, "flash_attention_bwd (general form, FMA)")
     build.LAUNCHES["k6bwd_gen"] += 1
     return dq, dk, dv
 

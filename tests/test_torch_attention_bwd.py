@@ -1,6 +1,8 @@
-"""K6's backward, tensor-core form (bfloat16, D 64 or 128): its rounding
-points mirrored in plain PyTorch and held to ``jax.vjp`` of the
-reference's ``blocked_attention`` on the same numpy-seeded inputs.
+"""K6's backward, tensor-core form (bfloat16 at the base forms' D 64 or
+128, and at the general form's (Dqk, Dv) in (64, 64), (128, 128), (192,
+128) with Sq != Sk and the caller's scale): its rounding points mirrored
+in plain PyTorch and held to ``jax.vjp`` of the reference's
+``blocked_attention`` on the same numpy-seeded inputs.
 
 The kernel itself runs only on the card (``chip_smoke.py`` phase 17(a)
 holds it to autograd through its plain version); this file pins down that
@@ -38,39 +40,43 @@ def _probs(s, dp, lse2, dl, scale_log2, live):
     return p, p * (dp - dl)
 
 
-def _tc_backward_mirror(q, k, v, o, lse, do, causal):
-    """(dq, dk, dv) in bf16 as the tensor-core backward computes them:
-    Dl = rowsum(dO O) and LSE log2 e in float32; dK/dV one 64-key block at
-    a time over the group's q heads and the query tiles from the diagonal
-    on (S^T = K Q^T, dP^T = V dO^T, dV += bf16(P^T) dO, dK += bf16(dS^T) Q);
-    dQ one 64-row block at a time over the key tiles up to the diagonal
-    (dQ += bf16(dS) K); dK and dQ scaled once, every output rounded once."""
-    b, hq, s, d = q.shape
-    hkv = k.shape[1]
+def _tc_backward_mirror(q, k, v, o, lse, do, causal, scale=None):
+    """(dq, dk, dv) in bf16 as the tensor-core backward computes them, at
+    (Dqk, Dv) with Sq and Sk apart and the forward's scale (1/sqrt(Dqk) by
+    default): Dl = rowsum(dO O) and LSE log2 e in float32; dK/dV one 64-key
+    block at a time over the group's q heads and the query tiles from the
+    diagonal on (S^T = K Q^T, dP^T = V dO^T, dV += bf16(P^T) dO, dK +=
+    bf16(dS^T) Q); dQ one 64-row block at a time over the key tiles up to
+    the diagonal (dQ += bf16(dS) K); dK and dQ scaled once, every output
+    rounded once. Splitting dK's columns over two warpgroups and dQ's
+    128-row blocks into two 64-row halves, as the kernels do at (192, 128),
+    changes no sum."""
+    b, hq, sq, dqk = q.shape
+    hkv, sk, dvw = k.shape[1], k.shape[2], v.shape[3]
     g = hq // hkv
-    scale = np.float32(1.0 / np.sqrt(d))
+    scale = np.float32(1.0 / np.sqrt(dqk) if scale is None else scale)
     scale_log2 = np.float32(scale * LOG2E)
     qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
-    dl = (dof * o.float()).sum(-1)                  # [b, hq, s]
+    dl = (dof * o.float()).sum(-1)                  # [b, hq, sq]
     lse2 = lse * np.float32(LOG2E)
-    pos = torch.arange(s)
+    qpos, kpos = torch.arange(sq), torch.arange(sk)
 
-    dk = torch.zeros((b, hkv, s, d))
-    dv = torch.zeros((b, hkv, s, d))
-    qg = qf.reshape(b, hkv, g, s, d)
-    dog = dof.reshape(b, hkv, g, s, d)
-    dlg = dl.reshape(b, hkv, g, s)
-    lseg = lse2.reshape(b, hkv, g, s)
-    for k0 in range(0, s, TILE):
+    dk = torch.zeros((b, hkv, sk, dqk))
+    dv = torch.zeros((b, hkv, sk, dvw))
+    qg = qf.reshape(b, hkv, g, sq, dqk)
+    dog = dof.reshape(b, hkv, g, sq, dvw)
+    dlg = dl.reshape(b, hkv, g, sq)
+    lseg = lse2.reshape(b, hkv, g, sq)
+    for k0 in range(0, sk, TILE):
         kt, vt = kf[:, :, k0:k0 + TILE], vf[:, :, k0:k0 + TILE]
-        keys = pos[k0:k0 + TILE][:, None]
+        keys = kpos[k0:k0 + TILE][:, None]
         acc_k = torch.zeros(kt.shape)
-        acc_v = torch.zeros(kt.shape)
+        acc_v = torch.zeros(vt.shape)
         for gi in range(g):
-            for q0 in range(k0 if causal else 0, s, TILE):
+            for q0 in range(k0 if causal else 0, sq, TILE):
                 qt = qg[:, :, gi, q0:q0 + TILE]
                 dot = dog[:, :, gi, q0:q0 + TILE]
-                rows = pos[q0:q0 + TILE][None, :]
+                rows = qpos[q0:q0 + TILE][None, :]
                 live = ~(keys > rows) if causal else torch.ones(
                     keys.shape[0], rows.shape[1], dtype=torch.bool)
                 st = torch.einsum("bhkd,bhqd->bhkq", kt, qt)
@@ -84,17 +90,17 @@ def _tc_backward_mirror(q, k, v, o, lse, do, causal):
         dk[:, :, k0:k0 + TILE] = acc_k * scale
         dv[:, :, k0:k0 + TILE] = acc_v
 
-    dq = torch.zeros((b, hq, s, d))
+    dq = torch.zeros((b, hq, sq, dqk))
     kx = kf.repeat_interleave(g, dim=1)
     vx = vf.repeat_interleave(g, dim=1)
-    for q0 in range(0, s, TILE):
+    for q0 in range(0, sq, TILE):
         qt, dot = qf[:, :, q0:q0 + TILE], dof[:, :, q0:q0 + TILE]
-        rows = pos[q0:q0 + TILE][:, None]
+        rows = qpos[q0:q0 + TILE][:, None]
         acc = torch.zeros(qt.shape)
-        kv_end = min(s, q0 + TILE) if causal else s
+        kv_end = min(sk, q0 + TILE) if causal else sk
         for k0 in range(0, kv_end, TILE):
             kt, vt = kx[:, :, k0:k0 + TILE], vx[:, :, k0:k0 + TILE]
-            keys = pos[k0:k0 + TILE][None, :]
+            keys = kpos[k0:k0 + TILE][None, :]
             live = ~(keys > rows) if causal else torch.ones(
                 rows.shape[0], keys.shape[1], dtype=torch.bool)
             sc = torch.einsum("bhqd,bhkd->bhqk", qt, kt)
@@ -106,16 +112,19 @@ def _tc_backward_mirror(q, k, v, o, lse, do, causal):
     return dq.to(BF16), dk.to(BF16), dv.to(BF16)
 
 
-def _forward(q, k, v, causal):
+def _forward(q, k, v, causal, scale=None):
     """What K6's forward hands the backward: the output rounded to bf16
-    and each row's float32 log-sum-exp of its scaled logits."""
-    b, hq, s, d = q.shape
-    g = hq // k.shape[1]
+    and each row's float32 log-sum-exp of its logits times ``scale``
+    (1/sqrt(Dqk) by default)."""
+    sq, dqk = q.shape[2:]
+    sk = k.shape[2]
+    g = q.shape[1] // k.shape[1]
+    scale = 1.0 / np.sqrt(dqk) if scale is None else scale
     logits = torch.einsum("bhqd,bhkd->bhqk", q.float(),
-                          k.float().repeat_interleave(g, dim=1)) / np.sqrt(d)
+                          k.float().repeat_interleave(g, dim=1)) * scale
     if causal:
         logits = logits.masked_fill(
-            ~torch.ones((s, s), dtype=torch.bool).tril(), float("-inf"))
+            ~torch.ones((sq, sk), dtype=torch.bool).tril(), float("-inf"))
     lse = torch.logsumexp(logits, -1)
     p = torch.exp(logits - lse[..., None])
     o = torch.einsum("bhqk,bhkd->bhqd", p,
@@ -123,12 +132,12 @@ def _forward(q, k, v, causal):
     return o.to(BF16), lse
 
 
-def _reference_grads(q, k, v, do, causal):
+def _reference_grads(q, k, v, do, causal, scale=None):
     """jax.vjp of the reference's blocked attention at the bf16 inputs'
-    values, in float32."""
+    values, in float32, with the same ``scale``."""
     qj, kj, vj, doj = (jnp.asarray(t.float().numpy()) for t in (q, k, v, do))
     _, vjp = jax.vjp(lambda a, b_, c: blocked_attention(
-        a, b_, c, causal=causal), qj, kj, vj)
+        a, b_, c, causal=causal, scale=scale), qj, kj, vj)
     return [np.asarray(x) for x in vjp(doj)]
 
 
@@ -166,3 +175,41 @@ def test_tensor_core_backward_rounding_matches_reference(case):
         gate = TOL * float(np.abs(w).max())
         assert err <= gate, f"{name}: max abs err {err} > {gate}"
 
+
+#: the general form's tensor-core backward (bf16 at a pair of ``TC_DIMS``,
+#: Sq and Sk apart, the caller's scale): b, hq, hkv, sq, sk, dqk, dv,
+#: causal, scale (None: 1/sqrt(dqk)). MLA's widths causal over a ragged
+#: length (two warpgroups split dK's columns; dQ's 128-row blocks), equal
+#: widths across Sq != Sk, and MLA's widths in a group of 4 across Sq != Sk
+#: with a scale of its own. Lengths stay under the reference's 512-row
+#: blocks (it needs Sk % min(512, Sk) == 0).
+GEN_CASES = [
+    (1, 2, 2, 130, 130, 192, 128, True, None),
+    (1, 2, 2, 40, 97, 64, 64, False, None),
+    (1, 4, 1, 70, 133, 192, 128, False, 0.3),
+]
+
+
+@pytest.mark.parametrize("case", GEN_CASES,
+                         ids=lambda c: "b{}h{}kv{}q{}k{}d{}-{}{}s{}".format(
+                             *c[:7], "c" if c[7] else "n",
+                             "def" if c[8] is None else c[8]))
+def test_general_tensor_core_backward_rounding_matches_reference(case):
+    """The general form's tensor-core backward's rounding points, mirrored
+    at (Dqk, Dv) with Sq != Sk and an explicit scale, against ``jax.vjp``
+    of the reference's ``blocked_attention`` called with the same scale;
+    gate 2e-2 x max |reference| (``TOL``), as the card's bf16 gate."""
+    b, hq, hkv, sq, sk, dqk, dv, causal, scale = case
+    rng = np.random.default_rng(28)
+    q, k, v, do = (torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32)).to(BF16)
+        for shape in ((b, hq, sq, dqk), (b, hkv, sk, dqk), (b, hkv, sk, dv),
+                      (b, hq, sq, dv)))
+    o, lse = _forward(q, k, v, causal, scale)
+    got = _tc_backward_mirror(q, k, v, o, lse, do, causal, scale)
+    want = _reference_grads(q, k, v, do, causal, scale)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape, (name, g.shape, w.shape)
+        err = float(np.abs(g.float().numpy() - w).max())
+        gate = TOL * float(np.abs(w).max())
+        assert err <= gate, f"{name}: max abs err {err} > {gate}"

@@ -9,7 +9,7 @@ form's gradients (autograd through the plain version against ``jax.vjp``
 of the reference's); then the shape rules of K6's wrapper, the kernel the
 wrapper picks for each shape and dtype (the tensor-core or the FMA general
 form, or a base form) with the lengths, widths and scale it passes on, and
-the general backward entry point that ``FlashAttention`` calls.
+the backward entry point of each form that ``FlashAttention`` calls.
 
 Tolerance: float32 1e-5 (the same softmax in another summation order);
 bfloat16 2e-2, as K6's.
@@ -259,6 +259,54 @@ def test_k6_wrapper_picks_the_form(monkeypatch, case):
     assert args[-2] == want
     if form == "fma":
         assert args[13] == k6.DTYPES[dt]
+
+
+#: the backward's entry point and LAUNCHES key for each form of ``FORMS``
+BWD_ENTRY = {"tc": ("flash_attention_bwd_gen_tc_launch", "k6bwd_gen_tc"),
+             "fma": ("flash_attention_bwd_gen_launch", "k6bwd_gen"),
+             "base": ("flash_attention_bwd_launch", "k6bwd")}
+
+
+@pytest.mark.parametrize("case", list(FORMS))
+def test_k6_backward_picks_the_form(monkeypatch, case):
+    """With the device check bypassed and the library replaced by a
+    recorder, the backward of ``FlashAttention`` calls the backward entry
+    point of the forward's form once: the general tensor-core one for bf16
+    at a pair of ``TC_DIMS``, the general FMA one for float32 and the small
+    widths, the base one for a base shape; it passes (Sq, Sk, Dqk, Dv,
+    causal) and the forward's scale on unchanged and bumps that kernel's
+    count and no other backward's."""
+    name, shapes, causal, scale, form = FORMS[case]
+    dt = getattr(torch, name)
+    b, hq, hkv, sq, sk, dqk, dv = shapes
+    lib = _Recorder()
+    monkeypatch.setattr(build, "require_cuda", lambda *a, **kw: None)
+    monkeypatch.setattr(build, "load", lambda: {
+        "flash_attention": lib, "flash_attention_bwd": lib})
+    monkeypatch.setattr(build, "stream_of", lambda t: 7)
+    monkeypatch.setattr(build, "LAUNCHES", dict.fromkeys(build.LAUNCHES, 0))
+    q, k, v = (torch.from_numpy(a).to(dt).requires_grad_()
+               for a in inputs(*shapes))
+    k6.FlashAttention.apply(q, k, v, causal, scale).sum().backward()
+    entry, key = BWD_ENTRY[form]
+    assert [c[0] for c in lib.calls] == [ENTRY[form][0], entry]
+    assert build.LAUNCHES == {**dict.fromkeys(build.LAUNCHES, 0),
+                              ENTRY[form][1]: 1, key: 1}
+    assert q.grad.shape == q.shape and k.grad.shape == k.shape \
+        and v.grad.shape == v.shape and q.grad.dtype == dt
+    args = lib.calls[1][1]
+    assert args[:3] == (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    assert args[-1] == 7
+    if form == "base":
+        assert args[10:17] == (b, hq, hkv, sq, dqk, int(causal), 1)
+        return
+    assert args[10:18] == (b, hq, hkv, sq, sk, dqk, dv, int(causal))
+    want = 1.0 / math.sqrt(dqk) if scale is None else scale
+    assert args[-2] == want
+    if form == "fma":
+        assert args[18] == k6.DTYPES[dt] and len(args) == 21
+    else:
+        assert len(args) == 20
 
 
 def test_base_forms():
