@@ -300,17 +300,23 @@ Phases (any failed check exits non-zero):
    launches) and the cross K/V, 32 greedy decode steps (24 K5 launches a
    step), the step's profile, and 8 steps of the kernel path within 2e-2
    x max |logit| of the plain path's, in bf16.
-19. every family trains (run last): (a) K7's backward
-   (``selective_scan_bwd_cuda``, ``csrc/selective_scan_bwd.cu``) against
+19. every family trains (run last): (a) K7's saving forward
+   (``selective_scan_save_cuda``: y and h_final bit for bit those of
+   ``selective_scan_cuda``, its last checkpoint the plain h_final over
+   the steps before it) and K7's backward (``selective_scan_bwd_cuda``,
+   ``csrc/selective_scan_bwd.cu``, from those checkpoints) against
    autograd through ``selective_scan_ref`` in float32, dx, ddt, dB, dC and
    dA within 1e-4 (float32) / 2e-2 (bf16, against the float32 plain
    version on the same bf16 inputs) x max |plain|, with the gradient of
    h_final and without, at the JAX tests' shapes, jamba's (2, 1024, 8192,
-   16), (2, 128, 8192, 16), a ragged (2, 200, 600, 16), T 1 and 33 at S 8
-   (each float32 and bf16) and (1, 4096, 256, 16) with dt A near 0; a
-   second launch bit-identical; its device time at jamba's shape (CUDA
-   events) beside its plain version and the bound (no library call
-   computes it); (b) K6's backward at its general form (bf16 at (64,
+   16), (2, 128, 8192, 16), a ragged (2, 200, 600, 16), T 1 and 33 at S
+   8, T 15, 17 and 49 against chunks of 16 with D ragged against the
+   channel block and S 8 (each float32 and bf16) and (1, 4096, 256, 16)
+   with dt A near 0; a second launch, from the inputs alone,
+   bit-identical; its device time at jamba's shape (CUDA events) beside
+   K7's forward, plain and saving, its plain version and the bound (no
+   library call computes it), and the sweep of its (lanes, channels,
+   chunk) there; (b) K6's backward at its general form (bf16 at (64,
    64), (128, 128) and (192, 128): the tensor-core kernels of
    ``flash_attention_bwd_gen_tc_launch``, under ``k6bwd_gen_tc``; float32
    and the tiny widths: the FMA kernels of
@@ -362,6 +368,18 @@ shapes, K6's general backward at MLA's and the cross shape and its base
 forms' backward at minicpm-2b's and qwen3-14b's bf16 shapes (device µs a
 launch) and deepseek-v3's 4-layer prefill of 2 x 1024 (wall ms, three
 runs), of the port in another checkout (A B B A, as below).
+
+``python3 chip_smoke.py --k7-bwd-times CHECKOUT`` runs only K7's
+backward and K7's forward (plain, and saving where the checkout has it)
+at jamba's training shape (device µs a launch) and phase 19(c)'s jamba
+cell trained 5 steps (wall ms a step, peak GB), of the port in another
+checkout (A B B A, as below).
+
+``python3 chip_smoke.py --k7-bwd-parts CHECKOUT`` times K7's backward of
+the port in another checkout with one part taken out at a time (the
+consumers' arithmetic, the write-back, a pass, the exps, the shuffle
+sums; a third stage), each form built from a copy of its source: what a
+part costs where the others do not hide it.
 
 ``python3 chip_smoke.py --train-kernel-times CHECKOUT`` runs only K7's
 forward at jamba's training shape and K6's base-form backward at
@@ -539,6 +557,7 @@ def phase_device():
         f"(nvcc {build.build_seconds():.1f} s) from {build.CSRC}")
     out_dir = build.build_dir()
     prod = k7_production()
+    bwd = k7_bwd_production()
     for name, keep in (("fused", None), ("flash_attention", None),
                        ("flash_attention_bwd", None),
                        ("decode_attention", "Li128E"),
@@ -567,19 +586,27 @@ def phase_device():
                 v == "0/0" for v in tc.values()), f"K6's backward's "
                 f"tensor-core kernels, spill stores/loads: {tc} (want "
                 f"{sorted(K6_BWD_TC_KERNELS)}, none spilling)")
+        if name == "selective_scan":
+            save = {r[0]: r[3] for r in rows if r[0] == prod["save_name"]}
+            check(list(save.values()) == ["0/0"], f"K7's saving form "
+                  f"{prod['save_name']}, spill stores/loads: {save}")
         if name == "selective_scan_bwd":
-            check(len(rows) == 8 and all(r[3] == "0/0" for r in rows),
+            want = 8 + len(set(bwd["sweep"]) - {bwd["shape"]})
+            check(len(rows) == want and all(r[3] == "0/0" for r in rows)
+                  and any(r[0] == bwd["name"] for r in rows),
                   f"K7's backward kernels, spill stores/loads: "
-                  f"{[(r[0], r[3]) for r in rows]} (want 8, none spilling)")
+                  f"{[(r[0], r[3]) for r in rows]} (want {want} with "
+                  f"{bwd['name']}, none spilling)")
         for fn, regs, smem, spills in rows:
-            if name == "selective_scan" and prod["name"] not in fn:
+            if name == "selective_scan" and fn not in (prod["name"],
+                                                       prod["save_name"]):
                 continue  # the sweep's shapes: not on the path
             log(f"[1] {name}: {fn}: {regs} registers, {smem} B static "
                 f"shared memory, spill stores/loads {spills}")
     k6_fwd_sass(out_dir)
     k6_bwd_sass(out_dir)
     k7_sass(out_dir / "libselective_scan.so", prod)
-    k7_bwd_sass(out_dir / "libselective_scan_bwd.so")
+    k7_bwd_sass(out_dir / "libselective_scan_bwd.so", bwd)
     return card
 
 
@@ -596,17 +623,30 @@ K6_BWD_TC_KERNELS = {f"tc::{fn}<{qk}, {vv}>": (fn, qk, vv)
                      for qk, vv in ((64, 64), (128, 128), (192, 128))}
 
 
-def k7_bwd_sass(lib):
+def k7_bwd_sass(lib, bwd):
     """K7's backward: no global atomic in any of its kernels (its sums
     over channels and over B are per-block partials added in a fixed
-    order)."""
+    order); its bf16 S = 16 production kernel holds at least two MUFU.EX2
+    an element of a thread's chunk (the recompute's exp and the reverse
+    step's: chunk x S / lanes each), exp on the SFUs."""
     funcs = sass_functions(lib)
     check(len(funcs) >= 8, f"{lib.name}: kernels {sorted(funcs)}")
     n = {f: sum(op.startswith(("RED.", "ATOMG")) for op in ops)
          for f, ops in funcs.items()}
     check(not any(n.values()), f"{lib.name}: global atomics {n}")
+    ops = funcs.get(bwd["name"])
+    check(ops is not None, f"{bwd['name']} not found in {lib.name}: "
+          f"{sorted(funcs)[:4]} ...")
+    ex2 = sum(op.startswith("MUFU.EX2") for op in ops)
+    per_chunk = bwd["chunk"] * 16 // bwd["lanes"]
+    check(ex2 >= 2 * per_chunk, f"{bwd['name']} has {ex2} MUFU.EX2, fewer "
+          f"than two per element of a thread's chunk ({2 * per_chunk}): "
+          f"exp is not on the SFUs")
     log(f"[1] {lib.name}: {len(funcs)} kernels, global atomics (RED, "
-        f"ATOMG) 0 in each")
+        f"ATOMG) 0 in each; {bwd['name']}: {ex2} MUFU.EX2 (a thread's "
+        f"chunk holds {per_chunk} elements: {bwd['chunk']} steps x "
+        f"{16 // bwd['lanes']} states, two exps each), {len(ops)} SASS "
+        f"instructions")
 
 
 #: K6's tensor-core forward instantiations, (DQK, DV): the base forms' D
@@ -672,12 +712,41 @@ def k7_production():
 
     from repro_torch.kernels import build
 
+    from repro_torch.kernels.selective_scan.selective_scan import BWD_CHUNK
+
     cfg = (ctypes.c_int * 3)()
     build.load()["selective_scan"].selective_scan_config(cfg)
     lanes, channels, chunk = list(cfg)
+    name = f"scan_kernel<__nv_bfloat16, 16, {lanes}, {channels}, {chunk}"
     return {"lanes": lanes, "channels": channels, "chunk": chunk,
-            "name": f"scan_kernel<__nv_bfloat16, 16, {lanes}, {channels}, "
-                    f"{chunk}>"}
+            "name": f"{name}, 0>", "save_name": f"{name}, {BWD_CHUNK}>"}
+
+
+def k7_bwd_production():
+    """K7's backward's production shape (csrc/selective_scan_bwd.cu
+    K7_BWD_PROD), held to the wrapper's scratch layout (``BWD_CHANNELS``,
+    ``BWD_CHUNK``), its sweep's shapes and the name of its bfloat16, S = 16
+    kernel as c++filt prints it."""
+    import ctypes
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.selective_scan.selective_scan import (
+        BWD_CHANNELS, BWD_CHUNK)
+
+    lib = build.load()["selective_scan_bwd"]
+    cfg = (ctypes.c_int * 3)()
+    lib.selective_scan_bwd_config(cfg)
+    lanes, channels, chunk = list(cfg)
+    check((channels, chunk) == (BWD_CHANNELS, BWD_CHUNK), f"K7's backward "
+          f"compiled at (channels, chunk) {(channels, chunk)}, the wrapper "
+          f"lays its scratch out for {(BWD_CHANNELS, BWD_CHUNK)}")
+    rows = (ctypes.c_int * 48)()
+    n = lib.selective_scan_bwd_sweep_configs(rows, 16)
+    return {"lanes": lanes, "channels": channels, "chunk": chunk,
+            "shape": (lanes, channels, chunk),
+            "sweep": [tuple(rows[3 * i:3 * i + 3]) for i in range(n)],
+            "name": f"scan_bwd_kernel<__nv_bfloat16, 16, {lanes}, "
+                    f"{channels}, {chunk}>"}
 
 
 def sass_functions(lib):
@@ -4195,34 +4264,42 @@ def k6_bwd_split(bwd, n=10):
     milliseconds of a profile may hold no device event (a profile of a
     few launches there can record none), so the recorded step follows a
     warm-up step that lasts 50 ms or more, and each kernel's time is
-    averaged over the launches recorded of it. Fails when one of the three
-    was not recorded. Launch counters are restored."""
+    averaged over the launches recorded of it. A profile there has also
+    recorded no device event at all, so a profile that misses one of the
+    three is taken again, up to three profiles; fails when none records
+    all three. Launch counters are restored."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
     from repro_torch.kernels import build
 
-    counted = dict(build.LAUNCHES)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1,
-                                   repeat=1)) as prof:
-        for warm in (True, False):
-            for _ in range(n):
-                bwd()
-            torch.cuda.synchronize()
-            if warm:
-                time.sleep(0.05)
-            prof.step()
-    build.LAUNCHES.update(counted)
-    rows = device_rows(prof)
-    parts = {}
-    for e in rows:
-        for part in ("delta_kernel", "dkdv_kernel", "dq_kernel"):
-            if part in e.key:
-                t, c = parts.get(part, (0.0, 0))
-                parts[part] = (t + e.self_device_time_total, c + e.count)
+    for attempt in range(3):
+        counted = dict(build.LAUNCHES)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for warm in (True, False):
+                for _ in range(n):
+                    bwd()
+                torch.cuda.synchronize()
+                if warm:
+                    time.sleep(0.05)
+                prof.step()
+        build.LAUNCHES.update(counted)
+        rows = device_rows(prof)
+        parts = {}
+        for e in rows:
+            for part in ("delta_kernel", "dkdv_kernel", "dq_kernel"):
+                if part in e.key:
+                    t, c = parts.get(part, (0.0, 0))
+                    parts[part] = (t + e.self_device_time_total, c + e.count)
+        if len(parts) == 3:
+            break
+        log(f"the profiler recorded {sorted(parts)} of K6 backward's three "
+            f"kernels in profile {attempt + 1} of 3")
     check(len(parts) == 3, f"the profiler recorded {sorted(parts)} of K6 "
-          f"backward's three kernels over {n} launches; its device rows: "
-          f"{[e.key[:48] for e in rows][:8]}")
+          f"backward's three kernels over {n} launches in each of three "
+          f"profiles; its device rows: {[e.key[:48] for e in rows][:8]}")
     return {k: t / c for k, (t, c) in parts.items()}, \
         min(c for _, c in parts.values())
 
@@ -5285,11 +5362,16 @@ def phase_families():
 #: K7's backward against autograd through its plain version: (b, t, d, s).
 #: The JAX tests' shapes, jamba's training shape (phase 19(c)'s, timed),
 #: the invariant's, a ragged one, one step and a chunk and one step at
-#: S = 8; each in float32 and bf16, with the gradient of h_final and
-#: without
+#: S = 8; then the edges of the production shape (lanes 4, channels 64,
+#: chunk 16): T = chunk - 1, chunk + 1 and 3 chunk + 1, D ragged against
+#: the channels (72 and 136 whole 16-byte rows, 100 not in bf16: plain
+#: loads), S = 8 at 4 lanes (2 states a thread); each in float32 and bf16,
+#: with the gradient of h_final and without
 K7_BWD_SHAPES = [(2, 64, 32, 8), (1, 512, 512, 16), (3, 128, 64, 16),
                  (2, 1024, 8192, 16), (2, 128, 8192, 16), (2, 200, 600, 16),
-                 (1, 1, 600, 8), (1, 33, 600, 8)]
+                 (1, 1, 600, 8), (1, 33, 600, 8),
+                 (2, 15, 72, 16), (1, 17, 100, 16), (2, 49, 136, 8),
+                 (1, 17, 72, 8)]
 K7_BWD_TIMED = (2, 1024, 8192, 16)
 #: K6's backward at its general form against autograd through its plain
 #: version: label, b, hq, hkv, sq, sk, dqk, dv, causal, dtype, scale (None:
@@ -5365,13 +5447,19 @@ def k7_bwd_bound_ms(b, t, d, s, nbytes):
 
 
 def phase_scan_backward():
-    """19(a): K7's backward against autograd through ``selective_scan_ref``
-    on the card, every gradient, with and without the gradient of h_final;
-    two launches bit-identical; its time at jamba's training shape."""
+    """19(a): K7's saving forward against its plain launch (y and h_final
+    bit for bit, the last checkpoint against the plain launch's h_final
+    over the steps before it), then K7's backward against autograd
+    through ``selective_scan_ref`` on the card, every gradient, with and
+    without the gradient of h_final, from the saving forward's checkpoints
+    and from the inputs alone (bit-identical); its time at jamba's
+    training shape beside K7's forward, plain and saving; and the sweep of
+    its (lanes, channels, chunk) there."""
     import torch
     from repro_torch.kernels.selective_scan.ref import selective_scan_ref
     from repro_torch.kernels.selective_scan.selective_scan import (
-        selective_scan_bwd_cuda, selective_scan_cuda)
+        BWD_CHUNK, selective_scan_bwd_cuda, selective_scan_cuda,
+        selective_scan_save_cuda)
 
     gen = torch.Generator().manual_seed(19)
     tol = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -5386,6 +5474,21 @@ def phase_scan_backward():
             if shape == long_shape:
                 dt, a = (dt.float() * factor).to(dt_), a * factor
             b, t, d, s = shape
+            y0, h0 = selective_scan_cuda(x, dt, bc, cc, a)
+            y1, h1, hs = selective_scan_save_cuda(x, dt, bc, cc, a)
+            check(torch.equal(y0, y1) and torch.equal(h0, h1), f"K7's "
+                  f"saving forward at {shape} {name}: y or h_final differs "
+                  f"from the plain launch's")
+            t_last = (hs.shape[1] - 1) * BWD_CHUNK
+            if t_last:
+                h_last = selective_scan_cuda(
+                    *(v[:, :t_last].contiguous() for v in (x, dt, bc, cc)),
+                    a)[1]
+                check(torch.equal(hs[:, -1], h_last), f"K7's saving forward "
+                      f"at {shape} {name}: the checkpoint at step {t_last} "
+                      f"is not the plain launch's h_final over {t_last} "
+                      f"steps")
+            del y0, h0, y1, h1
             dy = randn(gen, (b, t, d), dt_)
             dh = randn(gen, (b, d, s), torch.float32)
             ref = [u.detach().float().requires_grad_()
@@ -5398,11 +5501,12 @@ def phase_scan_backward():
             del y, h, ref
             errs = []
             for case, dh_in in (("dh", dh), ("none", None)):
-                got = selective_scan_bwd_cuda(x, dt, bc, cc, a, dy, dh_in)
+                got = selective_scan_bwd_cuda(x, dt, bc, cc, a, dy, dh_in, hs)
                 again = selective_scan_bwd_cuda(x, dt, bc, cc, a, dy, dh_in)
                 check(all(torch.equal(p, q) for p, q in zip(got, again)),
                       f"K7 backward at {shape} {name} dh={case}: two launches "
-                      f"on the same inputs gave different gradients")
+                      f"on the same inputs (with the checkpoints, and from "
+                      f"the inputs alone) gave different gradients")
                 for nm, g, w in zip(("dx", "ddt", "dB", "dC", "dA"), got,
                                     want[case]):
                     e = float_err(g.float(), w)
@@ -5417,22 +5521,30 @@ def phase_scan_backward():
             del want, got, again
             if shape == K7_BWD_TIMED and name == "bfloat16":
                 timed = (x, dt, bc, cc, a, dy)
-    log(f"[19] (a) K7 backward against autograd through its plain version "
-        f"on {n} cases (the JAX tests' shapes, jamba's (2, 1024, 8192, 16), "
-        f"(2, 128, 8192, 16), ragged (2, 200, 600, 16), T 1 and 33 at S 8, "
-        f"each float32 and bf16; {long_shape} float32 with dt A near 0; each "
-        f"with the gradient of h_final and without): worst max |err| / max "
-        f"|plain| over dx, ddt, dB, dC, dA {worst['float32']:.3g} float32 "
-        f"(gate 1e-4), {worst['bfloat16']:.3g} bf16 against float32 plain "
-        f"on the same bf16 inputs (gate 2e-2: the forward already rounds "
-        f"dt x elsewhere than the oracle); every second launch "
+    log(f"[19] (a) K7's saving forward == its plain launch bit for bit (y, "
+        f"h_final) on every shape below, its last checkpoint == the plain "
+        f"h_final over the steps before it; K7 backward against autograd "
+        f"through its plain version on {n} cases (the JAX tests' shapes, "
+        f"jamba's (2, 1024, 8192, 16), (2, 128, 8192, 16), ragged (2, 200, "
+        f"600, 16), T 1 and 33 at S 8, T 15, 17, 49 against chunks of "
+        f"{BWD_CHUNK} with D 72, 100, 136 ragged against the channel block "
+        f"and S 8; each float32 and bf16; {long_shape} float32 with dt A "
+        f"near 0; each with the gradient of h_final and without): worst max "
+        f"|err| / max |plain| over dx, ddt, dB, dC, dA "
+        f"{worst['float32']:.3g} float32 (gate 1e-4), "
+        f"{worst['bfloat16']:.3g} bf16 against float32 plain on the same "
+        f"bf16 inputs (gate 2e-2: the forward already rounds dt x elsewhere "
+        f"than the oracle); every second launch (from the inputs alone) "
         f"bit-identical")
     x, dt, bc, cc, a, dy = timed
     b, t, d, s = K7_BWD_TIMED
-    ms = events_ms(lambda: selective_scan_bwd_cuda(x, dt, bc, cc, a, dy),
-                   n=10, warm=2)
+    hs = selective_scan_save_cuda(x, dt, bc, cc, a)[2]
+    ms = events_ms(lambda: selective_scan_bwd_cuda(x, dt, bc, cc, a, dy,
+                                                   None, hs), n=10, warm=2)
     fwd_ms = events_ms(lambda: selective_scan_cuda(x, dt, bc, cc, a),
                        n=10, warm=2)
+    save_ms = events_ms(lambda: selective_scan_save_cuda(x, dt, bc, cc, a),
+                        n=10, warm=2)
     ref = [u.detach().float().requires_grad_() for u in (x, dt, bc, cc, a)]
     y, _ = selective_scan_ref(*ref)
     plain_ms = events_ms(lambda: torch.autograd.grad(
@@ -5440,14 +5552,66 @@ def phase_scan_backward():
     del ref, y
     bound, by, t_exp, t_bytes = k7_bwd_bound_ms(b, t, d, s, 2)
     log(f"[19] (a) K7 backward at jamba's {K7_BWD_TIMED} bf16: device "
-        f"{ms * 1e3:.1f} us/launch (CUDA events over 10 launches; K7's "
-        f"forward {fwd_ms * 1e3:.1f}); plain autograd's backward "
-        f"{plain_ms * 1e3:.1f} us in float32; bound {bound * 1e3:.2f} us "
-        f"({b * t * d * s} exps on the SFUs = {t_exp * 1e3:.2f} us, bytes "
-        f"{t_bytes * 1e3:.2f} us; {by}; {bound / ms:.1%} of it); no single "
-        f"PyTorch call computes it")
+        f"{ms * 1e3:.1f} us/launch from the checkpoints (CUDA events over 10 "
+        f"launches); K7's forward {fwd_ms * 1e3:.1f} plain, "
+        f"{save_ms * 1e3:.1f} saving (+{(save_ms - fwd_ms) * 1e3:.1f} for "
+        f"{hs.numel() * 4 / 1e6:.1f} MB of checkpoints); plain autograd's "
+        f"backward {plain_ms * 1e3:.1f} us in float32; bound "
+        f"{bound * 1e3:.2f} us ({b * t * d * s} exps on the SFUs = "
+        f"{t_exp * 1e3:.2f} us, bytes {t_bytes * 1e3:.2f} us; {by}; "
+        f"{bound / ms:.1%} of it); no single PyTorch call computes it")
+    k7_bwd_sweep(x, dt, bc, cc, a, dy)
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": by, "library_ms": None, "max_abs_err": err_abs}
+
+
+def k7_bwd_sweep(x, dt, bc, cc, a, dy):
+    """Device time of each shape of K7's backward's sweep
+    (csrc/selective_scan_bwd.cu K7_BWD_SWEEP: lanes a channel, channels a
+    CTA, chunk) on these bf16 S = 16 inputs, each from the saving
+    forward's checkpoints at its chunk, its gradients held against the
+    production kernel's within 2e-2 x max |production|; the production
+    shape is marked."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.selective_scan.selective_scan import (
+        selective_scan_bwd_cuda, selective_scan_save_cuda)
+
+    lib = build.load()["selective_scan_bwd"]
+    prod = k7_bwd_production()
+    b, t, d, s = x.shape + (bc.shape[2],)
+    want = selective_scan_bwd_cuda(x, dt, bc, cc, a, dy)
+    f32 = dict(dtype=torch.float32, device=DEVICE)
+    outs = [torch.empty_like(v) for v in (x, dt, bc, cc)] + [
+        torch.empty((d, s), **f32)]
+    pa = torch.empty((b, d, s), **f32)
+    cells = []
+    for lanes, channels, chunk in prod["sweep"]:
+        hs = selective_scan_save_cuda(x, dt, bc, cc, a, chunk)[2]
+        part = torch.empty((b, -(-d // channels), t, 2 * s), **f32)
+
+        def run():
+            build.check(lib.selective_scan_bwd_sweep_launch(
+                *(v.data_ptr() for v in (x, dt, bc, cc, a, dy)), None,
+                hs.data_ptr(), part.data_ptr(), pa.data_ptr(),
+                *(g.data_ptr() for g in outs), b, t, d, lanes, channels,
+                chunk, build.stream_of(x)), "K7 backward sweep")
+
+        run()
+        torch.cuda.synchronize()
+        for nm, g, w in zip(("dx", "ddt", "dB", "dC", "dA"), outs, want):
+            e = float_err(g.float(), w.float())
+            scale = float(w.float().abs().max())
+            check(e <= 2e-2 * scale, f"K7 backward sweep shape "
+                  f"{(lanes, channels, chunk)} {nm} != production: max abs "
+                  f"err {e} > 2e-2 x {scale}")
+        ms = events_ms(run, n=10, warm=2)
+        mark = " (production)" if (lanes, channels, chunk) == prod[
+            "shape"] else ""
+        cells.append(f"L{lanes} CH{channels} TC{chunk} {ms * 1e3:.1f}{mark}")
+        del hs, part
+    log(f"[19] (a) K7 backward sweep at {(b, t, d, s)} bf16, device "
+        f"us/launch (CUDA events over 10): " + "; ".join(cells))
 
 
 def k6_gen_bwd_bound_ms(b, hq, hkv, sq, sk, dqk, dv, causal, nbytes, peak):
@@ -5910,6 +6074,187 @@ def k6_gen_times():
         f"launches a prefill {k6}")
 
 
+def k7_bwd_times():
+    """K7's backward (from the saving forward's checkpoints where the
+    checkout has them, and from the inputs alone) and K7's forward (plain,
+    and saving where the checkout has it) at jamba's training shape
+    ``K7_BWD_TIMED`` bf16 (device µs a launch, CUDA events over 20 launches
+    after 3), then phase 19(c)'s jamba cell (8 layers, 2 experts, B 2 x S
+    1024, bf16) trained 5 steps with the kernels (wall ms a step, the
+    median of steps 2-5, and peak allocated GB), of the port imported from
+    ``sys.path``: run once per checkout, each in its own process, to
+    compare two checkouts on one card (A B B A)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import build
+    from repro_torch.kernels.selective_scan import selective_scan as k7
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw_init, schedules
+
+    build.load()
+    where = build.CSRC.parents[2]
+    bf16 = torch.bfloat16
+    gen = torch.Generator().manual_seed(29)
+    x, dt, bc, cc, a = scan_inputs(gen, *K7_BWD_TIMED, bf16)
+    dy = randn(gen, x.shape, bf16)
+    save = getattr(k7, "selective_scan_save_cuda", None)
+    runs = []
+    if save is not None:
+        hs = save(x, dt, bc, cc, a)[2]
+        runs.append(("bwd from checkpoints",
+                     lambda: k7.selective_scan_bwd_cuda(x, dt, bc, cc, a, dy,
+                                                        None, hs)))
+    runs.append(("bwd from inputs", lambda: k7.selective_scan_bwd_cuda(
+        x, dt, bc, cc, a, dy)))
+    runs.append(("fwd plain", lambda: k7.selective_scan_cuda(x, dt, bc, cc,
+                                                              a)))
+    if save is not None:
+        runs.append(("fwd saving", lambda: save(x, dt, bc, cc, a)))
+    cells = [f"{label} {events_ms(fn, n=20, warm=3) * 1e3:.1f}"
+             for label, fn in runs]
+    log(f"k7 bwd times {where}: {K7_BWD_TIMED} bf16 " + "; ".join(cells)
+        + " us/launch")
+    del x, dt, bc, cc, a, dy, runs
+    full = get_config("jamba-v0.1-52b")
+    cfg = dataclasses.replace(full, n_layers=JAMBA_LAYERS, n_experts=2)
+    source = SyntheticLM(cfg, 2, 1024, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(
+        0), device=DEVICE, dtype=torch.float32)
+    opt = adamw_init(params)
+    n_steps = 5
+    step = make_train_step(cfg, schedule=schedules.make(
+        "cosine", 1e-4, n_steps, warmup=1), dtype=bf16, device=DEVICE)
+    walls, losses = [], []
+    build.reset_launches()
+    for i in range(n_steps):
+        batch = {k: torch.from_numpy(v).to(DEVICE)
+                 for k, v in source.batch_at(i).items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    k7n = {k: n // n_steps for k, n in build.LAUNCHES.items()
+           if k.startswith("k7") and n}
+    log(f"k7 bwd times {where}: jamba ({cfg.n_layers} layers, "
+        f"{cfg.n_experts} experts) B 2 x S 1024 bf16 step walls "
+        + ", ".join(f"{w:.1f}" for w in walls) + f" ms, median of steps "
+        f"2-{n_steps} {statistics.median(walls[1:]):.1f} ms; peak allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; losses "
+        f"{[round(v, 4) for v in losses]}; K7 launches a step {k7n}")
+
+
+#: ``--k7-bwd-parts``: K7's backward with one part taken out, as text
+#: substitutions in csrc/selective_scan_bwd.cu (label -> [(text,
+#: replacement)]); their outputs are wrong by design, only times are read
+K7_BWD_PARTS = {
+    "whole": [],
+    "no consumer arithmetic": [(
+        "    // h_{t0 - 1 + k} for k = 0 .. TC: the checkpoint, then the chunk",
+        "    if (D > 0) { mbar_arrive(empty(s)); continue; }")],
+    "no consumer arithmetic, no write-back": [
+        ("    // h_{t0 - 1 + k} for k = 0 .. TC: the checkpoint, then the "
+         "chunk", "    if (D > 0) { mbar_arrive(empty(s)); continue; }"),
+        ("      const int nt = min(TC, Tn - t0);\n      if (vec) {\n"
+         "        if (pl == 0) {\n          tma_store_3d",
+         "      const int nt = min(TC, Tn - t0);\n      if (D > 0) return;\n"
+         "      if (vec) {\n        if (pl == 0) {\n          tma_store_3d")],
+    "no reverse pass": [(
+        "    StepIn<P> nxt;",
+        "    if (D > 0) { for (int p = 0; p < P; ++p) dA[p] += hh[TC][p]; "
+        "mbar_arrive(empty(s)); continue; }\n    StepIn<P> nxt;")],
+    "no exp in the reverse step": [(
+        "        const float e = kEx2 ? ex2(x2) : expf(x2);\n"
+        "        const float g",
+        "        const float e = x2;\n        const float g")],
+    "no shuffle sums": [
+        ("reduce_scatter<2 * P, L, 16>(v, lane);", ""),
+        ("reduce_scatter<2, 1, L / 2>(w, lane);", "")],
+    "three stages": [("constexpr int kStages = 2;",
+                      "constexpr int kStages = 3;")],
+}
+
+
+def k7_bwd_parts():
+    """K7's backward of the port imported from ``sys.path`` with one part
+    taken out at a time (``K7_BWD_PARTS``): each form built by nvcc from a
+    copy of its ``csrc/`` (all together, under the git-ignored build
+    directory), loaded with ctypes and timed at jamba's training shape
+    ``K7_BWD_TIMED`` bf16 through its sweep entry at the production shape
+    (device µs a launch, CUDA events over 10 after 2). A part whose text is
+    not in that checkout's source prints n/a. What a form saves is what
+    that part costs where the others overlap it."""
+    import ctypes
+    import shutil
+
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.selective_scan.selective_scan import (
+        selective_scan_save_cuda)
+
+    build.load()
+    where = build.CSRC.parents[2]
+    lanes, channels, chunk = k7_bwd_production()["shape"]
+    src = (build.CSRC / "selective_scan_bwd.cu").read_text()
+    work = build.BUILD_ROOT / "k7_bwd_parts"
+    shutil.rmtree(work, ignore_errors=True)
+    procs = {}
+    for i, (label, subs) in enumerate(K7_BWD_PARTS.items()):
+        text = src
+        if not all(old in text for old, _ in subs):
+            procs[label] = None
+            continue
+        for old, new in subs:
+            text = text.replace(old, new)
+        d = work / str(i)
+        shutil.copytree(build.CSRC, d)
+        (d / "selective_scan_bwd.cu").write_text(text)
+        procs[label] = (d, subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-I", str(d), "-o",
+             str(d / "lib.so"), str(d / "selective_scan_bwd.cu")],
+            stdout=subprocess.DEVNULL, stderr=subprocess.STDOUT))
+    gen = torch.Generator().manual_seed(29)
+    b, t, d_, s = K7_BWD_TIMED
+    x, dt, bc, cc, a = scan_inputs(gen, b, t, d_, s, torch.bfloat16)
+    dy = randn(gen, x.shape, torch.bfloat16)
+    hs = selective_scan_save_cuda(x, dt, bc, cc, a, chunk)[2]
+    f32 = dict(dtype=torch.float32, device=DEVICE)
+    outs = [torch.empty_like(v) for v in (x, dt, bc, cc)] + [
+        torch.empty((d_, s), **f32)]
+    pa = torch.empty((b, d_, s), **f32)
+    part = torch.empty((b, -(-d_ // channels), t, 2 * s), **f32)
+    cells = []
+    for label, proc in procs.items():
+        if proc is None:
+            cells.append(f"{label} n/a")
+            continue
+        d, p = proc
+        check(p.wait() == 0, f"nvcc failed on the form '{label}'")
+        fn = ctypes.CDLL(str(d / "lib.so")).selective_scan_bwd_sweep_launch
+        fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6 + [
+            ctypes.c_void_p]
+
+        def run():
+            build.check(fn(*(v.data_ptr() for v in (x, dt, bc, cc, a, dy)),
+                           None, hs.data_ptr(), part.data_ptr(),
+                           pa.data_ptr(), *(g.data_ptr() for g in outs), b,
+                           t, d_, lanes, channels, chunk,
+                           build.stream_of(x)), f"K7 backward, {label}")
+
+        cells.append(f"{label} {events_ms(run, n=10, warm=2) * 1e3:.1f}")
+    shutil.rmtree(work, ignore_errors=True)
+    log(f"k7 bwd parts {where}: {K7_BWD_TIMED} bf16 at (lanes, channels, "
+        f"chunk) {(lanes, channels, chunk)}, us/launch: " + "; ".join(cells))
+
+
 def main():
     try:
         import torch
@@ -5920,12 +6265,14 @@ def main():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false)", file=sys.stderr)
         return 2
-    # --k3-step-times / --k6-bwd-times / --k6-gen-times /
-    # --train-kernel-times / --split-times / --topology-sweep CHECKOUT: only
-    # that timing, of that checkout's port
+    # --k3-step-times / --k6-bwd-times / --k6-gen-times / --k7-bwd-times
+    # / --k7-bwd-parts / --train-kernel-times / --split-times /
+    # --topology-sweep CHECKOUT: only that timing, of that checkout's port
     only = {"--k3-step-times": k3_step_times,
             "--k6-bwd-times": k6_bwd_times,
             "--k6-gen-times": k6_gen_times,
+            "--k7-bwd-times": k7_bwd_times,
+            "--k7-bwd-parts": k7_bwd_parts,
             "--train-kernel-times": train_kernel_times,
             "--split-times": split_times,
             "--topology-sweep": topology_sweep_times}.get(

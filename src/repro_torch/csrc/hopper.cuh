@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks in inline PTX: mbarriers, TMA tile loads,
 // wgmma shared-memory descriptors and the warpgroup products that K6's
 // tensor-core forward and backward use (csrc/flash_attention.cu,
-// csrc/flash_attention_bwd.cu), and on the host the encoder of their TMA
-// tensor maps. Header-only; no CUTLASS.
+// csrc/flash_attention_bwd.cu), and on the host the encoders of their TMA
+// tensor maps and of K7's backward's tiles (csrc/selective_scan_bwd.cu).
+// Header-only; no CUTLASS.
 //
 // The products: wgmma_ss_n128 / wgmma_ss_n64 (m64n128k16 / m64n64k16, A
 // and B K-major in shared memory: S = Q K^T, dP = dO V^T and their
@@ -97,6 +98,34 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2)
       : "memory");
+}
+
+// copy the box at coordinates (c0 innermost, c1, c2) of a 3-D tensor map
+// from shared memory at `src` to global memory (elements past the tensor's
+// edge are not written); one bulk async group per commit
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// the committed stores have read their shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// the committed stores are done
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+// this thread's shared-memory writes visible to the async (TMA) proxy
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ------------------------------------------------------------ arithmetic
@@ -332,6 +361,30 @@ inline bool encode(CUtensorMap* map, const void* ptr, int heads, int S,
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
             const_cast<void*>(ptr), dims, strides, box, unit,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a [batches, rows, cols] bf16 (or float32) tensor as 3-D boxes of
+// [box_rows, box_cols], no swizzle: a box lands in shared memory row-major,
+// box_cols elements a row; elements past rows or cols read as zeros
+inline bool encode_rows(CUtensorMap* map, const void* ptr, bool bf16,
+                        int batches, int rows, int cols, int box_rows,
+                        int box_cols) {
+  const EncodeTiled fn = encoder();
+  if (!fn) return false;
+  const cuuint64_t es = bf16 ? 2 : 4;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
+                              (cuuint64_t)batches};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * es,
+                                 (cuuint64_t)rows * cols * es};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return fn(map,
+            bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+            3, const_cast<void*>(ptr), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -54,6 +54,15 @@
 // multiplies in the input dtype first; in bfloat16 the two differ by one
 // rounding of dt * x). h_final is written once at the end.
 //
+// The saving form (template SAVE > 0, `selective_scan_save_launch`) also
+// writes h at the start of every SAVE steps, the state before step
+// c * SAVE, into a float32 checkpoint tensor hs [B, ceil(T / SAVE), D, S]
+// that K7's backward (csrc/selective_scan_bwd.cu) recomputes its chunks
+// from: the consumer threads already hold h in registers, so it adds P
+// stores a thread every SAVE steps and no arithmetic, and its y and
+// h_final are those of the plain form bit for bit. The plain launch
+// (SAVE = 0: serving, prefill, no grad) keeps its code.
+//
 // The shape K7_PROD (L, CH, TC) was chosen by a sweep on the card
 // (chip_smoke.py phase 12, selective_scan_sweep_launch) at the jamba
 // prefill shape (2, 1024, 8192, 16) bf16 and the invariant's
@@ -67,93 +76,32 @@
 //
 // ABI: x, dt [B, T, D], bc, cc [B, T, S] (one dtype: 0 = float32,
 // 1 = bf16; contiguous), a float32 [D, S], y [B, T, D] in x's dtype,
-// h float32 [B, D, S]; S = 8 (the tiny configs) or 16 (jamba).
+// h float32 [B, D, S]; S = 8 (the tiny configs) or 16 (jamba); the saving
+// form's hs float32 [B, ceil(T / tc), D, S], tc = 16 or 32.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "scan_common.cuh"
 
 namespace {
 
 using hopper::bulk_load;
+using hopper::ex2;
 using hopper::mbar_arrive;
 using hopper::mbar_expect_tx;
 using hopper::mbar_init;
 using hopper::mbar_wait;
 using hopper::smem_u32;
+using scan::from_f32;
+using scan::kLog2e;
+using scan::load_f32;
+using scan::store_f32;
+using scan::to_f32;
+using scan::unpack2;
 
 constexpr int kStages = 3;
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// the two bf16 of a 32-bit word, as float32 (a bf16 is a float32's top half)
-__device__ __forceinline__ void unpack2(uint32_t w, float& lo, float& hi) {
-  lo = __uint_as_float(w << 16);
-  hi = __uint_as_float(w & 0xffff0000u);
-}
-
-// P consecutive staged values (16-byte aligned when P * sizeof(T) >= 16)
-// as float32, in vector loads
-template <int P>
-__device__ __forceinline__ void load_f32(const float* p, float (&v)[P]) {
-  if constexpr (P % 4 == 0) {
-#pragma unroll
-    for (int q = 0; q < P / 4; ++q) {
-      const float4 w = reinterpret_cast<const float4*>(p)[q];
-      v[4 * q] = w.x;
-      v[4 * q + 1] = w.y;
-      v[4 * q + 2] = w.z;
-      v[4 * q + 3] = w.w;
-    }
-  } else if constexpr (P == 2) {
-    const float2 w = *reinterpret_cast<const float2*>(p);
-    v[0] = w.x;
-    v[1] = w.y;
-  } else {
-    v[0] = p[0];
-  }
-}
-template <int P>
-__device__ __forceinline__ void load_f32(const __nv_bfloat16* p,
-                                         float (&v)[P]) {
-  if constexpr (P % 8 == 0) {
-#pragma unroll
-    for (int q = 0; q < P / 8; ++q) {
-      const uint4 w = reinterpret_cast<const uint4*>(p)[q];
-      unpack2(w.x, v[8 * q], v[8 * q + 1]);
-      unpack2(w.y, v[8 * q + 2], v[8 * q + 3]);
-      unpack2(w.z, v[8 * q + 4], v[8 * q + 5]);
-      unpack2(w.w, v[8 * q + 6], v[8 * q + 7]);
-    }
-  } else if constexpr (P == 4) {
-    const uint2 w = *reinterpret_cast<const uint2*>(p);
-    unpack2(w.x, v[0], v[1]);
-    unpack2(w.y, v[2], v[3]);
-  } else if constexpr (P == 2) {
-    unpack2(*reinterpret_cast<const uint32_t*>(p), v[0], v[1]);
-  } else {
-    v[0] = __bfloat162float(p[0]);
-  }
-}
 
 template <typename T, int S, int L, int CH, int TC>
 struct Cfg {
@@ -175,13 +123,15 @@ struct Cfg {
   static_assert(NT + 32 <= 1024, "at most 1024 threads a CTA");
 };
 
-template <typename T, int S, int L, int CH, int TC>
+template <typename T, int S, int L, int CH, int TC, int SAVE>
 __global__ void __launch_bounds__(CH * L + 32)
     scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
                 const T* __restrict__ bc, const T* __restrict__ cc,
                 const float* __restrict__ a, T* __restrict__ y,
-                float* __restrict__ h_out, int Tn, int D, int vec) {
+                float* __restrict__ h_out, float* __restrict__ hs, int Tn,
+                int D, int vec) {
   using C = Cfg<T, S, L, CH, TC>;
+  static_assert(SAVE == 0 || TC % SAVE == 0, "checkpoints on chunk steps");
   constexpr int P = C::P;
   constexpr int NT = C::NT;  // consumer threads; one producer warp above
   constexpr int kPer = C::kPer;
@@ -324,8 +274,10 @@ __global__ void __launch_bounds__(CH * L + 32)
                  : 0.f;
     h[p] = 0.f;
   }
+  const int nck = SAVE > 0 ? (Tn + SAVE - 1) / SAVE : 0;  // checkpoints
   for (int i = 0; i < nchunks; ++i) {
     const int s = i % kStages;
+    const int t0 = i * TC;
     mbar_wait(full(s), (i / kStages) & 1);
     const T* xr = xs(s);
     const T* dr = dts(s);
@@ -343,6 +295,11 @@ __global__ void __launch_bounds__(CH * L + 32)
     float yv[TC];
 #pragma unroll
     for (int tt = 0; tt < TC; ++tt) {
+      if constexpr (SAVE > 0) {  // h before step t0 + tt, every SAVE steps
+        if (tt % SAVE == 0 && live && t0 + tt < Tn)
+          store_f32<P>(hs + (((size_t)b * nck + (t0 + tt) / SAVE) * D + d) *
+                                S + lane * P, h);
+      }
       const float dtv = to_f32(dr[tt * CH + ch]);
       const float dtx = dtv * to_f32(xr[tt * CH + ch]);
       float bv[P], cv[P];
@@ -392,12 +349,13 @@ bool vec_ok(const void* x, const void* dt, const void* bc, const void* cc,
          (D * sizeof(T)) % 16 == 0 && (S * sizeof(T)) % 16 == 0;
 }
 
-template <typename T, int S, int L, int CH, int TC>
+template <typename T, int S, int L, int CH, int TC, int SAVE = 0>
 cudaError_t launch_cfg(const void* x, const void* dt, const void* bc,
                        const void* cc, const float* a, void* y, float* h,
-                       int B, int Tn, int D, cudaStream_t st) {
+                       int B, int Tn, int D, cudaStream_t st,
+                       float* hs = nullptr) {
   using C = Cfg<T, S, L, CH, TC>;
-  auto kern = scan_kernel<T, S, L, CH, TC>;
+  auto kern = scan_kernel<T, S, L, CH, TC, SAVE>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
   if (err != cudaSuccess) return err;
@@ -405,24 +363,45 @@ cudaError_t launch_cfg(const void* x, const void* dt, const void* bc,
   kern<<<grid, C::NT + 32, C::kSmem, st>>>(
       static_cast<const T*>(x), static_cast<const T*>(dt),
       static_cast<const T*>(bc), static_cast<const T*>(cc), a,
-      static_cast<T*>(y), h, Tn, D, vec_ok<T>(x, dt, bc, cc, D, S));
+      static_cast<T*>(y), h, hs, Tn, D, vec_ok<T>(x, dt, bc, cc, D, S));
   return cudaGetLastError();
 }
 
 // the production shape: lanes a channel, channels a CTA, chunk
 #define K7_PROD 2, 64, 32
 
-template <typename T>
+template <typename T, int SAVE>
 cudaError_t launch_dtype(const void* x, const void* dt, const void* bc,
                          const void* cc, const float* a, void* y, float* h,
-                         int B, int Tn, int D, int S, cudaStream_t st) {
+                         float* hs, int B, int Tn, int D, int S,
+                         cudaStream_t st) {
   switch (S) {
     case 8:
-      return launch_cfg<T, 8, K7_PROD>(x, dt, bc, cc, a, y, h, B, Tn, D, st);
+      return launch_cfg<T, 8, K7_PROD, SAVE>(x, dt, bc, cc, a, y, h, B, Tn,
+                                             D, st, hs);
     case 16:
-      return launch_cfg<T, 16, K7_PROD>(x, dt, bc, cc, a, y, h, B, Tn, D, st);
+      return launch_cfg<T, 16, K7_PROD, SAVE>(x, dt, bc, cc, a, y, h, B, Tn,
+                                              D, st, hs);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <int SAVE>
+int launch_any(const void* x, const void* dt, const void* bc, const void* cc,
+               const void* a, void* y, void* h, void* hs, int B, int Tn,
+               int D, int S, int dtype, void* stream) {
+  if (B < 1 || Tn < 1 || D < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* af = static_cast<const float*>(a);
+  float* hf = static_cast<float*>(h);
+  float* hsf = static_cast<float*>(hs);
+  if (dtype == 0)
+    return (int)launch_dtype<float, SAVE>(x, dt, bc, cc, af, y, hf, hsf, B,
+                                          Tn, D, S, st);
+  if (dtype == 1)
+    return (int)launch_dtype<__nv_bfloat16, SAVE>(x, dt, bc, cc, af, y, hf,
+                                                  hsf, B, Tn, D, S, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -432,16 +411,24 @@ extern "C" int selective_scan_launch(const void* x, const void* dt,
                                      const void* a, void* y, void* h, int B,
                                      int Tn, int D, int S, int dtype,
                                      void* stream) {
-  if (B < 1 || Tn < 1 || D < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* af = static_cast<const float*>(a);
-  float* hf = static_cast<float*>(h);
-  if (dtype == 0)
-    return (int)launch_dtype<float>(x, dt, bc, cc, af, y, hf, B, Tn, D, S,
-                                    st);
-  if (dtype == 1)
-    return (int)launch_dtype<__nv_bfloat16>(x, dt, bc, cc, af, y, hf, B, Tn,
-                                            D, S, st);
+  return launch_any<0>(x, dt, bc, cc, a, y, h, nullptr, B, Tn, D, S, dtype,
+                       stream);
+}
+
+// The saving form: K7 that also writes h at the start of every tc steps
+// into hs [B, ceil(T / tc), D, S] (float32); tc = 16 or 32.
+extern "C" int selective_scan_save_launch(const void* x, const void* dt,
+                                          const void* bc, const void* cc,
+                                          const void* a, void* y, void* h,
+                                          void* hs, int B, int Tn, int D,
+                                          int S, int tc, int dtype,
+                                          void* stream) {
+  if (tc == 16)
+    return launch_any<16>(x, dt, bc, cc, a, y, h, hs, B, Tn, D, S, dtype,
+                          stream);
+  if (tc == 32)
+    return launch_any<32>(x, dt, bc, cc, a, y, h, hs, B, Tn, D, S, dtype,
+                          stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -82,9 +82,13 @@ _ENTRY_POINTS = {
         "selective_scan_config": [_P],
         "selective_scan_sweep_launch": [_P] * 7 + [_I] * 6 + [_P],
         "selective_scan_sweep_configs": [_P, _I],
+        "selective_scan_save_launch": [_P] * 8 + [_I] * 6 + [_P],
     },
     "selective_scan_bwd": {
         "selective_scan_bwd_launch": [_P] * 15 + [_I] * 7 + [_P],
+        "selective_scan_bwd_config": [_P],
+        "selective_scan_bwd_sweep_launch": [_P] * 15 + [_I] * 6 + [_P],
+        "selective_scan_bwd_sweep_configs": [_P, _I],
     },
 }
 

@@ -3,10 +3,10 @@
 A CUDA tensor launches K7 (``selective_scan.py``) or raises; a CPU tensor
 runs the plain version (``ref.py``), whose autograd is the plain version
 of K7's backward. On the card, while grad mode is on and an input
-requires grad, the call goes through ``SelectiveScan`` (K7, then K7's
-backward kernels); otherwise it is K7's plain launch. Both take any T and
-D: the kernels mask a ragged last chunk and channel block, so the Pallas
-wrapper's ``chunk_t``/``block_d`` divisibility does not apply.
+requires grad, the call goes through ``SelectiveScan`` (K7's saving form,
+then K7's backward kernels); otherwise it is K7's plain launch. Both take
+any T and D: the kernels mask a ragged last chunk and channel block, so
+the Pallas wrapper's ``chunk_t``/``block_d`` divisibility does not apply.
 """
 
 from __future__ import annotations
