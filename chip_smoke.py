@@ -347,6 +347,32 @@ Phases (any failed check exits non-zero):
    general form 12, its backward 12; both general forms on the tensor
    cores), the median wall of steps 2-3,
    tokens/s and peak allocated memory.
+20. the cost model and the sharding layer on the card (run last): (a)
+   ``perfmodel.analytic.param_counts`` of all ten configs (from their
+   trees on ``meta``, nothing drawn) and xlstm-1.3b at its published width
+   and depth drawn on the card in bf16, the sum of its tensors' sizes
+   equal to the count; (b) ``launch.specs.batch_specs(cfg,
+   "long_500k")["caches"]`` against ``registry.init_caches(cfg, 1,
+   524288, bf16)`` on the card, leaf by leaf in shape and dtype; (c)
+   xlstm-1.3b's ``long_500k`` cell, one decode step at batch 1 at
+   position 524 287 (CUDA events, median of 10 after 3 warm-ups), no
+   faster than ``roofline_terms(cell_cost(cfg, "long_500k", devices=1),
+   0, 1)["bound_s"]`` under the H100's constants, printed beside the
+   analytic ``flops_fwd`` and ``kv_bytes``, ``FlopCounterMode``'s count of
+   the real step and the real caches' bytes, and ``hbm_bytes`` less its
+   activation term within rel 1e-3 of the card's weight and cache bytes;
+   (d) ``optim.compression.compressed_psum`` on a one-rank NCCL group (an
+   in-process ``HashStore``, no socket) on the card against the same call
+   on a one-rank gloo group on the CPU, bit for bit (else within one
+   quantum, and the phase says which); (e)
+   ``distributed.shard.round_robin_devices(8)`` over the visible cards,
+   and phase 15(a)'s ``sweep_topologies`` with no device given, at once
+   and streamed: each topology on its round-robin card, every lane equal
+   to the sweep's on ``cuda:0``.
+
+``python3 chip_smoke.py --placement CHECKOUT`` runs only 20(e)'s sweeps,
+of the port in another checkout: on a machine of several cards it holds
+the topologies spread over them to the one-card sweep.
 
 ``python3 chip_smoke.py --split-times CHECKOUT`` runs only the split
 backend's ``simulate_fast`` on conv2d at 20k cycles (phase 4's run) of the
@@ -5080,7 +5106,7 @@ def invariant_f32(tag, cfg, params, toks, tol, state_tol):
           f"is off the prefill's by {worst:.3g} x max (bound {state_tol})")
 
 
-def fresh_memory(tag):
+def fresh_memory(tag, phase="18"):
     import gc
 
     import torch
@@ -5089,7 +5115,7 @@ def fresh_memory(tag):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    log(f"[18] device memory before {tag}: "
+    log(f"[{phase}] device memory before {tag}: "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
 
 
@@ -5911,6 +5937,188 @@ def phase_every_family_trains():
             "families": phase_family_training()}
 
 
+def placement_check():
+    """``sweep_topologies`` on phase 15(a)'s grid with no device given, at
+    once and streamed: each topology runs on the card
+    ``round_robin_devices`` gives it, and every lane equals the same
+    sweep's on ``cuda:0``."""
+    import torch
+    from repro_torch import golden
+    from repro_torch.core import MemSimConfig, sweep_topologies
+    from repro_torch.distributed.shard import round_robin_devices
+    from repro_torch.traces import BENCHMARKS
+
+    cfg = MemSimConfig(queue_size=golden.QUEUE_SIZE)
+    trace = BENCHMARKS["conv2d"]()
+    want = sweep_topologies(cfg, trace, TOPO_SWEEP_GRID, TOPO_SWEEP_CYCLES,
+                            device=DEVICE)
+    n_topo = len(want.topologies)
+    cards = [str(d) for d in round_robin_devices(n_topo)]
+    for stream in (False, True):
+        tm = {}
+        t0 = time.perf_counter()
+        got = sweep_topologies(cfg, trace, TOPO_SWEEP_GRID,
+                               TOPO_SWEEP_CYCLES, stream=stream, timings=tm)
+        wall = time.perf_counter() - t0
+        if stream:
+            placed = {r["topology"]: r["device"] for r in tm["per_chunk"]}
+            placed = [placed[gi] for gi in range(n_topo)]
+        else:
+            placed = [r["device"] for r in tm["per_topology"]]
+        form = "streamed" if stream else "at once"
+        check(placed == cards, f"sweep_topologies {form} with no device "
+              f"placed its topologies on {placed}, not {cards}")
+        bad = [i for i, (a, b) in enumerate(zip(want, got)) if same_lane(a, b)]
+        check(len(got) == len(want) and not bad, f"sweep_topologies {form} "
+              f"over {sorted(set(cards))}: lanes {bad} differ from cuda:0's")
+        log(f"[20] sweep_topologies {form}, no device given, on "
+            f"{torch.cuda.device_count()} card(s): {n_topo} topologies on "
+            f"{', '.join(placed)}; all {len(got)} lanes equal the sweep on "
+            f"{DEVICE}; {wall:.3f} s wall")
+
+
+def phase_cost_model():
+    """Phase 20: the analytic cost model, the shape specs,
+    ``compressed_psum`` and ``round_robin_devices`` on the card."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.distributed.shard import round_robin_devices
+    from repro_torch.launch.specs import batch_specs
+    from repro_torch.launch.steps import make_decode_step
+    from repro_torch.models import lm, registry
+    from repro_torch.optim.compression import compressed_psum
+    from repro_torch.perfmodel.analytic import (
+        HBM_BW, PEAK_FLOPS, cell_cost, param_counts, roofline_terms)
+
+    # (a) the counts of every config, then xlstm-1.3b's real tree
+    counts = {name: param_counts(cfg) for name, cfg in sorted(ARCHS.items())}
+    log("[20] param_counts (B total / routed / active): " + "; ".join(
+        f"{n} {c['total'] / 1e9:.3f} / {c['routed_experts'] / 1e9:.3f} / "
+        f"{c['active'] / 1e9:.3f}" for n, c in counts.items()))
+    cfg = get_config("xlstm-1.3b")
+    check(cfg.n_layers == 48 and cfg.d_model == 2048, "xlstm-1.3b config "
+          "is not the published one")
+    fresh_memory("xlstm-1.3b", phase="20")
+    params = lm.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(
+        0), device=DEVICE, dtype=torch.bfloat16)
+    n_real = sum(t.numel() for t in _leaves(params))
+    w_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    check(n_real == counts["xlstm-1.3b"]["total"], f"xlstm-1.3b on the "
+          f"card holds {n_real} parameters, param_counts says "
+          f"{counts['xlstm-1.3b']['total']:.0f}")
+    log(f"[20] xlstm-1.3b on the card: {n_real} parameters = "
+        f"param_counts' total, {w_bytes / 1e9:.3f} GB in bf16 (norm "
+        f"scales and biases float32)")
+
+    # (b) the long_500k cell's cache shapes against the real caches
+    b, s = 1, 524288
+    spec = batch_specs(cfg, "long_500k")["caches"]
+    caches = registry.init_caches(cfg, b, s, torch.bfloat16, device=DEVICE)
+    want = [(tuple(t.shape), t.dtype) for t in _leaves(caches)]
+    got = [(tuple(t.shape), t.dtype) for t in _leaves(spec)]
+    check(got == want and all(t.device.type == "meta"
+                              for t in _leaves(spec)),
+          f"batch_specs' long_500k caches {got[:3]}... differ from "
+          f"init_caches' {want[:3]}...")
+    kv_real = sum(t.numel() * t.element_size() for t in _leaves(caches))
+    log(f"[20] long_500k caches: {len(got)} leaves in {len(caches)} layers "
+        f"agree in shape and dtype; {kv_real} B on the card")
+
+    # (c) one decode step at position 524 287 against the roofline
+    step = make_decode_step(cfg, dtype=torch.bfloat16)
+    token = torch.full((b,), 7, dtype=torch.int32, device=DEVICE)
+    pos = torch.full((b,), s - 1, dtype=torch.int32, device=DEVICE)
+    nxt, logits, caches = step(params, caches, token, pos)
+    check(logits.shape == (b, cfg.vocab) and bool(torch.isfinite(
+        logits).all()), "xlstm long_500k decode logits are not finite")
+    for _ in range(2):
+        nxt, logits, caches = step(params, caches, token, pos)
+    times = []
+    for _ in range(10):
+        e0, e1 = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+        e0.record()
+        nxt, logits, caches = step(params, caches, token, pos)
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+    ms = statistics.median(times)
+    check(bool(torch.isfinite(logits).all()) and all(
+        bool(torch.isfinite(t).all()) for t in _leaves(caches)),
+        "xlstm long_500k decode: logits or states not finite after 13 "
+        "steps")
+    with FlopCounterMode(display=False) as fc:
+        step(params, caches, token, pos)
+    torch.cuda.synchronize()
+    flops_real = fc.get_total_flops()
+    cost = cell_cost(cfg, "long_500k", devices=1)
+    terms = roofline_terms(cost, 0.0, 1)
+    bound_ms = terms["bound_s"] * 1e3
+    log(f"[20] xlstm-1.3b long_500k decode step (B 1, bf16, position "
+        f"{s - 1}): {ms:.3f} ms median of 10 (CUDA events; min "
+        f"{min(times):.3f}, max {max(times):.3f}); analytic bound "
+        f"{bound_ms:.4f} ms ({terms['dominant']}: hbm_bytes "
+        f"{cost.hbm_bytes:.0f} B at {HBM_BW:.3g} B/s; compute "
+        f"{terms['compute_s'] * 1e3:.4f} ms at {PEAK_FLOPS:.3g} FLOP/s), "
+        f"the step at {bound_ms / ms:.3f} of it; roofline_fraction "
+        f"{terms['roofline_fraction']:.6f}; flops_fwd analytic "
+        f"{cost.flops_fwd:.0f}, FlopCounterMode {flops_real}; kv_bytes "
+        f"analytic {cost.kv_bytes:.0f}, real caches {kv_real}; weights "
+        f"{w_bytes} B")
+    check(ms * 1e-3 >= terms["bound_s"], f"the decode step took {ms:.4f} "
+          f"ms, under the analytic bound {bound_ms:.4f} ms: a wrong "
+          f"constant or count")
+    # the bound's bytes, held to the card's: hbm_bytes is the weights at
+    # 2 B a parameter, the caches and an activation term; the model keeps
+    # no float32 norm scale and the mLSTM's C alone (not its n and m), so
+    # it reads ~1e-4 under the real bytes, and 1e-3 is the gate
+    act = cost.tokens * cfg.d_model * 2 * (cfg.n_layers + cfg.n_enc_layers) \
+        * 4
+    rel = (cost.hbm_bytes - act) / (w_bytes + kv_real) - 1.0
+    log(f"[20] hbm_bytes less its activation term {act:.0f} B: "
+        f"{cost.hbm_bytes - act:.0f} B against the card's weights and "
+        f"caches {w_bytes + kv_real} B, rel {rel:.3e} (gate 1e-3)")
+    check(abs(rel) <= 1e-3, f"the analytic bytes {cost.hbm_bytes - act:.0f}"
+          f" B are off the card's weights and caches {w_bytes + kv_real} B "
+          f"by rel {rel:.3e}, more than 1e-3: a wrong count")
+    del params, caches, logits
+
+    # (d) compressed_psum: one NCCL rank on the card, one gloo rank on the
+    # CPU, the same seeded input
+    x = np.random.default_rng(20).normal(0.0, 1.0, (4096, 1024)).astype(
+        np.float32)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        gloo = dist.new_group([0], backend="gloo")
+        on_card = compressed_psum(torch.from_numpy(x).to(DEVICE)).cpu()
+        on_cpu = compressed_psum(torch.from_numpy(x), group=gloo)
+    finally:
+        dist.destroy_process_group()
+    scale = float((np.abs(x).max() + np.float32(1e-12)) / np.float32(127))
+    diff = float((on_card - on_cpu).abs().max())
+    check(diff <= scale, f"compressed_psum: NCCL on the card and gloo on "
+          f"the CPU differ by {diff}, more than one quantum {scale}")
+    log(f"[20] compressed_psum {tuple(x.shape)} float32, one rank: NCCL on "
+        f"the card against gloo on the CPU "
+        + ("bit for bit" if diff == 0 else
+           f"within one quantum ({diff} <= {scale})"))
+
+    # (e) launches placed round-robin over the visible cards
+    n = torch.cuda.device_count()
+    got = round_robin_devices(8)
+    check(got == [torch.device("cuda", i % n) for i in range(8)],
+          f"round_robin_devices(8) on {n} card(s): {got}")
+    log(f"[20] round_robin_devices(8) on {n} card(s): "
+        + ", ".join(str(d) for d in got))
+    placement_check()
+    return {"decode_ms": ms, "bound_ms": bound_ms, "flops_real": flops_real,
+            "psum_bitwise": diff == 0}
+
+
 def k3_step_times():
     """The single-lane persistent K3's device time per executed step on
     the four traces at 100k cycles, three launches each (CUDA events), of
@@ -6267,7 +6475,8 @@ def main():
         return 2
     # --k3-step-times / --k6-bwd-times / --k6-gen-times / --k7-bwd-times
     # / --k7-bwd-parts / --train-kernel-times / --split-times /
-    # --topology-sweep CHECKOUT: only that timing, of that checkout's port
+    # --topology-sweep / --placement CHECKOUT: only that timing or check,
+    # of that checkout's port
     only = {"--k3-step-times": k3_step_times,
             "--k6-bwd-times": k6_bwd_times,
             "--k6-gen-times": k6_gen_times,
@@ -6275,7 +6484,8 @@ def main():
             "--k7-bwd-parts": k7_bwd_parts,
             "--train-kernel-times": train_kernel_times,
             "--split-times": split_times,
-            "--topology-sweep": topology_sweep_times}.get(
+            "--topology-sweep": topology_sweep_times,
+            "--placement": placement_check}.get(
                 sys.argv[1] if len(sys.argv) == 3 else None)
     step_times = only is not None
     root = Path(sys.argv[2]).resolve() if step_times else ROOT
@@ -6329,6 +6539,7 @@ def main():
         k6_bwd["launches"] = timed(phase_train, drills[0])
         families = timed(phase_families)
         trains = timed(phase_every_family_trains)
+        timed(phase_cost_model)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

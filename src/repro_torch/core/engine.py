@@ -74,6 +74,7 @@ from repro_torch.core.simulator import (
     run_cycles,
     state_to_result,
 )
+from repro_torch.distributed.shard import round_robin_devices
 from repro_torch.kernels import build
 from repro_torch.kernels.bank_fsm.fused import (
     DEFAULT_RUN_BUDGET, FusedRunBatch, fused_run_cuda, fused_step_plain,
@@ -1057,8 +1058,11 @@ def sweep_topologies(cfg: MemSimConfig,
     ``run_s`` (wall of every topology's run), ``steps`` (the most any lane
     executed), ``topologies``, ``launches`` (lane-batched K3 launches) and
     ``per_topology`` (``{topology, lanes, compile_s, run_s, steps, device,
-    launches}`` a topology). ``device=None`` runs on the CUDA card and
-    raises without one.
+    launches}`` a topology). ``device=None`` runs on the CUDA cards, the
+    topologies placed round-robin over them
+    (``repro_torch.distributed.shard.round_robin_devices``; every one on
+    ``cuda:0`` with one card), and raises without a card; a ``device``
+    given runs every topology there.
 
     Streaming: grids of at least :func:`_stream_threshold` points, or any
     call that gives a ``checkpoint_dir`` or sets ``stream=True``, route
@@ -1087,19 +1091,27 @@ def sweep_topologies(cfg: MemSimConfig,
      topo_of_point, groups) = _topo_lanes(cfg, trace, points, capacity,
                                           resp_capacity)
     n_points = len(points)
+    devices = [torch.device(d) for d in round_robin_devices(
+        len(topologies), None if device is None else [dev])]
 
     built0 = build.build_count()
     t_c0 = time.perf_counter()
     if dev.type == "cuda" and any(t.fsm_backend != "plain"
                                   for t in topologies):
         build.load()
-        if any(t.fsm_backend == "fused" for t in topologies):
-            preload_batch_forms()
+        for d in dict.fromkeys(devices[gi] for gi, t in enumerate(topologies)
+                               if t.fsm_backend == "fused"):
+            with torch.cuda.device(d):
+                preload_batch_forms()
     compile_s = time.perf_counter() - t_c0
 
     def on_stream(gi: int):
+        """Topology ``gi``'s stream (fused on the card), else its card."""
         s = streams.get(gi)
-        return torch.cuda.stream(s) if s is not None else nullcontext()
+        if s is not None:
+            return torch.cuda.stream(s)
+        d = devices[gi]
+        return torch.cuda.device(d) if d.type == "cuda" else nullcontext()
 
     def start(gi: int):
         """Set up topology ``gi``'s lanes and, fused on the card, enqueue
@@ -1115,7 +1127,7 @@ def sweep_topologies(cfg: MemSimConfig,
                 resp_queue_sizes=[rs[i] for i in idxs],
                 params=[scheds[i] for i in idxs],
                 lane_cfgs=[lane_cfgs[i] for i in idxs],
-                cycle_skip=cycle_skip, batch_mode="lanes", dev=dev)
+                cycle_skip=cycle_skip, batch_mode="lanes", dev=devices[gi])
         return gi, done, t0
 
     def finish(started) -> None:
@@ -1133,8 +1145,9 @@ def sweep_topologies(cfg: MemSimConfig,
     if dev.type == "cuda":
         here = torch.cuda.current_stream(dev)
         for gi in fused:
-            streams[gi] = torch.cuda.Stream(device=dev)
-            # a trace the caller put on the card may still be in flight
+            streams[gi] = torch.cuda.Stream(device=devices[gi])
+            # a trace the caller put on the card may still be in flight,
+            # also where the lanes copy it to another card
             streams[gi].wait_stream(here)
     outs: Dict[int, tuple] = {}
     t_r0 = time.perf_counter()
@@ -1161,7 +1174,7 @@ def sweep_topologies(cfg: MemSimConfig,
             "compile_s": outs[gi][1]["compile_s"],
             "run_s": outs[gi][2],
             "steps": outs[gi][1]["steps"],
-            "device": str(dev),
+            "device": str(devices[gi]),
             "launches": outs[gi][1]["launches"]}
            for gi in range(len(topologies))]
     own = {

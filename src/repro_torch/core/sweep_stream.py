@@ -65,6 +65,7 @@ from repro_torch.core.params import (
     I32, MemSimConfig, ParamSchedule, RuntimeParams)
 from repro_torch.core.simulator import (
     SimResult, Trace, init_state, resolve_device)
+from repro_torch.distributed.shard import round_robin_devices
 from repro_torch.kernels import build
 from repro_torch.kernels.bank_fsm.fused import preload_batch_forms
 
@@ -254,7 +255,9 @@ def stream_sweep(cfg: MemSimConfig,
     copies to the host), ``plan_s`` (the grid's expansion, the chunk plan,
     the fingerprint and the checkpoint's restore) and ``merge_s`` (the
     result table's assembly).
-    ``device=None`` runs on the CUDA card and raises without one.
+    ``device=None`` runs on the CUDA cards, each topology's chunks on the
+    card ``round_robin_devices`` gives it (``cuda:0`` with one card), and
+    raises without a card; a ``device`` given runs every chunk there.
     """
     from repro_torch.checkpoint.store import SweepCheckpoint
 
@@ -268,6 +271,8 @@ def stream_sweep(cfg: MemSimConfig,
                                                resp_capacity)
     n_points = len(points)
     n_topos = len(topologies)
+    devices = [torch.device(d) for d in round_robin_devices(
+        n_topos, None if device is None else [dev])]
     s_max = scheds[0].num_segments
     n_max = max(int(tr.num_requests) for tr in trace_list)
 
@@ -331,15 +336,18 @@ def stream_sweep(cfg: MemSimConfig,
     plan_s = time.perf_counter() - t_plan0
 
     # ---- the kernels: built (or loaded from the cache), every form of
-    # the lane-batched K3 loaded before the first launch -----------------
+    # the lane-batched K3 loaded on every card before the first launch ---
     pending = [ci for ci in range(n_chunks) if ci not in done]
     need = {topologies[chunks[ci][0]].fsm_backend for ci in pending}
     built0 = build.build_count()
     t_c0 = time.perf_counter()
     if dev.type == "cuda" and need - {"plain"}:
         build.load()
-        if "fused" in need:
-            preload_batch_forms()
+        for d in dict.fromkeys(devices[chunks[ci][0]] for ci in pending
+                               if topologies[chunks[ci][0]].fsm_backend
+                               == "fused"):
+            with torch.cuda.device(d):
+                preload_batch_forms()
     compile_s = time.perf_counter() - t_c0
 
     # every distinct trace padded to the sweep's n_max once, as the
@@ -348,16 +356,21 @@ def stream_sweep(cfg: MemSimConfig,
     for tr in trace_list:
         if id(tr) not in padded:
             padded[id(tr)] = _eng._pad_trace(tr, n_max)
-    streams: List[Optional[torch.cuda.Stream]] = [None, None]
+    # two streams a card, chunks alternating between them
+    streams: Dict[torch.device, List[torch.cuda.Stream]] = {}
     if dev.type == "cuda" and pending:
         here = torch.cuda.current_stream(dev)
-        streams = [torch.cuda.Stream(device=dev) for _ in range(2)]
-        for s in streams:
-            # a trace the caller put on the card may still be in flight
-            s.wait_stream(here)
+        for d in dict.fromkeys(devices):
+            streams[d] = [torch.cuda.Stream(device=d) for _ in range(2)]
+            for s in streams[d]:
+                # a trace the caller put on the card may still be in
+                # flight, also where the lanes copy it to another card
+                s.wait_stream(here)
 
-    def on(s):
-        return torch.cuda.stream(s) if s is not None else nullcontext()
+    def on(s, d):
+        if s is not None:
+            return torch.cuda.stream(s)
+        return torch.cuda.device(d) if d.type == "cuda" else nullcontext()
 
     def start(k: int):
         """Set up pending chunk ``k``'s lanes on its stream and, fused on
@@ -366,15 +379,16 @@ def stream_sweep(cfg: MemSimConfig,
         gi, idxs = chunks[ci]
         gcfg = dataclasses.replace(lane_cfgs[idxs[0]], queue_size=cap,
                                    resp_queue_size=rcap)
-        s = streams[k % 2]
+        d = devices[gi]
+        s = streams[d][k % 2] if d in streams else None
         t0 = time.perf_counter()
-        with on(s):
+        with on(s, d):
             finish = _eng._start_batch(
                 gcfg, [padded[id(trace_list[i])] for i in idxs], num_cycles,
                 queue_sizes=[qs[i] for i in idxs],
                 resp_queue_sizes=[rs[i] for i in idxs],
                 params=[scheds[i] for i in idxs], lane_cfgs=None,
-                cycle_skip=cycle_skip, batch_mode="lanes", dev=dev)
+                cycle_skip=cycle_skip, batch_mode="lanes", dev=d)
         return ci, s, finish, time.perf_counter() - t0
 
     per_chunk = []
@@ -392,7 +406,7 @@ def stream_sweep(cfg: MemSimConfig,
         if k + 1 < len(pending) and topologies[gi].fsm_backend == "fused":
             nxt = start(k + 1)
         t_r0 = time.perf_counter()
-        with on(s):
+        with on(s, devices[gi]):
             finals, lane_steps, launches = finish(as_states=True)
             t_r1 = time.perf_counter()
             arrays, counters_keys = _chunk_records(finals, n_max)
@@ -418,7 +432,8 @@ def stream_sweep(cfg: MemSimConfig,
         per_chunk.append({"chunk": ci, "topology": gi, "lanes": len(idxs),
                           "prep_s": prep_s, "run_s": t_r1 - t_r0,
                           "results_s": t_r2 - t_r1, "steps": steps_i,
-                          "launches": int(launches), "device": str(dev)})
+                          "launches": int(launches),
+                          "device": str(devices[gi])})
         if nxt is None and k + 1 < len(pending):
             nxt = start(k + 1)
 

@@ -623,7 +623,7 @@ def fused_run_batch_occupancy(topo: Topology, views, traces, states,
 
 
 def preload_batch_forms() -> None:
-    """Load every form of the lane-batched K3 into the card's context
+    """Load every form of the lane-batched K3 into the current card's context
     before launches that run concurrently: the runtime loads a kernel at
     its first use, and a load may wait until the card is idle, so a form
     first launched while other launches run would start after they end."""

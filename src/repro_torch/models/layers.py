@@ -30,7 +30,10 @@ def truncated_normal(gen: torch.Generator, shape, std: float = 0.02,
     """A normal sample truncated at +-2, times ``std``, drawn in float32
     from ``gen`` on the generator's device, cast to ``dtype`` there and
     then moved to ``device`` (so a seed gives the same values on any
-    device)."""
+    device). On the ``meta`` device it draws nothing and returns a shape
+    (what ``launch.specs.param_shapes`` builds a tree of)."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     t = torch.empty(shape, dtype=F32, device=gen.device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return t.mul_(std).to(dtype).to(device)

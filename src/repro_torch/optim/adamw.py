@@ -52,6 +52,24 @@ def tree_map(fn: Callable, tree: Any) -> Any:
     return fn(tree)
 
 
+def map_with_path(fn: Callable[[Tuple[str, ...], Any], Any], tree: Any,
+                  path: Tuple[str, ...] = (),
+                  is_leaf: Callable[[Any], bool] = lambda x: False) -> Any:
+    """``tree`` (dicts, lists and tuples) with every leaf replaced by
+    ``fn(path, leaf)``; ``path`` holds the dict keys and list indices
+    down to the leaf."""
+    if is_leaf(tree):
+        return fn(path, tree)
+    if isinstance(tree, dict):
+        return {k: map_with_path(fn, v, path + (str(k),), is_leaf)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        out = [map_with_path(fn, v, path + (f"[{i}]",), is_leaf)
+               for i, v in enumerate(tree)]
+        return out if isinstance(tree, list) else tuple(out)
+    return fn(path, tree)
+
+
 def init(params: Any) -> Dict[str, Any]:
     def zeros(t):
         return tree_map(lambda x: torch.zeros_like(x, dtype=F32), t)

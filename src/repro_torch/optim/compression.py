@@ -4,9 +4,9 @@ PyTorch counterpart of ``repro.optim.compression``'s numerics: per-tensor
 symmetric int8 quantisation with an error-feedback residual, so the
 compression noise is re-injected at the next step (Seide et al. /
 EF-SGD). ``compress_tree`` is the transform the train step applies to
-its gradients. The reference's ``compressed_psum`` (int8 on the wire of
-a data-parallel all-reduce) needs a collective over a mesh axis and waits
-for ``distributed/`` (ROADMAP.md §1).
+its gradients; ``compressed_psum`` puts int8 on the wire of a
+data-parallel all-reduce over a ``torch.distributed`` group (the
+reference's over a mesh axis inside ``shard_map``).
 """
 
 from __future__ import annotations
@@ -50,3 +50,24 @@ def compress_tree(grads: Any, error: Any) -> Tuple[Any, Any]:
             out.append(deq.to(g.dtype))
     it = iter(out)
     return tree_map(lambda _: next(it), grads), error
+
+
+def compressed_psum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """int8-on-the-wire all-reduce sum over ``group`` (the default group
+    when None): quantise locally, take the largest scale of the group,
+    requantise against it, all-reduce the int32 payload and dequantise.
+    Works over NCCL for tensors on the card and over gloo for tensors on
+    the CPU; raises when no process group is initialised."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        raise RuntimeError("compressed_psum needs an initialised process "
+                           "group (torch.distributed.init_process_group)")
+    _, scale = _quant_int8(x)
+    scale_max = scale.reshape(1).clone()
+    dist.all_reduce(scale_max, op=dist.ReduceOp.MAX, group=group)
+    scale_max = scale_max.reshape(())
+    # requantise against the global scale so the sum is well-defined
+    q = torch.clamp(torch.round(x / scale_max), -127, 127).to(torch.int32)
+    dist.all_reduce(q, op=dist.ReduceOp.SUM, group=group)
+    return q.to(F32) * scale_max

@@ -46,7 +46,8 @@ def test_scan_covers_the_package():
             "selective_scan.py", "addr_map.py",
             "jamba_v01_52b.py", "effective_bw.py", "sweep_stream.py",
             "exec_cache.py", "store.py", "train.py", "pipeline.py",
-            "adamw.py", "schedules.py", "compression.py"} <= names
+            "adamw.py", "schedules.py", "compression.py", "analytic.py",
+            "specs.py", "partition.py", "shard.py", "mesh.py"} <= names
     paths = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert {"src/repro_torch/core/sweep_stream.py",
             "src/repro_torch/core/exec_cache.py",
@@ -56,7 +57,12 @@ def test_scan_covers_the_package():
             "src/repro_torch/optim/__init__.py",
             "src/repro_torch/optim/adamw.py",
             "src/repro_torch/optim/schedules.py",
-            "src/repro_torch/optim/compression.py"} <= paths
+            "src/repro_torch/optim/compression.py",
+            "src/repro_torch/perfmodel/analytic.py",
+            "src/repro_torch/launch/specs.py",
+            "src/repro_torch/launch/mesh.py",
+            "src/repro_torch/distributed/partition.py",
+            "src/repro_torch/distributed/shard.py"} <= paths
 
 
 def test_training_entry_points_are_exported_and_raise_without_a_card():
